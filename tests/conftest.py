@@ -53,6 +53,12 @@ def have_ref_lib() -> bool:
     return REF_LIB_MAIN.exists()
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (CUDA/Triton kernels); skips "
+        "without one")
+
+
 @pytest.fixture(scope="session")
 def fixtures_dir():
     FIXDIR.mkdir(parents=True, exist_ok=True)
