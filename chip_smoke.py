@@ -5,28 +5,37 @@
 
 1. Prints the card (nvidia-smi name and power limit), torch/CUDA versions
    and which entropy engine runs; exits non-zero without a CUDA device.
+   Starts, in worker processes, the generation of the four test streams
+   (tools/evc_enc, seeded) and their decodes by the numpy oracle backend.
 2. Builds the CUDA kernels from xevd_tpu_torch/csrc with nvcc (sm_90a).
 3. Kernel phases: every hand-written kernel against its plain PyTorch
    version on the card, on numpy-seeded inputs at the shapes of the 1080p
    main path, with exact equality (integer kernels, tolerance 0), and
-   both times; the intra scan on CIF with random CU lists, then on the
-   1080p stream's own frames (step 4).
-4. Slice phase: a 1920x1080 two-frame Baseline all-intra stream and a
-   352x288 four-frame 10-bit one (tools/evc_enc, seeded) are decoded with
-   Decoder(backend=TorchPixelBackend("cuda")) and with the numpy oracle
-   backend; the 10-bit YUV bytes must be equal.  The intra scan kernel is
-   held to its plain version on every 1080p frame's own CU table and
-   planes.  Launch counters are reset just before the counted 1080p
-   decode and must all be > 0 after it.  The counted decode runs three
-   times; each prints its frames/s and per-stage CUDA-event times.
-5. Prints {"kernels": [...]} and, as the last line,
-   {"ok": true, "device": {...}}.
+   both times; the intra scan on CIF with random CU lists, MC on a
+   synthetic 1080p inter frame and at every (plane, case, bit depth),
+   then both on the streams' own frames (step 4).
+4. Slice phase: four streams are decoded with Decoder(backend=
+   TorchPixelBackend("cuda")); each 10-bit YUV must equal the numpy
+   backend's: 1920x1080 Baseline all-intra (2 frames), 352x288 10-bit
+   all-intra (4), 1920x1080 Baseline IPPP (4: bench.py's config-2 stream
+   cut from 16 frames) and 352x288 10-bit RA (5, bi-prediction).  The
+   intra scan kernel is held to its plain version on every 1080p intra
+   frame's own CU table and planes, the MC kernel on every 1080p P
+   frame's own block table and reference planes.  The CLI entry point
+   decodes the RA stream.  Two main paths are counted and timed: the
+   1080p all-intra decode once, then the 1080p IPPP decode three times;
+   the launch counters are reset just before each path and read just
+   after it, and every kernel of the path must have launched.  Each
+   counted decode prints its frames/s and per-stage CUDA-event times.
+5. Prints {"kernels": [...]} (launches from the IPPP path) and, as the
+   last line, {"ok": true, "device": {...}}.
 
 Any failure raises and the exit code is non-zero.  Imports no JAX.
 """
 from __future__ import annotations
 
 import json
+import multiprocessing
 import subprocess
 import sys
 import time
@@ -36,6 +45,14 @@ REPO = Path(__file__).resolve().parent
 WORK = REPO / "build" / "smoke"          # gitignored
 STREAM_DIR = REPO / "tests" / "fixtures"  # gitignored stream cache
 TIMED_RUNS = 3
+# name -> tools/evc_enc.encode_stream arguments (w, h, frames, qp, seed,
+# gop, density, bd)
+STREAMS = {
+    "1080p_i": (1920, 1080, 2, 32, 777, "I", 0.3, 8),
+    "cif10_i": (352, 288, 4, 32, 778, "I", 0.5, 10),
+    "1080p_p": (1920, 1080, 4, 32, 777, "IPPP", 0.3, 8),
+    "cif10_ra": (352, 288, 5, 32, 779, "RA", 0.5, 10),
+}
 
 # name -> (route, source, TPU-side function it replaces)
 KERNELS = {
@@ -55,6 +72,8 @@ KERNELS = {
                            "xevd_tpu/ops/jax_deblock.py:96"),
     "deblock_chroma_hor": ("cuda", "xevd_tpu_torch/csrc/deblock.cu",
                            "xevd_tpu/ops/jax_deblock.py:170"),
+    "mc": ("cuda", "xevd_tpu_torch/csrc/mc.cu",
+           "xevd_tpu/ops/jax_mc.py:50"),
 }
 
 
@@ -121,10 +140,12 @@ def run_case(torch, case, results, reps, plain_reps, main=False):
 def kernel_phases(torch, dev, results):
     """Every kernel against its plain version on numpy-seeded inputs at the
     1080p main path's shapes; the intra scan here on CIF with random CU
-    lists and masks (slice_phase holds it to its plain version on the 1080p
-    stream's own frames)."""
+    lists and masks, MC on a synthetic 1080p inter frame and on small
+    tables of every (plane, case, bit depth) (slice_phase holds both to
+    their plain versions on the 1080p streams' own frames)."""
     from tests.torch_helpers import (deblock_case, intra_case, itdq_case,
-                                     itdq_size_case, pad_case, recon_case)
+                                     itdq_size_case, mc_case, mc_size_case,
+                                     pad_case, recon_case, recon_pred_case)
     from xevd_tpu_torch.ops.tables import BORDER, PAD_C, PAD_L, PAD_R
 
     H, W = 1088, 1920                     # 1080p, CTU-padded
@@ -135,10 +156,22 @@ def kernel_phases(torch, dev, results):
         run_case(torch, itdq_case(dev, bd, H, W, seed=100), results, 10, 2,
                  main=bd == 8)
 
+    log("phase mc")
+    for bd in (8, 10):
+        for is_luma in (True, False):
+            for case in range(4):
+                run_case(torch, mc_size_case(dev, is_luma, case, bd,
+                                             seed=250), results, 10, 3)
+        run_case(torch, mc_case(dev, 1080, 1920, bd, seed=260), results, 10,
+                 3)
+
     log("phase recon/pad")
     for bd in (8, 10):
         run_case(torch, recon_case(dev, bd, BORDER + H + PAD_R,
                                    BORDER + W + PAD_R, seed=200),
+                 results, 50, 50)
+        run_case(torch, recon_pred_case(dev, bd, BORDER + H + PAD_R,
+                                        BORDER + W + PAD_R, seed=230),
                  results, 50, 50, main=bd == 8)
         run_case(torch, pad_case(dev, bd, 1080, 1920, PAD_L, seed=210),
                  results, 50, 50, main=bd == 8)
@@ -156,6 +189,26 @@ def kernel_phases(torch, dev, results):
         for kind in ("luma_ver", "luma_hor", "chroma_ver", "chroma_hor"):
             run_case(torch, deblock_case(dev, kind, bd, 270, 480, seed=400),
                      results, 20, 3, main=bd == 8)
+
+
+def mc_main_path(torch, dev, packed, results):
+    """The MC kernel against its plain version on the 1080p IPPP stream's
+    own P frames: the block tables and reference planes (the DPB's
+    pictures, still on the card) that the main path hands the kernel."""
+    from tests.torch_helpers import mc_table_case
+    from xevd_tpu_torch.ops import pack as PK
+
+    log("phase mc (1080p IPPP stream frames)")
+    inter = [pf for pf in packed if pf.refs]
+    if not inter:
+        raise AssertionError("the IPPP stream has no frame with inter CUs")
+    for i, pf in enumerate(inter):
+        df = PK.upload(pf, dev)
+        shape = (f"1080p P frame {i + 1}, {sum(pf.mc_lists)} blocks, "
+                 f"refs {tuple(pf.refs[0][0].shape)}")
+        run_case(torch, mc_table_case(dev, df.mc, pf.mc_lists, pf.refs,
+                                      pf.shp_y, pf.shp_c, pf.bd, shape),
+                 results, 10, 3, main=i == 0)
 
 
 def intra_main_path(torch, dev, packed, results):
@@ -185,18 +238,28 @@ def intra_main_path(torch, dev, packed, results):
 # --------------------------------------------------------------------------
 # slice phase
 # --------------------------------------------------------------------------
-def make_stream(name, w, h, n, qp, seed, gop, density=0.5, bd=8) -> Path:
+def prepare_stream(name):
+    """Worker: generate stream `name` (cached under tests/fixtures) and
+    decode it with the numpy oracle backend to WORK/<name>_np.yuv; returns
+    (name, frames, generation s, numpy decode s)."""
+    sys.path.insert(0, str(REPO))
+    sys.path.insert(0, str(REPO / "tools"))
+    from xevd_tpu.decoder import NumpyPixelBackend
+    w, h, n, qp, seed, gop, density, bd = STREAMS[name]
     path = STREAM_DIR / f"torch_smoke_{name}.evc"
+    t0 = time.perf_counter()
     if not path.exists():
-        sys.path.insert(0, str(REPO / "tools"))
         import evc_enc
-        t0 = time.perf_counter()
         data = evc_enc.encode_stream(w, h, n, qp, seed, gop, density, bd=bd)
         STREAM_DIR.mkdir(parents=True, exist_ok=True)
-        path.write_bytes(data)
-        log(f"  generated {path.name}: {w}x{h} x{n} bd{bd}, {len(data)} B "
-            f"in {time.perf_counter() - t0:.1f} s")
-    return path
+        tmp = path.with_suffix(".tmp")
+        tmp.write_bytes(data)
+        tmp.replace(path)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    frames = decode_to_yuv(path.read_bytes(), NumpyPixelBackend(),
+                           WORK / f"{name}_np.yuv")
+    return name, frames, t_gen, time.perf_counter() - t0
 
 
 def decode_to_yuv(data: bytes, backend, out: Path) -> int:
@@ -232,92 +295,37 @@ def decode_to_yuv(data: bytes, backend, out: Path) -> int:
     return n
 
 
-def slice_phase(torch, dev, K, results):
-    from xevd_tpu.decoder import NumpyPixelBackend
-    from xevd_tpu_torch import TorchPixelBackend
-    from xevd_tpu_torch.app import main as app_main
-    from xevd_tpu_torch.ops.pipeline import STAGES
-
-    class KeepingBackend(TorchPixelBackend):
-        """Keeps each frame's host payload, to replay its intra scan."""
-
-        def __init__(self, device):
-            super().__init__(device=device)
-            self.packed = []
-
-        def pack_frame(self, job, sps, refp=None):
-            pf = super().pack_frame(job, sps, refp)
-            self.packed.append(pf)
-            return pf
-
-    WORK.mkdir(parents=True, exist_ok=True)
-    log("phase slice: streams")
-    s1080 = make_stream("1080p_i", 1920, 1080, 2, 32, 777, "I", 0.3)
-    scif = make_stream("cif10_i", 352, 288, 4, 32, 778, "I", 0.5, bd=10)
-
-    packed = {}
-    for name, path, nfr in (("cif10", scif, 4), ("1080p", s1080, 2)):
-        data = path.read_bytes()
-        t0 = time.perf_counter()
-        n_np = decode_to_yuv(data, NumpyPixelBackend(), WORK / f"{name}_np.yuv")
-        t_np = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        backend = KeepingBackend(dev)
-        n_t = decode_to_yuv(data, backend, WORK / f"{name}_t.yuv")
-        packed[name] = backend.packed
-        torch.cuda.synchronize()
-        t_t = time.perf_counter() - t0
-        a = (WORK / f"{name}_np.yuv").read_bytes()
-        b = (WORK / f"{name}_t.yuv").read_bytes()
-        if n_np != nfr or n_t != nfr or a != b:
-            raise AssertionError(f"{name}: torch ({n_t} frames) != numpy "
-                                 f"({n_np} frames), {len(a)} vs {len(b)} B")
-        log(f"  {name}: {nfr} frames, 10-bit YUV equal to NumpyPixelBackend "
-            f"({len(a)} B); numpy {t_np:.2f} s, torch first run {t_t:.2f} s")
-    intra_main_path(torch, dev, packed["1080p"], results)
-
-    # the port's CLI entry point on the CIF stream
-    rc = app_main(["-i", str(scif), "-o", str(WORK / "cif10_app.yuv"),
-                   "--output-bit-depth", "10", "--device", dev.type, "-v", "0"])
-    if rc != 0 or (WORK / "cif10_app.yuv").read_bytes() != \
-            (WORK / "cif10_np.yuv").read_bytes():
-        raise AssertionError(f"xevd_tpu_torch.app: rc {rc} or output differs")
-    log("  python -m xevd_tpu_torch.app --device cuda: CIF output equal")
-
-    # the counted, timed main-path run: 1080p through Decoder + torch
-    # backend, three times (the spread of the host clock)
-    marks = []
-
-    def on_stage(name):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((name, ev, time.perf_counter()))
-
-    data = s1080.read_bytes()
-    want = (WORK / "1080p_np.yuv").read_bytes()
-    backend = TorchPixelBackend(device=dev, on_stage=on_stage)
+def counted_run(torch, K, backend, name, reps, marks, stages):
+    """Decode stream `name` `reps` times through the main path with the
+    launch counters reset just before; each run's output must equal the
+    numpy backend's.  Returns (counts, frames/s per run, stage ms a frame
+    of the last run)."""
+    path = STREAM_DIR / f"torch_smoke_{name}.evc"
+    data = path.read_bytes()
+    want = (WORK / f"{name}_np.yuv").read_bytes()
     runs = []
     torch.cuda.synchronize()
     K.reset_counts()
-    for rep in range(TIMED_RUNS):
+    for rep in range(reps):
         marks.clear()
         t0 = time.perf_counter()
-        n = decode_to_yuv(data, backend, WORK / "1080p_t2.yuv")
+        n = decode_to_yuv(data, backend, WORK / f"{name}_t2.yuv")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        if (WORK / "1080p_t2.yuv").read_bytes() != want:
-            raise AssertionError("1080p timed run: output differs from numpy")
-        stage_ms = {s: 0.0 for s in STAGES}
-        for i, (name, ev, t) in enumerate(marks):
-            if name == "start":
+        if (WORK / f"{name}_t2.yuv").read_bytes() != want:
+            raise AssertionError(f"{name} timed run: output differs from "
+                                 "numpy")
+        stage_ms = {s: 0.0 for s in stages}
+        for i, (stage, ev, t) in enumerate(marks):
+            if stage == "start":
                 continue
             _, prev_ev, prev_t = marks[i - 1]
-            stage_ms[name] += ((t - prev_t) * 1e3 if name == "pack"
-                               else prev_ev.elapsed_time(ev))
+            stage_ms[stage] += ((t - prev_t) * 1e3 if stage == "pack"
+                                else prev_ev.elapsed_time(ev))
         stage_ms = {k: v / n for k, v in stage_ms.items()}
         device_ms = sum(v for k, v in stage_ms.items() if k != "pack")
         runs.append(n / wall)
-        log(f"  1080p timed run {rep}: {n} frames in {wall:.4f} s = "
+        log(f"  {name} timed run {rep}: {n} frames in {wall:.4f} s = "
             f"{n / wall:.3f} frames/s (host entropy + pack + device + 10-bit "
             f"write); device stages {device_ms:.3f} of {wall * 1e3 / n:.3f} "
             f"ms a frame ({100 * device_ms * n / (wall * 1e3):.1f} %)")
@@ -325,12 +333,85 @@ def slice_phase(torch, dev, K, results):
             "events between stage marks): " +
             ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items()))
     counts = dict(K.launch_counts)
+    log(f"  launch counts during the {name} runs: {counts}")
+    return counts, runs, stage_ms
+
+
+def slice_phase(torch, dev, K, results, prepared):
+    from xevd_tpu_torch import TorchPixelBackend
+    from xevd_tpu_torch.app import main as app_main
+    from xevd_tpu_torch.ops.pipeline import STAGES
+
+    class KeepingBackend(TorchPixelBackend):
+        """Keeps each frame's host payload, to replay its kernels."""
+
+        def __init__(self, device):
+            super().__init__(device=device)
+            self.packed = []
+
+        def pack_frame(self, job, sps, refp):
+            pf = super().pack_frame(job, sps, refp)
+            self.packed.append(pf)
+            return pf
+
+    log("phase slice: streams (numpy oracle decodes in worker processes)")
+    packed = {}
+    for name in STREAMS:
+        _, n_np, t_gen, t_np = prepared[name].get()
+        path = STREAM_DIR / f"torch_smoke_{name}.evc"
+        t0 = time.perf_counter()
+        backend = KeepingBackend(dev)
+        n_t = decode_to_yuv(path.read_bytes(), backend, WORK / f"{name}_t.yuv")
+        packed[name] = backend.packed
+        torch.cuda.synchronize()
+        t_t = time.perf_counter() - t0
+        a = (WORK / f"{name}_np.yuv").read_bytes()
+        b = (WORK / f"{name}_t.yuv").read_bytes()
+        nfr = STREAMS[name][2]
+        if n_np != nfr or n_t != nfr or a != b:
+            raise AssertionError(f"{name}: torch ({n_t} frames) != numpy "
+                                 f"({n_np} frames), {len(a)} vs {len(b)} B")
+        log(f"  {name}: {nfr} frames, 10-bit YUV equal to NumpyPixelBackend "
+            f"({len(a)} B); stream {t_gen:.2f} s, numpy {t_np:.2f} s, torch "
+            f"first run {t_t:.2f} s")
+    intra_main_path(torch, dev, packed["1080p_i"], results)
+    mc_main_path(torch, dev, packed["1080p_p"], results)
+    packed.clear()
+
+    # the port's CLI entry point on the RA stream (B frames, both lists)
+    ra = STREAM_DIR / "torch_smoke_cif10_ra.evc"
+    rc = app_main(["-i", str(ra), "-o", str(WORK / "cif10_ra_app.yuv"),
+                   "--output-bit-depth", "10", "--device", dev.type,
+                   "-v", "0"])
+    if rc != 0 or (WORK / "cif10_ra_app.yuv").read_bytes() != \
+            (WORK / "cif10_ra_np.yuv").read_bytes():
+        raise AssertionError(f"xevd_tpu_torch.app: rc {rc} or output differs")
+    log("  python -m xevd_tpu_torch.app --device cuda: CIF RA output equal")
+
+    # the counted, timed main paths through Decoder + torch backend: the
+    # 1080p all-intra decode once, the 1080p IPPP decode three times (the
+    # spread of the host clock)
+    marks = []
+
+    def on_stage(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev, time.perf_counter()))
+
+    backend = TorchPixelBackend(device=dev, on_stage=on_stage)
+    counts_i, fps_i, stage_i = counted_run(torch, K, backend, "1080p_i", 1,
+                                           marks, STAGES)
+    missing = [k for k, v in counts_i.items() if v == 0 and k != "mc"]
+    if missing or counts_i["mc"]:
+        raise AssertionError(f"all-intra path: kernels never launched "
+                             f"{missing}, or MC launched ({counts_i})")
+    counts, fps, stage_ms = counted_run(torch, K, backend, "1080p_p",
+                                        TIMED_RUNS, marks, STAGES)
     missing = [k for k, v in counts.items() if v == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing} ({counts})")
-    log(f"  launch counts during the timed runs: {counts}")
-    return counts, runs, stage_ms
+        raise AssertionError(f"kernels never launched on the IPPP main "
+                             f"path: {missing} ({counts})")
+    return counts, (fps_i, stage_i), (fps, stage_ms)
 
 
 def main() -> int:
@@ -348,14 +429,21 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
         f"{sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}, "
         f"native entropy engine: {native.available()}")
-    K.build(verbose=True)      # always from this checkout's sources
-    K.lib()
-    log(f"build: nvcc {K.build_seconds:.1f} s "
-        f"({', '.join(K.SOURCES)} -> {K.BUILD_DIR.relative_to(REPO)})")
+    WORK.mkdir(parents=True, exist_ok=True)
+    # the streams and their numpy decodes take minutes of host time: they
+    # run in worker processes while the kernels build and are compared
+    with multiprocessing.get_context("spawn").Pool(len(STREAMS)) as pool:
+        prepared = {name: pool.apply_async(prepare_stream, (name,))
+                    for name in STREAMS}
+        K.build(verbose=True)      # always from this checkout's sources
+        K.lib()
+        log(f"build: nvcc {K.build_seconds:.1f} s, one process a source "
+            f"({', '.join(K.SOURCES)} -> {K.BUILD_DIR.relative_to(REPO)})")
 
-    results = {}
-    kernel_phases(torch, dev, results)
-    counts, fps, stage_ms = slice_phase(torch, dev, K, results)
+        results = {}
+        kernel_phases(torch, dev, results)
+        counts, intra_run, inter_run = slice_phase(torch, dev, K, results,
+                                                   prepared)
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
@@ -364,9 +452,11 @@ def main() -> int:
                         "replaces": replaces, "launches": counts[name],
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"]})
-    log(f"slice 1080p: frames/s {[round(f, 3) for f in fps]}; stage ms/frame "
-        f"{json.dumps(stage_ms)}; total smoke time "
-        f"{time.perf_counter() - t_start:.1f} s")
+    for name, (fps, stage_ms) in (("1080p all-intra", intra_run),
+                                  ("1080p IPPP", inter_run)):
+        log(f"slice {name}: frames/s {[round(f, 3) for f in fps]}; stage "
+            f"ms/frame {json.dumps(stage_ms)}")
+    log(f"total smoke time {time.perf_counter() - t_start:.1f} s")
     log(gpu_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

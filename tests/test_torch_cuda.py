@@ -16,10 +16,15 @@ from xevd_tpu_torch.kernels import build as K
 from xevd_tpu_torch.ops import deblock as TD
 from xevd_tpu_torch.ops import intra as TI
 from xevd_tpu_torch.ops import itdq as TQ
+from xevd_tpu_torch.ops import mc as TM
+from xevd_tpu_torch.ops import pack as PK
+from xevd_tpu_torch.ops import recon as TR
 from xevd_tpu_torch.ops.tables import PAD_C, PAD_L, device_tables
 
 from .torch_helpers import (compare, deblock_case, intra_case, itdq_case,
-                            itdq_size_case, pad_case, recon_case)
+                            itdq_size_case, mc_case, mc_frame, mc_shapes,
+                            mc_size_case, pad_case, recon_case,
+                            recon_pred_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -33,11 +38,12 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _check(case):
-    """The kernel launched once and equals its plain version exactly."""
+def _check(case, launches=1):
+    """The kernel launched `launches` times and equals its plain version
+    exactly."""
     n = K.launch_counts[case.name]
     assert compare(case) == 0, case.shape
-    assert K.launch_counts[case.name] == n + 1
+    assert K.launch_counts[case.name] == n + launches
 
 
 @pytest.mark.parametrize("bd", [8, 10])
@@ -57,6 +63,25 @@ def test_recon_pad_kernels_match_plain(dev, bd):
     _check(recon_case(dev, bd, 1296, 2128))
     _check(pad_case(dev, bd, 1080, 1920, PAD_L))
     _check(pad_case(dev, bd, 540, 960, PAD_C))
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+def test_recon_kernel_with_prediction_matches_plain(dev, bd):
+    _check(recon_pred_case(dev, bd, 1296, 2128))
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("is_luma", [True, False])
+@pytest.mark.parametrize("case", [0, 1, 2, 3])
+def test_mc_kernel_matches_plain_by_case(dev, case, is_luma, bd):
+    """One launch for each reference list."""
+    _check(mc_size_case(dev, is_luma, case, bd), launches=2)
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("chroma", [True, False])
+def test_mc_kernel_matches_plain_on_frame(dev, bd, chroma):
+    _check(mc_case(dev, 288, 352, bd, chroma, seed=bd), launches=2)
 
 
 @pytest.mark.parametrize("bd", [8, 10])
@@ -90,3 +115,16 @@ def test_wrappers_refuse_cpu_operands_mixed_with_cuda(dev):
     with pytest.raises(ValueError):
         TQ.itdq([coef, None, None], tus, (216, 216), None, 8,
                 device_tables(dev))
+    fs, job, refp = mc_frame(64, 64, 8, True, seed=3, device=dev)
+    table, lists, refs = PK.pack_mc(fs, job, refp, True)
+    shp_y, shp_c = mc_shapes(fs, True)
+    with pytest.raises(ValueError):       # the block table on the CPU
+        TM.mc_all(torch.from_numpy(table), lists, refs, shp_y, shp_c, 8,
+                  device_tables(dev))
+    with pytest.raises(ValueError):       # the tap tables on the CPU
+        TM.mc_all(torch.from_numpy(table).to(dev), lists, refs, shp_y, shp_c,
+                  8, device_tables("cpu"))
+    resid = torch.zeros(8, 8, dtype=torch.int16, device=dev)
+    with pytest.raises(ValueError):       # the prediction on the CPU
+        TR.recon(resid, 8, torch.zeros(8, 8, dtype=torch.int32),
+                 torch.zeros(8, 8, dtype=torch.int8, device=dev))

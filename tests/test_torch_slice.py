@@ -2,7 +2,9 @@
 
 Each stream is decoded by the torch backend (plain PyTorch versions), the
 JAX backend and the numpy oracle backend; the written YUV must be equal
-byte for byte.  Streams the port does not cover are refused."""
+byte for byte (`assert_backends_agree`, which the inter-slice files
+test_torch_inter_p.py and test_torch_inter_ra.py share).  Streams the port
+does not cover are refused."""
 import subprocess
 import sys
 
@@ -43,9 +45,10 @@ def _decode(stream, out, backend, out_bd=10):
     return rc, (out.read_bytes() if out.exists() else b"")
 
 
-@pytest.mark.parametrize("name,w,h,n,qp,seed,gop,bd", CASES)
-def test_torch_equals_jax_and_numpy(fixtures_dir, tmp_path, name, w, h, n,
-                                    qp, seed, gop, bd):
+def assert_backends_agree(fixtures_dir, tmp_path, name, w, h, n, qp, seed,
+                          gop, bd):
+    """Decode one generated stream with the torch, JAX and numpy backends;
+    all n frames written, the three outputs equal."""
     stream = _stream(fixtures_dir, name, w, h, n, qp, seed, gop, bd)
     outs = {}
     for backend in ("torch", "jax", "numpy"):
@@ -55,6 +58,13 @@ def test_torch_equals_jax_and_numpy(fixtures_dir, tmp_path, name, w, h, n,
     assert len(outs["torch"]) == n * w * h * 3  # 4:2:0, 2 bytes a sample
     assert outs["torch"] == outs["jax"], f"{name}: torch != jax"
     assert outs["torch"] == outs["numpy"], f"{name}: torch != numpy"
+
+
+@pytest.mark.parametrize("name,w,h,n,qp,seed,gop,bd", CASES)
+def test_torch_equals_jax_and_numpy(fixtures_dir, tmp_path, name, w, h, n,
+                                    qp, seed, gop, bd):
+    assert_backends_agree(fixtures_dir, tmp_path, name, w, h, n, qp, seed,
+                          gop, bd)
 
 
 def test_eight_bit_output(fixtures_dir, tmp_path):
@@ -71,49 +81,51 @@ def test_eight_bit_output(fixtures_dir, tmp_path):
 def test_dpb_planes_equal_jax(fixtures_dir):
     """The padded DPB pictures (the decoder's state), not only the output:
     the JAX backend's planes, carried into the port with planes_from_numpy,
-    equal the port's own."""
+    equal the port's own, after an intra stream and after an RA stream
+    (the last picture decoded there is a B picture)."""
     from xevd_tpu import Decoder, NAL_UNIT_LENGTH_BYTE, info
     from xevd_tpu.ops.pipeline import JaxPixelBackend
     from xevd_tpu_torch import TorchPixelBackend
     from xevd_tpu_torch.ops.tables import planes_from_numpy
 
-    data = _stream(fixtures_dir, "i96x48", 96, 48, 2, 27, 4, "I").read_bytes()
-    pics = {}
-    for key, backend in (("jax", JaxPixelBackend()),
-                         ("torch", TorchPixelBackend(device="cpu"))):
-        dec = Decoder(backend=backend)
-        pos = 0
-        while pos + NAL_UNIT_LENGTH_BYTE <= len(data):
-            ln, _, _ = info(data[pos:pos + 6])
-            dec.decode(data[pos + 4:pos + 4 + ln])
-            pos += 4 + ln
-        dec._drain_pipeline()
-        pics[key] = dec.last_pic
-    j, t = pics["jax"], pics["torch"]
-    jy, ju, jv = planes_from_numpy(np.asarray(j.y), np.asarray(j.u),
-                                   np.asarray(j.v), "cpu")
-    for a, b in ((jy, t.y), (ju, t.u), (jv, t.v)):
-        assert a.shape == b.shape
-        assert np.array_equal(np.asarray(a), np.asarray(b))
+    for stream in (_stream(fixtures_dir, "i96x48", 96, 48, 2, 27, 4, "I"),
+                   _stream(fixtures_dir, "dpb_ra10_96", 96, 64, 5, 32, 21,
+                           "RA", 10)):
+        data = stream.read_bytes()
+        pics = {}
+        for key, backend in (("jax", JaxPixelBackend()),
+                             ("torch", TorchPixelBackend(device="cpu"))):
+            dec = Decoder(backend=backend)
+            pos = 0
+            while pos + NAL_UNIT_LENGTH_BYTE <= len(data):
+                ln, _, _ = info(data[pos:pos + 6])
+                dec.decode(data[pos + 4:pos + 4 + ln])
+                pos += 4 + ln
+            dec._drain_pipeline()
+            pics[key] = dec.last_pic
+        j, t = pics["jax"], pics["torch"]
+        jy, ju, jv = planes_from_numpy(np.asarray(j.y), np.asarray(j.u),
+                                       np.asarray(j.v), "cpu")
+        for a, b in ((jy, t.y), (ju, t.u), (jv, t.v)):
+            assert a.shape == b.shape
+            assert np.array_equal(np.asarray(a), np.asarray(b))
 
 
-def test_refuses_inter_stream(fixtures_dir, tmp_path):
-    """IPPP: the P frame is refused; no frame is written past it."""
-    stream = _stream(fixtures_dir, "p64", 64, 64, 4, 30, 6, "IPPP")
-    rc, out = _decode(stream, tmp_path / "p.yuv", "torch")
-    assert rc != 0
-    assert len(out) <= 64 * 64 * 3     # at most the I frame before it
-    from xevd_tpu import Decoder, NAL_UNIT_LENGTH_BYTE, info
+def test_refuses_main_p_stream(fixtures_dir, tmp_path):
+    """A Main-profile IPPP stream (test_main_profile.py `m_off_p`) is
+    refused at its SPS, before any frame: Baseline inter is ported, the
+    Main inter tools are not."""
+    stream = _stream(fixtures_dir, "m_off_p", 176, 144, 3, 33, 102, "IPPP",
+                     profile=1)
+    rc, out = _decode(stream, tmp_path / "m.yuv", "torch")
+    assert rc != 0 and out == b""
+    from xevd_tpu import Decoder, info
     from xevd_tpu_torch import TorchPixelBackend
-    dec = Decoder(backend=TorchPixelBackend(device="cpu"))
     data = stream.read_bytes()
-    pos = 0
-    with pytest.raises(UnsupportedStream, match="inter"):
-        while pos + NAL_UNIT_LENGTH_BYTE <= len(data):
-            ln, _, _ = info(data[pos:pos + 6])
-            dec.decode(data[pos + 4:pos + 4 + ln])
-            pos += 4 + ln
-        dec._drain_pipeline()
+    ln, _, _ = info(data[:6])
+    with pytest.raises(UnsupportedStream, match="Main"):
+        Decoder(backend=TorchPixelBackend(device="cpu")).decode(
+            data[4:4 + ln])
 
 
 def test_refuses_main_stream(fixtures_dir, tmp_path):

@@ -1,19 +1,25 @@
 """Shared numpy-seeded inputs of the tests/test_torch_*.py files (planes,
-TU and CU tables, deblock strengths) and the kernel-against-plain-version
-cases that both tests/test_torch_cuda.py and chip_smoke.py run on the card.
-Imports no JAX, so it also serves on a machine without JAX."""
+TU, CU and MC tables, deblock strengths) and the kernel-against-plain-
+version cases that both tests/test_torch_cuda.py and chip_smoke.py run on
+the card.  Imports no JAX, so it also serves on a machine without JAX."""
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Callable
 
 import numpy as np
 import torch
 
+from xevd_tpu import tables as T
 from xevd_tpu.ops.ref_numpy import qp_scale
 from xevd_tpu_torch.ops import deblock as TD
 from xevd_tpu_torch.ops import intra as TI
 from xevd_tpu_torch.ops import itdq as TQ
+from xevd_tpu_torch.ops import mc as TM
+from xevd_tpu_torch.ops import pack as PK
 from xevd_tpu_torch.ops import recon as TR
-from xevd_tpu_torch.ops.tables import BORDER, PAD_R, device_tables
+from xevd_tpu_torch.ops.tables import (BORDER, PAD_C, PAD_L, PAD_R,
+                                       device_tables)
+from xevd_tpu_torch.plane import DevicePlane
 
 
 def quadtree(rng, H, W, log2_max, log2_min):
@@ -99,6 +105,72 @@ def intra_scene(H, W, bd, seed):
                      int(rng.integers(-2 ** 31, 2 ** 31)),
                      int(rng.integers(0, 2)), int(rng.random() > 0.05)))
     return recs, res, np.array(rows, np.int32)
+
+
+def mc_frame(H, W, bd, chroma=True, seed=0, device="cpu"):
+    """A synthetic inter frame over an H x W picture, as the decoder hands
+    it to a backend: (fs, job, refp).  CUs tile the picture in z-order
+    (8..64), a tenth of them intra; each inter CU has refi -1, 0 or 1 in
+    each list (never both -1) and quarter-pel MVs up to +-600, so the MV
+    clip acts near the edges and a clipped MV keeps its filter case.  A
+    fifth of the bi CUs repeat L0's motion on the same picture in L1 (the
+    identical-motion skip).  References: two random padded pictures A and
+    B as DevicePlanes on `device`, lists L0 = (A, B), L1 = (B, A)."""
+    rng = np.random.default_rng(seed)
+    cus = np.array(quadtree(rng, H, W, 6, 3), np.int64)    # (y, x, log2)
+    m = len(cus)
+    mode = np.where(rng.random(m) < 0.1, T.MODE_INTRA, T.MODE_INTER)
+    refi = rng.integers(-1, 2, size=(m, 2))
+    refi[(refi[:, 0] < 0) & (refi[:, 1] < 0), 0] = 0
+    mv = rng.integers(-600, 600, size=(m, 2, 2))
+    same = (rng.random(m) < 0.2) & (refi[:, 0] >= 0)
+    refi[same, 1] = 1 - refi[same, 0]
+    mv[same, 1] = mv[same, 0]
+    ctu = 64
+    fs = SimpleNamespace(
+        cu_x=cus[:, 1], cu_y=cus[:, 0], cu_log2w=cus[:, 2],
+        cu_log2h=cus[:, 2], cu_pred_mode=mode, w=W, h=H,
+        w_pad=-(-W // ctu) * ctu, h_pad=-(-H // ctu) * ctu)
+    job = SimpleNamespace(cu_refi=refi.astype(np.int32),
+                          cu_mv=mv.astype(np.int32))
+
+    def picture(poc):
+        def plane(h, w, pad):
+            return DevicePlane(torch.from_numpy(rng.integers(
+                0, 1 << bd, size=(h + 2 * pad, w + 2 * pad)).astype(
+                    np.int16)).to(device))
+        pic = SimpleNamespace(y=plane(H, W, PAD_L), u=None, v=None)
+        if chroma:
+            pic.u = plane(H // 2, W // 2, PAD_C)
+            pic.v = plane(H // 2, W // 2, PAD_C)
+        return SimpleNamespace(poc=poc, pic=pic)
+    a, b = picture(0), picture(4)
+    return fs, job, [[a, b], [b, a]]
+
+
+def mc_shapes(fs, chroma):
+    """Bordered pred-plane shapes of a frame (as ops/pack.py builds them)."""
+    shp_y = (BORDER + fs.h_pad + PAD_R, BORDER + fs.w_pad + PAD_R)
+    shp_c = ((BORDER + (fs.h_pad >> 1) + PAD_R,
+              BORDER + (fs.w_pad >> 1) + PAD_R) if chroma else None)
+    return shp_y, shp_c
+
+
+def mc_blocks(rng, n, is_luma, case, sizes, refs_hw, frac0=0.25):
+    """n random block positions (slot, gx, gy) of one case in two padded
+    reference planes of shape refs_hw, every window inside; a share
+    `frac0` of the filtering blocks has phase 0, as a clipped MV gives."""
+    fbits, half, ntap = (4, 3, 8) if is_luma else (5, 1, 4)
+    H, W = refs_hw
+    w, h = sizes
+    slot = rng.integers(0, 2, n)
+    ix = rng.integers(half, W - w - ntap + half + 1, n)
+    iy = rng.integers(half, H - h - ntap + half + 1, n)
+    fx = rng.integers(0, 1 << fbits, n) * (case & 1 != 0)
+    fy = rng.integers(0, 1 << fbits, n) * (case & 2 != 0)
+    fx[rng.random(n) < frac0] = 0
+    fy[rng.random(n) < frac0] = 0
+    return slot, (ix << fbits) + fx, (iy << fbits) + fy
 
 
 def strengths(rng, h_scu, w_scu, n=1):
@@ -234,3 +306,81 @@ def deblock_case(dev, kind, bd, h_scu, w_scu, seed=0):
         return [b]
     return KernelCase(f"deblock_{kind}", f"{h_scu * u}x{w_scu * u} bd{bd}",
                       kernel, plain)
+
+
+def mc_case(dev, H, W, bd, chroma=True, seed=0):
+    """MC of a synthetic inter frame (`mc_frame`), packed by ops/pack.py,
+    with every case, both lists and the identical-motion skip."""
+    fs, job, refp = mc_frame(H, W, bd, chroma, seed, dev)
+    table, lists, refs = PK.pack_mc(fs, job, refp, chroma)
+    return mc_table_case(dev, table, lists, refs, *mc_shapes(fs, chroma), bd,
+                         f"{H}x{W} bd{bd}{'' if chroma else ' luma'}, "
+                         f"{lists[0]}+{lists[1]} blocks, {len(refs)} slots")
+
+
+def mc_table_case(dev, table, lists, refs, shp_y, shp_c, bd, shape):
+    """The MC kernel and its plain version on one block table (int32
+    [N, 10], host or device) and per-slot reference planes on `dev`."""
+    tab = device_tables(dev)
+    mc = _dev(np.asarray(table, np.int32), dev) if isinstance(
+        table, np.ndarray) else table
+    return KernelCase(
+        "mc", shape,
+        lambda: list(TM.mc_all(mc, lists, refs, shp_y, shp_c, bd, tab)),
+        lambda: list(TM.mc_all_ref(mc, refs, shp_y, shp_c, bd, tab)))
+
+
+def mc_size_case(dev, is_luma, case, bd, seed=0):
+    """Blocks of one plane group and case at every size (luma 4..64,
+    chroma 2..32, square and not), in both lists over the same cells (so
+    cnt reaches 2), from two reference slots whose second plane holds
+    samples over the whole int16 range (the NN intermediate wraps)."""
+    rng = np.random.default_rng(seed + 7 * case + bd + (100 if is_luma else 0))
+    smax = 64 if is_luma else 32
+    sizes = [(s, s) for s in (smax >> 4, smax >> 3, smax >> 2, smax >> 1,
+                              smax)] + [(smax >> 1, smax >> 3),
+                                        (smax >> 4, smax >> 2)]
+    hw = (3 * smax, 4 * smax)
+    planes = [rng.integers(0, 1 << bd, size=hw),
+              rng.integers(-32768, 32768, size=hw)]
+    # per slot (y, u, v); a chroma row reads u and v, here two different
+    # planes (y is unused by chroma rows)
+    refs = [tuple(None if i and is_luma else
+                  _dev(np.ascontiguousarray(q).astype(np.int16), dev)
+                  for i, q in enumerate((p, p, p[::-1])))
+            for p in planes]
+    cells = 4
+    rows = []
+    for lidx in (0, 1):
+        for k, (w, h) in enumerate(sizes):
+            slot, gx, gy = mc_blocks(rng, cells, is_luma, case, (w, h), hw)
+            for c in range(cells):
+                rows.append((0 if is_luma else 1, w, h, case, slot[c], gx[c],
+                             gy[c], BORDER + c * smax, BORDER + k * smax,
+                             lidx))
+    table = np.array(rows, np.int32)
+    shp = (BORDER + cells * smax + PAD_R, BORDER + len(sizes) * smax + PAD_R)
+    n = len(rows) // 2
+    return mc_table_case(
+        dev, table, (n, n), refs, shp, None if is_luma else shp, bd,
+        f"{'luma' if is_luma else 'chroma'} case {case} bd{bd}, {len(rows)} "
+        "blocks")
+
+
+def recon_pred_planes(bd, H=96, W=160, seed=0):
+    """resid int16, pred int32 and cnt int8 [H, W]: cnt in {0, 1, 2}, pred
+    up to 2^17 so that pred + resid leaves the int16 range (the wrap)."""
+    rng = np.random.default_rng(seed + bd)
+    resid = rng.integers(-32768, 32768, size=(H, W)).astype(np.int16)
+    pred = rng.integers(0, 1 << 17, size=(H, W)).astype(np.int32)
+    pred[: H // 2] >>= 7                 # half the plane in a normal range
+    cnt = rng.integers(0, 3, size=(H, W)).astype(np.int8)
+    return resid, pred, cnt
+
+
+def recon_pred_case(dev, bd, H, W, seed=0):
+    resid, pred, cnt = (_dev(a, dev) for a in recon_pred_planes(bd, H, W,
+                                                                  seed))
+    return KernelCase("recon", f"{H}x{W} bd{bd} with prediction",
+                      lambda: [TR.recon(resid, bd, pred, cnt)],
+                      lambda: [TR.recon_ref(resid, bd, pred, cnt)])

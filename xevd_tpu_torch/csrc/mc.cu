@@ -1,0 +1,159 @@
+// Fractional-pel motion compensation of every inter block of one reference
+// list, added into the int32 prediction planes, with the count planes.
+//
+// Replaces: xevd_tpu/ops/jax_mc.py `mc_bucket` (K3: window gather
+// `_gather_windows`, separable taps `_hfilter` / `_vfilter`) fused with
+// xevd_tpu/ops/pipeline.py `_mc_all` (K4: scatter-add of the predictions
+// and of the count plane).  Arithmetic follows ops/ref_numpy.py `mc_luma` /
+// `mc_chroma` exactly: luma 8 taps at 1/16 pel, chroma 4 taps at 1/32 pel;
+// case 00 copies, N0 and 0N clip (acc >> 6) with no rounding offset, NN
+// truncates its horizontal pass (>> shift1) to int16, a wrap, then rounds
+// with offset2.  The case comes from the table, never from the phase: a
+// clipped MV can have phase 0 under a filtering case, and tap row 0 runs.
+//
+// Bound on the H100: memory traffic and launch width, not arithmetic.  A
+// 64x64 luma NN block reads a 71x71 int16 window (10 KB) and does 8
+// multiply-adds a sample a pass; the prediction and count planes are read
+// and written once a list.
+//
+// Design: one launch per reference list over the frame's MC block table
+// (ops/pack.py `pack_mc`), one CTA per block, blocks of every size and
+// case in the same launch (no per-(size, case) buckets).  The CTA stages
+// its window in shared memory, runs the horizontal pass into an int32
+// shared buffer for NN, then the vertical or single pass, and adds its
+// samples into the planes.  A chroma CTA does u then v with the same
+// position and taps.  Within one list the blocks tile disjoint parts of
+// the picture, and the two lists are two launches on one stream, so the
+// read-modify-write of pred and cnt needs no atomics and is deterministic.
+// The reference planes come as a pointer table in the kernel's parameters
+// (one pitch per plane group), so no plane is stacked or copied.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define MC_THREADS 256
+#define MAX_SLOTS 32
+#define MAX_WIN (64 + 7)
+
+namespace {
+
+struct RefPlanes {
+  const int16_t* p[MAX_SLOTS];
+};
+
+// MC table row: plane, w, h, case, slot, gx, gy, py, px, list
+template <int NTAP, int FBITS>
+__device__ __forceinline__ void mc_plane(
+    const int16_t* __restrict__ ref, int pitch, int32_t* __restrict__ pred,
+    int8_t* __restrict__ cnt, int ps, const int32_t* __restrict__ taps,
+    int w, int h, int cs, int gx, int gy, int py, int px, int bd,
+    int16_t* s_win, int32_t* s_buf) {
+  constexpr int HALF = NTAP / 2 - 1;
+  const int fmask = (1 << FBITS) - 1;
+  const bool hx = cs & 1, vy = cs & 2;
+  const int ix = (gx >> FBITS) - (hx ? HALF : 0);
+  const int iy = (gy >> FBITS) - (vy ? HALF : 0);
+  const int ww = w + (hx ? NTAP - 1 : 0);
+  const int wh = h + (vy ? NTAP - 1 : 0);
+  int tx[NTAP], ty[NTAP];
+#pragma unroll
+  for (int k = 0; k < NTAP; ++k) {
+    tx[k] = taps[(gx & fmask) * NTAP + k];
+    ty[k] = taps[(gy & fmask) * NTAP + k];
+  }
+  const int maxv = (1 << bd) - 1;
+
+  for (int i = threadIdx.x; i < wh * ww; i += blockDim.x) {
+    const int r = i / ww, c = i - r * ww;
+    s_win[i] = ref[(size_t)(iy + r) * pitch + ix + c];
+  }
+  __syncthreads();
+  if (cs == 3) {
+    const int shift1 = bd - 8 < 4 ? bd - 8 : 4;
+    for (int i = threadIdx.x; i < wh * w; i += blockDim.x) {
+      const int r = i / w, c = i - r * w;
+      int acc = 0;
+#pragma unroll
+      for (int k = 0; k < NTAP; ++k) acc += tx[k] * s_win[r * ww + c + k];
+      s_buf[i] = (int16_t)(acc >> shift1);
+    }
+    __syncthreads();
+  }
+  const int shift2 = 20 - bd > 8 ? 20 - bd : 8;
+  const int offset2 = 1 << (shift2 - 1);
+  for (int i = threadIdx.x; i < h * w; i += blockDim.x) {
+    const int y = i / w, x = i - y * w;
+    int v;
+    if (cs == 0) {
+      v = s_win[y * ww + x];
+    } else {
+      int acc = 0;
+      if (cs == 1) {
+#pragma unroll
+        for (int k = 0; k < NTAP; ++k) acc += tx[k] * s_win[y * ww + x + k];
+        acc >>= 6;
+      } else if (cs == 2) {
+#pragma unroll
+        for (int k = 0; k < NTAP; ++k) acc += ty[k] * s_win[(y + k) * ww + x];
+        acc >>= 6;
+      } else {
+#pragma unroll
+        for (int k = 0; k < NTAP; ++k) acc += ty[k] * s_buf[(y + k) * w + x];
+        acc = (acc + offset2) >> shift2;
+      }
+      v = acc < 0 ? 0 : (acc > maxv ? maxv : acc);
+    }
+    const size_t o = (size_t)(py + y) * ps + px + x;
+    pred[o] += v;
+    if (cnt) cnt[o] += 1;
+  }
+  __syncthreads();  // the window and buffer are reused by the next plane
+}
+
+__global__ void __launch_bounds__(MC_THREADS)
+mc_kernel(const int32_t* __restrict__ rows, RefPlanes ref_y,
+          RefPlanes ref_u, RefPlanes ref_v, int pitch_y, int pitch_c,
+          int32_t* pred_y, int32_t* pred_u, int32_t* pred_v, int8_t* cnt_y,
+          int8_t* cnt_c, int ps_y, int ps_c,
+          const int32_t* __restrict__ taps_l,
+          const int32_t* __restrict__ taps_c, int bd) {
+  __shared__ int16_t s_win[MAX_WIN * MAX_WIN];
+  __shared__ int32_t s_buf[MAX_WIN * 64];
+  const int32_t* r = rows + (size_t)blockIdx.x * 10;
+  const int plane = r[0], w = r[1], h = r[2], cs = r[3], slot = r[4];
+  const int gx = r[5], gy = r[6], py = r[7], px = r[8];
+  if (plane == 0) {
+    mc_plane<8, 4>(ref_y.p[slot], pitch_y, pred_y, cnt_y, ps_y, taps_l, w,
+                   h, cs, gx, gy, py, px, bd, s_win, s_buf);
+  } else {
+    mc_plane<4, 5>(ref_u.p[slot], pitch_c, pred_u, cnt_c, ps_c, taps_c, w,
+                   h, cs, gx, gy, py, px, bd, s_win, s_buf);
+    mc_plane<4, 5>(ref_v.p[slot], pitch_c, pred_v, nullptr, ps_c, taps_c, w,
+                   h, cs, gx, gy, py, px, bd, s_win, s_buf);
+  }
+}
+
+}  // namespace
+
+// ref_y / ref_u / ref_v: host arrays of n_slots device plane pointers
+// (ref_u, ref_v NULL for 4:0:0); pitches and plane strides in elements.
+extern "C" int xevd_mc(const void* rows, int n_rows, const void* const* ref_y,
+                       const void* const* ref_u, const void* const* ref_v,
+                       int n_slots, int pitch_y, int pitch_c, void* pred_y,
+                       void* pred_u, void* pred_v, void* cnt_y, void* cnt_c,
+                       int ps_y, int ps_c, const void* taps_l,
+                       const void* taps_c, int bd, void* stream) {
+  if (n_slots < 1 || n_slots > MAX_SLOTS) return (int)cudaErrorInvalidValue;
+  RefPlanes ry = {}, ru = {}, rv = {};
+  for (int s = 0; s < n_slots; ++s) {
+    ry.p[s] = (const int16_t*)ref_y[s];
+    if (ref_u) ru.p[s] = (const int16_t*)ref_u[s];
+    if (ref_v) rv.p[s] = (const int16_t*)ref_v[s];
+  }
+  if (n_rows > 0) {
+    mc_kernel<<<n_rows, MC_THREADS, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)rows, ry, ru, rv, pitch_y, pitch_c, (int32_t*)pred_y,
+        (int32_t*)pred_u, (int32_t*)pred_v, (int8_t*)cnt_y, (int8_t*)cnt_c,
+        ps_y, ps_c, (const int32_t*)taps_l, (const int32_t*)taps_c, bd);
+  }
+  return (int)cudaGetLastError();
+}

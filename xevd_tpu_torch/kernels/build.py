@@ -1,7 +1,8 @@
 """Build the CUDA kernels of `xevd_tpu_torch/csrc` at first use and bind
 them with ctypes.
 
-`nvcc` compiles every `csrc/*.cu` for sm_90a into one shared library with a
+`nvcc` compiles every `csrc/*.cu` for sm_90a, one process per source, all
+started together, and links the objects into one shared library with a
 plain C interface under `build/xevd_tpu_torch/` (gitignored).  No PyTorch
 header is included, so the build takes seconds, not minutes.  A missing
 `nvcc`, a failed build or a failed launch raises; nothing falls back.
@@ -22,9 +23,9 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "xevd_tpu_torch"
-SOURCES = ("itdq.cu", "intra.cu", "deblock.cu")
+SOURCES = ("itdq.cu", "intra.cu", "deblock.cu", "mc.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,11 +39,13 @@ SIGNATURES = {
     "xevd_deblock_luma_hor": (_P, _I, _I, _I, _P, _I, _P),
     "xevd_deblock_chroma_ver": (_P, _I, _I, _I, _P, _I, _P),
     "xevd_deblock_chroma_hor": (_P, _I, _I, _I, _P, _I, _P),
+    "xevd_mc": (_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I,
+                _P, _P, _I, _P),
 }
 
 launch_counts = {"itdq": 0, "recon": 0, "pad": 0, "intra_scan": 0,
                  "deblock_luma_ver": 0, "deblock_luma_hor": 0,
-                 "deblock_chroma_ver": 0, "deblock_chroma_hor": 0}
+                 "deblock_chroma_ver": 0, "deblock_chroma_hor": 0, "mc": 0}
 
 _LIB = None
 build_seconds = None
@@ -67,6 +70,20 @@ def _nvcc() -> str:
                        "kernels of xevd_tpu_torch cannot be built")
 
 
+def _run(cmds):
+    """Run the commands in parallel; raise with the output of the first
+    that fails.  Returns the outputs in order."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, o in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(c)}\n{o}")
+    return outs
+
+
 def build(verbose: bool = False) -> Path:
     """Compile csrc/*.cu into build/xevd_tpu_torch/libxevd_kernels.so;
     returns the library path.  `verbose` adds `-Xptxas -v` and prints the
@@ -74,20 +91,26 @@ def build(verbose: bool = False) -> Path:
     global build_seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = BUILD_DIR / "libxevd_kernels.so"
-    # build under a private name, then rename: a process that loads the
+    # build under private names, then rename: a process that loads the
     # library never sees a half-written file
-    tmp = out.with_name(f"libxevd_kernels.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    tag = f"{os.getpid()}.tmp"
+    objs = [BUILD_DIR / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
+    tmp = out.with_name(f"libxevd_kernels.{tag}.so")
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        outs = _run([[nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose
+                                           else ()),
+                      "-c", "-o", str(o), str(CSRC / s)]
+                     for s, o in zip(SOURCES, objs)])
+        _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}\n"
-                           f"{r.stdout}\n{r.stderr}")
     os.replace(tmp, out)
     if verbose:
-        print(r.stdout + r.stderr)
+        print("".join(outs))
     return out
 
 

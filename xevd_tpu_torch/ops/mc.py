@@ -1,0 +1,174 @@
+"""Fractional-pel motion compensation of a frame's inter blocks into int32
+prediction and count planes (the port of K3 `mc_bucket`,
+xevd_tpu/ops/jax_mc.py:50, fused with K4 `_mc_all`,
+xevd_tpu/ops/pipeline.py:179).
+
+`mc_all` launches the CUDA kernel (csrc/mc.cu) once per reference list over
+the frame's MC block table (ops/pack.py `pack_mc`) for CUDA reference
+planes, and runs `mc_all_ref`, the plain PyTorch version, for CPU ones.
+With CUDA planes every operand, the block table and the tap tables
+included, must be on the card.  Baseline taps only: Main streams, whose
+ADMVP taps are not ported, are refused at their SPS."""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..kernels import build as K
+from .pack import (MAX_REF_SLOTS, MC_CASE, MC_GX, MC_GY, MC_H, MC_PLANE,
+                   MC_PX, MC_PY, MC_SLOT, MC_W)
+
+
+def mc_blocks_ref(refs, slot, gx, gy, case, w, h, bd, is_luma, tables):
+    """refs int16 [R, H, W]; slot, gx, gy [N] -> int32 [N, h, w], clipped
+    to [0, 2^bd - 1] (case 00 copies).  gx, gy are 1/16-pel (luma) or
+    1/32-pel (chroma) positions from the padded plane origin; `case` (0 =
+    00, 1 = N0, 2 = 0N, 3 = NN) chooses the filters, whatever the phase:
+    a clipped MV can give phase 0 with taps, and tap row 0 then runs.
+    N0 and 0N round nothing; NN truncates its intermediate to int16 (a
+    wrap) and rounds (ref: xevd_tpu/ops/jax_mc.py:50-96)."""
+    if is_luma:
+        fbits, ntap, tbl = 4, 8, tables["mc_l"]
+    else:
+        fbits, ntap, tbl = 5, 4, tables["mc_c"]
+    dev = refs.device
+    slot, gx, gy = (t.to(dev, torch.int64) for t in (slot, gx, gy))
+    half = ntap // 2 - 1
+    maxv = (1 << bd) - 1
+    taps_x, taps_y = case & 1, case & 2
+    x0 = (gx >> fbits) - (half if taps_x else 0)
+    y0 = (gy >> fbits) - (half if taps_y else 0)
+    ww = w + (ntap - 1 if taps_x else 0)
+    wh = h + (ntap - 1 if taps_y else 0)
+    win = refs[slot[:, None, None],
+               y0[:, None, None] + torch.arange(wh, device=dev)[None, :, None],
+               x0[:, None, None] + torch.arange(ww, device=dev)[None, None, :]
+               ].to(torch.int32)
+    if case == 0:
+        return win
+    tx = tbl[gx & ((1 << fbits) - 1)].to(dev)[:, :, None, None]  # [N,ntap,1,1]
+    ty = tbl[gy & ((1 << fbits) - 1)].to(dev)[:, :, None, None]
+    if case == 1:
+        acc = sum(tx[:, k] * win[:, :, k:k + w] for k in range(ntap))
+        return (acc >> 6).clamp(0, maxv)
+    if case == 2:
+        acc = sum(ty[:, k] * win[:, k:k + h, :] for k in range(ntap))
+        return (acc >> 6).clamp(0, maxv)
+    shift1 = min(4, bd - 8)
+    shift2 = max(8, 20 - bd)
+    buf = sum(tx[:, k] * win[:, :, k:k + w] for k in range(ntap))
+    buf = (buf >> shift1).to(torch.int16).to(torch.int32)
+    acc = sum(ty[:, k] * buf[:, k:k + h, :] for k in range(ntap))
+    return ((acc + (1 << (shift2 - 1))) >> shift2).clamp(0, maxv)
+
+
+def _new_planes(shp_y, shp_c, device):
+    """Zero (pred_y, cnt_y, pred_u, pred_v, cnt_c); chroma None for 4:0:0.
+    Intra CUs, and L1-only CUs in list 0, keep zero."""
+    def z(shp, dt):
+        return torch.zeros(shp, dtype=dt, device=device)
+    if shp_c is None:
+        return z(shp_y, torch.int32), z(shp_y, torch.int8), None, None, None
+    return (z(shp_y, torch.int32), z(shp_y, torch.int8),
+            z(shp_c, torch.int32), z(shp_c, torch.int32), z(shp_c, torch.int8))
+
+
+def mc_all_ref(mc, refs, shp_y, shp_c, bd, tables):
+    """Plain version of `mc_all`: rows grouped by (plane, w, h, case), each
+    group predicted by `mc_blocks_ref` and scatter-added into the planes,
+    its count plane by one (ref: xevd_tpu/ops/pipeline.py:179-215)."""
+    dev = refs[0][0].device
+    pred_y, cnt_y, pred_u, pred_v, cnt_c = planes = _new_planes(
+        shp_y, shp_c, dev)
+    stacks = [None if refs[0][i] is None else torch.stack([r[i] for r in refs])
+              for i in range(3)]
+    rows = mc.cpu().to(torch.int64)
+    keys = (rows[:, MC_PLANE] << 20 | rows[:, MC_W] << 12 | rows[:, MC_H] << 4
+            | rows[:, MC_CASE])
+    for key in torch.unique(keys).tolist():
+        sel = rows[(keys == key).nonzero()[:, 0]].to(dev)
+        plane, w, h, case = key >> 20, (key >> 12) & 255, (key >> 4) & 255, \
+            key & 15
+        yy = sel[:, MC_PY, None, None] + torch.arange(h, device=dev)[
+            None, :, None]
+        xx = sel[:, MC_PX, None, None] + torch.arange(w, device=dev)[
+            None, None, :]
+        args = (sel[:, MC_SLOT], sel[:, MC_GX], sel[:, MC_GY], case, w, h, bd,
+                plane == 0, tables)
+        if plane == 0:
+            pred_y.index_put_((yy, xx), mc_blocks_ref(stacks[0], *args),
+                              accumulate=True)
+            cnt = cnt_y
+        else:
+            pred_u.index_put_((yy, xx), mc_blocks_ref(stacks[1], *args),
+                              accumulate=True)
+            pred_v.index_put_((yy, xx), mc_blocks_ref(stacks[2], *args),
+                              accumulate=True)
+            cnt = cnt_c
+        cnt.index_put_((yy, xx), torch.ones((), dtype=torch.int8, device=dev)
+                       .expand(yy.shape[0], h, w), accumulate=True)
+    return planes
+
+
+def mc_all(mc, lists, refs, shp_y, shp_c, bd, tables):
+    """mc: int32 [N, 10] MC block table (ops/pack.py), `lists` = (rows of
+    list 0, rows of list 1), list 0 first; refs: per slot a (y, u, v)
+    tuple of padded int16 reference planes (u, v None for 4:0:0).
+    Returns (pred_y, cnt_y, pred_u, pred_v, cnt_c): int32 prediction sums
+    and int8 counts over bordered planes of shapes shp_y / shp_c."""
+    if not refs:
+        raise ValueError("mc_all: no reference planes")
+    if refs[0][0].device.type == "cpu":
+        return mc_all_ref(mc, refs, shp_y, shp_c, bd, tables)
+    return _mc_cuda(mc, lists, refs, shp_y, shp_c, bd, tables)
+
+
+def _ref_pointers(refs, i):
+    """ctypes array of the slots' plane-i pointers, and their row pitch;
+    every plane must have the same shape."""
+    planes = [r[i] for r in refs]
+    for p in planes:
+        K.require(p, torch.int16, 2, contiguous=True)
+    if len({tuple(p.shape) for p in planes}) != 1:
+        raise ValueError("mc_all: reference planes differ in shape")
+    arr = (ctypes.c_void_p * MAX_REF_SLOTS)(*[p.data_ptr() for p in planes])
+    return arr, planes[0].stride(0)
+
+
+def _mc_cuda(mc, lists, refs, shp_y, shp_c, bd, tables):
+    chroma = shp_c is not None
+    K.require(mc, torch.int32, 2, contiguous=True)
+    K.require(tables["mc_l"], torch.int32, 2, contiguous=True)
+    K.require(tables["mc_c"], torch.int32, 2, contiguous=True)
+    if mc.shape[1] != 10:
+        raise ValueError(f"MC table wants 10 columns, got {tuple(mc.shape)}")
+    n0, n1 = lists
+    if n0 + n1 != mc.shape[0]:
+        raise ValueError(f"MC lists {lists} != {mc.shape[0]} table rows")
+    if len(refs) > MAX_REF_SLOTS:
+        raise ValueError(f"{len(refs)} reference slots > {MAX_REF_SLOTS}")
+    if chroma != (refs[0][1] is not None):
+        raise ValueError("mc_all: chroma reference planes and shp_c disagree")
+    ref_y, pitch_y = _ref_pointers(refs, 0)
+    ref_u, pitch_c = _ref_pointers(refs, 1) if chroma else (None, 0)
+    ref_v, _ = _ref_pointers(refs, 2) if chroma else (None, 0)
+    if chroma and refs[0][1].shape != refs[0][2].shape:
+        raise ValueError("mc_all: u and v reference planes differ in shape")
+    pred_y, cnt_y, pred_u, pred_v, cnt_c = planes = _new_planes(
+        shp_y, shp_c, mc.device)
+    lib = K.lib()
+    stream = K.stream_ptr(mc.device)
+    for off, n in ((0, n0), (n0, n1)):
+        if n == 0:
+            continue
+        K.count("mc")
+        err = lib.xevd_mc(
+            mc[off:].data_ptr(), n, ref_y, ref_u, ref_v, len(refs), pitch_y,
+            pitch_c, pred_y.data_ptr(), pred_u.data_ptr() if chroma else None,
+            pred_v.data_ptr() if chroma else None, cnt_y.data_ptr(),
+            cnt_c.data_ptr() if chroma else None, pred_y.stride(0),
+            pred_u.stride(0) if chroma else 0, tables["mc_l"].data_ptr(),
+            tables["mc_c"].data_ptr(), bd, stream)
+        K.check(err, "xevd_mc")
+    return planes

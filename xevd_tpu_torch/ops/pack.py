@@ -1,11 +1,12 @@
 """Host half of one frame: the per-frame syntax tensors as one flat payload.
 
-JAX-free port of `_Packer`, `_pack_itdq` and `_pack_intra`
-(xevd_tpu/ops/pipeline.py:79-116, 580-675, 813-833) for the Baseline
-all-intra slice.  What the JAX version does only to keep jit signatures
-stable is gone: no pow2 bucket padding, no pad rows at 1<<20, no per-size
-buckets.  The TU table is one list that the ITDQ kernel walks in a single
-launch.
+JAX-free port of `_Packer`, `_pack_itdq`, `_pack_mc` and `_pack_intra`
+(xevd_tpu/ops/pipeline.py:79-116, 580-833) for Baseline intra and inter
+frames.  What the JAX version does only to keep jit signatures stable is
+gone: no pow2 bucket padding, no pad rows at 1<<20, no per-size or
+per-(size, case) buckets.  The TU table and the MC block table are one list
+each, which the ITDQ kernel walks in a single launch and the MC kernel in
+one launch per reference list.
 
 Per frame there is one int32 payload and one int16 coefficient buffer, so
 two host->device copies.  Both are fresh host arrays: the native entropy
@@ -21,12 +22,21 @@ import torch
 from xevd_tpu import tables as T
 from xevd_tpu.syntax import UnsupportedStream
 
-from .tables import BORDER, PAD_R
+from ..plane import DevicePlane
+from .tables import BORDER, PAD_C, PAD_L, PAD_R
 
 # TU table columns (one row per transform unit)
 TU_COMP, TU_LOG2W, TU_LOG2H, TU_SCALE, TU_Y, TU_X = range(6)
 # CU table columns of the Baseline intra scan (xevd_tpu/ops/pipeline.py:825)
 CU_X, CU_Y, CU_LOG2, CU_IPM, CU_UP, CU_LEFT, CU_CORNER, CU_VALID = range(8)
+# MC block table columns (one row per inter CU, reference list and plane
+# group): plane (0 luma, 1 chroma u and v), block w, h, filter case
+# (0 = 00, 1 = N0, 2 = 0N, 3 = NN), reference slot, position gx, gy in
+# 1/16 (luma) or 1/32 (chroma) pel from the padded reference origin, the
+# block's top-left py, px in the bordered planes, reference list
+(MC_PLANE, MC_W, MC_H, MC_CASE, MC_SLOT, MC_GX, MC_GY, MC_PY, MC_PX,
+ MC_LIST) = range(10)
+MAX_REF_SLOTS = 32      # the MC kernel's pointer table (csrc/mc.cu)
 
 
 class Packer:
@@ -106,9 +116,125 @@ def pack_intra(fs, job) -> np.ndarray:
          np.ones(len(idx), np.int32)], 1).astype(np.int32)
 
 
+def _ref_tensor(plane) -> torch.Tensor:
+    if not isinstance(plane, DevicePlane):
+        raise TypeError("reference picture plane is not a DevicePlane: the "
+                        "torch backend predicts only from its own pictures")
+    return plane.t
+
+
+def pack_mc(fs, job, refp, chroma):
+    """(table, lists, refs): the MC block table int32 [N, 10] (columns
+    MC_*), the rows of list 0 first; lists = (rows of list 0, rows of list
+    1); the reference planes, one (y, u, v) tensor tuple per slot (u, v
+    None for 4:0:0).
+
+    Port of `_pack_mc` (xevd_tpu/ops/pipeline.py:678-799): MV clip, the
+    identical-motion skip, the (list, refi) -> slot map.  The filter case
+    comes from the MV before clipping, the position from the clipped MV
+    (ref: src_base/xevd_mc.c:435-557).  Raises ValueError when a block or
+    its filter window, taps included, would leave its plane: the kernel
+    reads without clamping."""
+    idx = np.nonzero(fs.cu_pred_mode != T.MODE_INTRA)[0]
+    if len(idx) == 0:
+        return np.zeros((0, 10), np.int32), (0, 0), ()
+    x = fs.cu_x[idx].astype(np.int64)
+    y = fs.cu_y[idx].astype(np.int64)
+    lw = fs.cu_log2w[idx].astype(np.int64)
+    lh = fs.cu_log2h[idx].astype(np.int64)
+    if (lw < 2).any() or (lw > 6).any() or (lh < 2).any() or (lh > 6).any():
+        raise ValueError("inter CU size outside 4..64")
+    cuw, cuh = 1 << lw, 1 << lh
+    if (x + cuw > fs.w_pad).any() or (y + cuh > fs.h_pad).any():
+        raise ValueError("inter CU outside the CTU-padded picture")
+    refi = job.cu_refi[idx]                        # [M, 2]
+    mv = job.cu_mv[idx].astype(np.int64)           # [M, 2, 2]
+
+    # MV clip (ref: src_base/xevd_mc.c:435-467)
+    x4, y4 = (x << 2)[:, None], (y << 2)[:, None]
+    w4, h4 = (cuw << 2)[:, None], (cuh << 2)[:, None]
+    lo = -(T.MAX_CU_SIZE << 2)
+    hix = (fs.w - 1 + T.MAX_CU_SIZE) << 2
+    hiy = (fs.h - 1 + T.MAX_CU_SIZE) << 2
+    mvx, mvy = mv[:, :, 0], mv[:, :, 1]
+    mvx_c = np.where(x4 + mvx < lo, lo - x4, mvx)
+    mvy_c = np.where(y4 + mvy < lo, lo - y4, mvy)
+    mvx_c = np.where(x4 + mvx + w4 - 4 > hix, hix - x4 - w4 + 4, mvx_c)
+    mvy_c = np.where(y4 + mvy + h4 - 4 > hiy, hiy - y4 - h4 + 4, mvy_c)
+
+    # identical motion in both lists is predicted once
+    # (ref: src_base/xevd_mc.c:512-519)
+    valid = refi >= 0
+    used = sorted({(lidx, int(r)) for lidx in range(2)
+                   for r in np.unique(refi[valid[:, lidx], lidx])})
+    if len(used) > MAX_REF_SLOTS:
+        raise ValueError(f"{len(used)} reference slots > {MAX_REF_SLOTS}")
+    n_ref = max(int(refi.max()) + 1, 1)
+    poc = np.full((2, n_ref), -(1 << 30), np.int64)
+    slot_of = np.zeros((2, n_ref), np.int32)
+    refs = []
+    for s, (lidx, r) in enumerate(used):
+        poc[lidx, r] = refp[r][lidx].poc
+        slot_of[lidx, r] = s
+        pic = refp[r][lidx].pic
+        refs.append((_ref_tensor(pic.y),
+                     _ref_tensor(pic.u) if chroma else None,
+                     _ref_tensor(pic.v) if chroma else None))
+    ri = np.maximum(refi, 0)
+    pocs = np.stack([poc[0, ri[:, 0]], poc[1, ri[:, 1]]], 1)
+    dup = (valid[:, 0] & valid[:, 1] & (pocs[:, 0] == pocs[:, 1])
+           & (mvx_c[:, 0] == mvx_c[:, 1]) & (mvy_c[:, 0] == mvy_c[:, 1]))
+    valid[:, 1] &= ~dup
+
+    rows = []
+    for lidx in range(2):
+        sel = np.nonzero(valid[:, lidx])[0]
+        if len(sel) == 0:
+            continue
+        gx16 = ((x[sel] << 2) + mvx_c[sel, lidx]) << 2
+        gy16 = ((y[sel] << 2) + mvy_c[sel, lidx]) << 2
+        slot = slot_of[lidx, refi[sel, lidx]]
+        mx, my = mvx[sel, lidx] << 2, mvy[sel, lidx] << 2
+        planes = [(0, 0, 15, PAD_L << 4)]
+        if chroma:
+            planes.append((1, 1, 31, PAD_C << 5))
+        for plane, s, frac, org in planes:
+            case = ((mx & frac) != 0) * 1 + ((my & frac) != 0) * 2
+            rows.append(np.stack(
+                [np.full(len(sel), plane), cuw[sel] >> s, cuh[sel] >> s,
+                 case, slot, gx16 + org, gy16 + org,
+                 (y[sel] >> s) + BORDER, (x[sel] >> s) + BORDER,
+                 np.full(len(sel), lidx)], 1))
+    table = (np.concatenate(rows) if rows
+             else np.zeros((0, 10), np.int64))
+    _check_mc_windows(table, refs)
+    lists = tuple(int((table[:, MC_LIST] == i).sum()) for i in (0, 1))
+    return table.astype(np.int32), lists, tuple(refs)
+
+
+def _check_mc_windows(table, refs):
+    """Every filter window, taps included, inside its reference plane."""
+    for plane in (0, 1):
+        t = table[table[:, MC_PLANE] == plane]
+        if len(t) == 0:
+            continue
+        fb, half, ntap = (4, 3, 8) if plane == 0 else (5, 1, 4)
+        shapes = {tuple(r[plane].shape) for r in refs}
+        if len(shapes) != 1:
+            raise ValueError(f"reference planes differ in shape: {shapes}")
+        (H, W), = shapes
+        for pos, size, bit in ((MC_GX, MC_W, 1), (MC_GY, MC_H, 2)):
+            taps = (t[:, MC_CASE] & bit) != 0
+            lo = (t[:, pos] >> fb) - np.where(taps, half, 0)
+            hi = lo + t[:, size] + np.where(taps, ntap - 1, 0)
+            if (lo < 0).any() or (hi > (W if bit == 1 else H)).any():
+                raise ValueError("MC window outside its reference plane")
+
+
 @dataclass
 class PackedFrame:
-    """Everything the device half of one frame needs, on the host."""
+    """Everything the device half of one frame needs: host arrays, and the
+    reference planes that MC reads, which stay on the device."""
     payload: np.ndarray          # int32, see `layout`
     layout: dict                 # name -> (offset, shape)
     coefs: np.ndarray            # int16: coef_y then coef_u, coef_v, flat
@@ -119,6 +245,8 @@ class PackedFrame:
     geom: tuple                  # (h, w, h_scu, w_scu)
     shp_y: tuple                 # bordered working plane shapes
     shp_c: tuple | None
+    mc_lists: tuple              # MC table rows of list 0, of list 1
+    refs: tuple                  # per slot: (y, u, v) reference tensors
 
 
 @dataclass
@@ -127,6 +255,7 @@ class DeviceFrame:
     device buffers)."""
     tus: torch.Tensor            # int32 [Nt, 6]
     icu: torch.Tensor            # int32 [Nc, 8]
+    mc: torch.Tensor             # int32 [Nm, 10], list 0 rows first
     dbst: torch.Tensor | None    # int32 [6, h_scu, w_scu]
     coef_y: torch.Tensor         # int16 [h_pad, w_pad]
     coef_u: torch.Tensor | None
@@ -134,16 +263,14 @@ class DeviceFrame:
     packed: PackedFrame
 
 
-def pack_frame(job, sps) -> PackedFrame:
-    """Build the payload of one Baseline all-intra frame; refuse the rest."""
+def pack_frame(job, sps, refp) -> PackedFrame:
+    """Build the payload of one Baseline frame (intra, P or B); refuse the
+    rest.  `refp[refi][list]` are the reference pictures (xevd_tpu.dpb)."""
     fs = job.fs
     bd = sps.bit_depth_luma_minus8 + 8
     cfi = sps.chroma_format_idc
     if cfi not in (0, 1):
         raise UnsupportedStream("torch backend: 4:2:0/4:0:0 only")
-    if (fs.cu_pred_mode != T.MODE_INTRA).any():
-        raise UnsupportedStream("torch backend: inter CUs are not ported yet "
-                                "(Baseline all-intra frames only)")
     if job.alf_param is not None:
         raise UnsupportedStream("torch backend: ALF is Main only")
     if getattr(job, "addb_luma", None) is not None:
@@ -154,6 +281,8 @@ def pack_frame(job, sps) -> PackedFrame:
     pk = Packer()
     pk.add("tus", pack_itdq(fs, bd, chroma))
     pk.add("icu", pack_intra(fs, job))
+    mc, mc_lists, refs = pack_mc(fs, job, refp, chroma)
+    pk.add("mc", mc)
     if deblock_on:
         dbst = np.stack([job.db_ver_y, job.db_hor_y, job.db_ver_u,
                          job.db_hor_u, job.db_ver_v, job.db_hor_v])
@@ -173,7 +302,8 @@ def pack_frame(job, sps) -> PackedFrame:
         coef_shapes=(fs.coef_y.shape,
                      fs.coef_u.shape if chroma else None),
         bd=bd, chroma=chroma, deblock_on=deblock_on,
-        geom=(fs.h, fs.w, fs.h_scu, fs.w_scu), shp_y=shp_y, shp_c=shp_c)
+        geom=(fs.h, fs.w, fs.h_scu, fs.w_scu), shp_y=shp_y, shp_c=shp_c,
+        mc_lists=mc_lists, refs=refs)
 
 
 def upload(pf: PackedFrame, device: torch.device) -> DeviceFrame:
@@ -195,6 +325,7 @@ def upload(pf: PackedFrame, device: torch.device) -> DeviceFrame:
         n = hc * wc
         coef_u = coefs[hy * wy:hy * wy + n].view(hc, wc)
         coef_v = coefs[hy * wy + n:hy * wy + 2 * n].view(hc, wc)
-    return DeviceFrame(tus=view("tus"), icu=view("icu"), dbst=view("dbst"),
+    return DeviceFrame(tus=view("tus"), icu=view("icu"), mc=view("mc"),
+                       dbst=view("dbst"),
                        coef_y=coef_y, coef_u=coef_u, coef_v=coef_v,
                        packed=pf)

@@ -5,14 +5,19 @@ the same seam as the JAX package's `JaxPixelBackend`
 (xevd_tpu/ops/pipeline.py:392).  Per frame: host pack (ops/pack.py), two
 host->device copies, then `run_frame_device`:
 
-  ITDQ (kernel: csrc/itdq.cu) -> recon (Triton) -> intra scan
+  ITDQ (kernel: csrc/itdq.cu) -> MC of the inter CUs (csrc/mc.cu) ->
+  recon with the prediction (Triton) -> intra scan of the intra CUs
   (csrc/intra.cu) -> deblock (csrc/deblock.cu) -> pad-expand (Triton)
 
 The decoded picture planes stay on the device as DPB references
-(DevicePlane); they reach the host only when the writer reads them.
+(DevicePlane); MC reads them there, and they reach the host only when the
+writer reads them.  All of a frame's work is issued on the current CUDA
+stream, so a frame's MC reads its references after the frames that wrote
+them.
 
-Scope: Baseline profile, all-intra frames, 4:2:0 or 4:0:0, 8 to 10 bit.
-Everything else raises UnsupportedStream before any pixel is produced."""
+Scope: Baseline profile, I, P and B frames (IPPP and RA), 4:2:0 or 4:0:0,
+8 to 10 bit.  Everything else raises UnsupportedStream before any pixel is
+produced."""
 from __future__ import annotations
 
 import numpy as np
@@ -25,23 +30,33 @@ from . import pack as PK
 from .deblock import deblock_frame
 from .intra import intra_scan
 from .itdq import itdq
+from .mc import mc_all
 from .recon import pad, recon
 from .tables import BORDER, PAD_C, PAD_L, device_tables
 
-STAGES = ("pack", "itdq", "recon", "intra", "deblock", "pad")
+STAGES = ("pack", "itdq", "mc", "recon", "intra", "deblock", "pad")
 
 
 def run_frame_device(df: PK.DeviceFrame, tables: dict, on_stage=None):
-    """Device half of one frame: ITDQ -> recon -> intra scan -> deblock ->
-    padded picture planes (y, u, v) as int16 tensors (u, v None for
-    4:0:0).  `on_stage(name)`, if given, is called after each stage."""
+    """Device half of one frame: ITDQ -> MC (frames with inter CUs) ->
+    recon -> intra scan -> deblock -> padded picture planes (y, u, v) as
+    int16 tensors (u, v None for 4:0:0).  `on_stage(name)`, if given, is
+    called after each stage."""
     mark = on_stage or (lambda name: None)
     pf = df.packed
     bd, chroma = pf.bd, pf.chroma
     resids = itdq((df.coef_y, df.coef_u, df.coef_v), df.tus, pf.shp_y,
                   pf.shp_c, bd, tables)
     mark("itdq")
-    recs = tuple(None if r is None else recon(r, bd) for r in resids)
+    if pf.refs:
+        pred_y, cnt_y, pred_u, pred_v, cnt_c = mc_all(
+            df.mc, pf.mc_lists, pf.refs, pf.shp_y, pf.shp_c, bd, tables)
+        preds = ((pred_y, cnt_y), (pred_u, cnt_c), (pred_v, cnt_c))
+    else:
+        preds = ((None, None),) * 3
+    mark("mc")
+    recs = tuple(None if r is None else recon(r, bd, *p)
+                 for r, p in zip(resids, preds))
     mark("recon")
     intra_scan(recs, resids, df.icu, bd, chroma)
     mark("intra")
@@ -65,7 +80,7 @@ def run_frame_device(df: PK.DeviceFrame, tables: dict, on_stage=None):
 
 
 class TorchPixelBackend:
-    """Bit-exact PyTorch + CUDA/Triton Baseline all-intra pixel pipeline.
+    """Bit-exact PyTorch + CUDA/Triton Baseline pixel pipeline.
 
     device: "cuda" (kernels) or "cpu" (plain PyTorch versions; tests).
     on_stage: optional callback, called with "start" when a frame begins
@@ -93,9 +108,9 @@ class TorchPixelBackend:
             raise UnsupportedStream("torch backend: 8- to 10-bit streams "
                                     "with equal luma/chroma depth only")
 
-    def pack_frame(self, job, sps, refp=None):
-        """Host half of decode_frame (refuses inter frames)."""
-        return PK.pack_frame(job, sps)
+    def pack_frame(self, job, sps, refp):
+        """Host half of decode_frame."""
+        return PK.pack_frame(job, sps, refp)
 
     def decode_frame(self, job, sps, refp):
         mark = self.on_stage or (lambda name: None)

@@ -11,11 +11,17 @@ import torch
 from ..kernels import build as K
 
 
-def recon_ref(resid, bd):
-    """clip(resid, 0, 2^bd - 1): K4's recon with the zero prediction of an
-    intra frame, whose CUs the intra scan predicts later
-    (ref: xevd_tpu/ops/pipeline.py:221-225 with pred = cnt = 0)."""
-    return resid.clamp(0, (1 << bd) - 1)
+def recon_ref(resid, bd, pred=None, cnt=None):
+    """K4's recon (ref: xevd_tpu/ops/pipeline.py:221-225): the prediction,
+    averaged ((p + 1) >> 1) where both lists predicted (cnt == 2), plus the
+    residual, wrapped through int16, clipped to [0, 2^bd - 1].  Without
+    `pred` (an intra frame, whose CUs the intra scan predicts later) the
+    prediction is zero: a clip of the residual."""
+    if pred is None:
+        return resid.clamp(0, (1 << bd) - 1)
+    p = torch.where(cnt == 2, (pred + 1) >> 1, pred)
+    t = (p + resid.to(torch.int32)).to(torch.int16)
+    return t.clamp(0, (1 << bd) - 1)
 
 
 def pad_ref(area, h, w, pad):
@@ -26,16 +32,24 @@ def pad_ref(area, h, w, pad):
     return area[rows[:, None], cols[None, :]]
 
 
-def recon(resid, bd):
-    """resid int16 [H, W] of an intra frame; returns a new int16 plane.
-    The prediction of inter frames (K4 `_mc_all`) comes with the MC port."""
+def recon(resid, bd, pred=None, cnt=None):
+    """resid int16 [H, W]; pred int32 and cnt int8 of the same shape (from
+    ops/mc.py `mc_all`), or both None for an intra frame; returns a new
+    int16 plane."""
+    if (pred is None) != (cnt is None):
+        raise ValueError("recon: pred and cnt come together")
     if resid.device.type == "cpu":
-        return recon_ref(resid, bd)
+        return recon_ref(resid, bd, pred, cnt)
     K.require(resid, torch.int16, 2, contiguous=True)
+    if pred is not None:
+        K.require(pred, torch.int32, 2, contiguous=True)
+        K.require(cnt, torch.int8, 2, contiguous=True)
+        if pred.shape != resid.shape or cnt.shape != resid.shape:
+            raise ValueError("recon: pred, cnt and resid differ in shape")
     from . import recon_triton
     out = torch.empty_like(resid)
     K.count("recon")
-    recon_triton.launch_recon(resid, out, bd)
+    recon_triton.launch_recon(resid, out, bd, pred, cnt)
     return out
 
 

@@ -5,8 +5,9 @@ Replaces: xevd_tpu/ops/pipeline.py `_recon_plane` (K4 recon) and `_pad_out`
 dependency between threads -- Triton's remit -- so Triton serves as well
 as CUDA would, with less code:
 
-  recon: out = clip(resid, 0, 2^bd - 1)    (an intra frame's zero
-         prediction; 2 B read + 2 B written a sample)
+  recon: out = clip(int16(p + resid), 0, 2^bd - 1), p the MC prediction
+         sum, halved with rounding where cnt == 2 (HAS_PRED; 7 B read +
+         2 B written a sample), or 0 for an intra frame (2 B + 2 B)
   pad:   out[i, j] = area[clamp(i - P, 0, h - 1), clamp(j - P, 0, w - 1)]
          (one gather pass; the source rows are L2-resident neighbours)
 
@@ -25,10 +26,16 @@ RECON_BLOCK = 2048
 PAD_BM, PAD_BN = 32, 128
 
 
-def _recon_kernel(resid_ptr, out_ptr, n, maxv, BLOCK: "tl.constexpr"):
+def _recon_kernel(resid_ptr, pred_ptr, cnt_ptr, out_ptr, n, maxv,
+                  HAS_PRED: "tl.constexpr", BLOCK: "tl.constexpr"):
     offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
     m = offs < n
     t = tl.load(resid_ptr + offs, mask=m, other=0).to(tl.int32)
+    if HAS_PRED:
+        p = tl.load(pred_ptr + offs, mask=m, other=0)
+        c = tl.load(cnt_ptr + offs, mask=m, other=0)
+        p = tl.where(c == 2, (p + 1) >> 1, p)
+        t = (p + t).to(tl.int16).to(tl.int32)     # wraps, as the reference
     t = tl.minimum(tl.maximum(t, 0), maxv)
     tl.store(out_ptr + offs, t.to(tl.int16), mask=m)
 
@@ -54,12 +61,14 @@ def _jit():
     return _KERNELS
 
 
-def launch_recon(resid, out, bd):
+def launch_recon(resid, out, bd, pred=None, cnt=None):
     recon_k, _ = _jit()
     n = resid.numel()
     grid = ((n + RECON_BLOCK - 1) // RECON_BLOCK,)
-    recon_k[grid](resid, out, n, (1 << bd) - 1, BLOCK=RECON_BLOCK,
-                  num_warps=4)
+    has_pred = pred is not None
+    recon_k[grid](resid, pred if has_pred else resid,
+                  cnt if has_pred else resid, out, n, (1 << bd) - 1,
+                  HAS_PRED=has_pred, BLOCK=RECON_BLOCK, num_warps=4)
 
 
 def launch_pad(area, out, h, w, pad):

@@ -24,11 +24,17 @@ MAX_TX_VAL = T.MAX_TX_VAL
 
 
 def device_tables(device: torch.device) -> dict:
-    """DCT-2 bases on `device`.
+    """DCT-2 bases and Baseline MC taps on `device`.
 
     tm64: int32 [64, 64], the 64-point basis; the n-point basis is
-          tm64[::64 // n, :n] (xevd_tpu/tables.py TM2..TM32)."""
-    return {"tm64": torch.from_numpy(T.TM[6].astype(np.int32)).to(device)}
+          tm64[::64 // n, :n] (xevd_tpu/tables.py TM2..TM32).
+    mc_l: int32 [16, 8], luma 8-tap filters by 1/16-pel phase.
+    mc_c: int32 [32, 4], chroma 4-tap filters by 1/32-pel phase
+          (xevd_tpu/tables.py MC_L_COEFF / MC_C_COEFF)."""
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+    return {"tm64": dev(T.TM[6]), "mc_l": dev(T.MC_L_COEFF),
+            "mc_c": dev(T.MC_C_COEFF)}
 
 
 def planes_from_numpy(y, u, v, device) -> tuple:
