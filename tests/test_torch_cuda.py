@@ -15,16 +15,17 @@ import torch
 from xevd_tpu_torch.kernels import build as K
 from xevd_tpu_torch.ops import deblock as TD
 from xevd_tpu_torch.ops import intra as TI
+from xevd_tpu_torch.ops import intra_main as TIM
 from xevd_tpu_torch.ops import itdq as TQ
 from xevd_tpu_torch.ops import mc as TM
 from xevd_tpu_torch.ops import pack as PK
 from xevd_tpu_torch.ops import recon as TR
 from xevd_tpu_torch.ops.tables import PAD_C, PAD_L, device_tables
 
-from .torch_helpers import (compare, deblock_case, intra_case, itdq_case,
-                            itdq_size_case, mc_case, mc_frame, mc_shapes,
-                            mc_size_case, pad_case, recon_case,
-                            recon_pred_case)
+from .torch_helpers import (compare, deblock_case, eipd_scene, intra_case,
+                            intra_wave_case, itdq_case, itdq_size_case,
+                            mc_case, mc_frame, mc_shapes, mc_size_case,
+                            pad_case, recon_case, recon_pred_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -59,6 +60,22 @@ def test_itdq_kernel_matches_plain_full_range(dev, bd, log2):
 
 
 @pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("chroma", [True, False])
+def test_itdq_kernel_matches_plain_main(dev, bd, chroma):
+    """The Main transforms: iqt DCT-2 and ATS bases on a frame's TUs."""
+    _check(itdq_case(dev, bd, 128, 256, chroma, iqt=True))
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("trs", [0, 5, 6, 9, 10])
+@pytest.mark.parametrize("log2", [2, 3, 4, 5])
+def test_itdq_kernel_matches_plain_main_full_range(dev, bd, trs, log2):
+    """iqt (trs 0) and every ATS basis pair, coefficients over the whole
+    int16 range."""
+    _check(itdq_size_case(dev, bd, log2, iqt=True, trs=trs))
+
+
+@pytest.mark.parametrize("bd", [8, 10])
 def test_recon_pad_kernels_match_plain(dev, bd):
     _check(recon_case(dev, bd, 1296, 2128))
     _check(pad_case(dev, bd, 1080, 1920, PAD_L))
@@ -79,6 +96,13 @@ def test_mc_kernel_matches_plain_by_case(dev, case, is_luma, bd):
 
 
 @pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("is_luma", [True, False])
+@pytest.mark.parametrize("case", [0, 1, 2, 3])
+def test_mc_kernel_matches_plain_main_taps(dev, case, is_luma, bd):
+    _check(mc_size_case(dev, is_luma, case, bd, main_taps=True), launches=2)
+
+
+@pytest.mark.parametrize("bd", [8, 10])
 @pytest.mark.parametrize("chroma", [True, False])
 def test_mc_kernel_matches_plain_on_frame(dev, bd, chroma):
     _check(mc_case(dev, 288, 352, bd, chroma, seed=bd), launches=2)
@@ -88,6 +112,14 @@ def test_mc_kernel_matches_plain_on_frame(dev, bd, chroma):
 @pytest.mark.parametrize("chroma", [True, False])
 def test_intra_kernel_matches_plain(dev, bd, chroma):
     _check(intra_case(dev, 288, 352, bd, chroma, seed=bd))
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("chroma,htdf", [(True, True), (False, True),
+                                         (True, False)])
+def test_intra_wave_kernel_matches_plain(dev, bd, chroma, htdf):
+    """One call of the wrapper: its C entry point walks every level."""
+    _check(intra_wave_case(dev, 288, 352, bd, chroma, seed=bd, htdf=htdf))
 
 
 @pytest.mark.parametrize("kind", ["luma_ver", "luma_hor", "chroma_ver",
@@ -110,7 +142,7 @@ def test_wrappers_refuse_cpu_operands_mixed_with_cuda(dev):
     icu = torch.tensor([[0, 0, 3, 0, -1, -1, 1, 1]], dtype=torch.int32)
     with pytest.raises(ValueError):
         TI.intra_scan(planes, planes, icu, 8, True)
-    tus = torch.tensor([[0, 2, 2, 16, 0, 0]], dtype=torch.int32)
+    tus = torch.tensor([[0, 2, 2, 16, 0, 0, 0]], dtype=torch.int32)
     coef = torch.zeros(8, 8, dtype=torch.int16, device=dev)
     with pytest.raises(ValueError):
         TQ.itdq([coef, None, None], tus, (216, 216), None, 8,
@@ -124,6 +156,22 @@ def test_wrappers_refuse_cpu_operands_mixed_with_cuda(dev):
     with pytest.raises(ValueError):       # the tap tables on the CPU
         TM.mc_all(torch.from_numpy(table).to(dev), lists, refs, shp_y, shp_c,
                   8, device_tables("cpu"))
+    recs, res, icu, level_off, _, _ = eipd_scene(64, 64, 8, 1)
+    cu_planes = [torch.from_numpy(p).to(dev) for p in recs]
+    cu_res = [torch.from_numpy(p).to(dev) for p in res]
+    with pytest.raises(ValueError):       # the CU table on the CPU
+        TIM.intra_scan_wave(cu_planes, cu_res, torch.from_numpy(icu),
+                            level_off, 8, True, device_tables(dev))
+    with pytest.raises(ValueError):       # a residual plane on the CPU
+        TIM.intra_scan_wave(cu_planes, cu_res[:2] + [torch.from_numpy(res[2])],
+                            torch.from_numpy(icu).to(dev), level_off, 8, True,
+                            device_tables(dev))
+    with pytest.raises(ValueError):       # the EIPD tables on the CPU
+        TIM.intra_scan_wave(cu_planes, cu_res, torch.from_numpy(icu).to(dev),
+                            level_off, 8, True, device_tables("cpu"))
+    with pytest.raises(ValueError):       # the TU table on the CPU (Main)
+        TQ.itdq([coef, None, None], torch.zeros(1, 7, dtype=torch.int32),
+                (216, 216), None, 8, device_tables(dev), True)
     resid = torch.zeros(8, 8, dtype=torch.int16, device=dev)
     with pytest.raises(ValueError):       # the prediction on the CPU
         TR.recon(resid, 8, torch.zeros(8, 8, dtype=torch.int32),

@@ -75,13 +75,3 @@ def test_itdq_plain_path_launches_nothing():
     TQ.itdq([torch.from_numpy(c) for c in coefs], torch.from_numpy(tus),
             shp_y, shp_c, 8, device_tables(CPU))
     assert K.launch_counts == before
-
-
-def test_itdq_refuses_main_variants():
-    coefs, tus, shp_y, shp_c = itdq_frame(8, h=64, w=64)
-    args = ([torch.from_numpy(c) for c in coefs], torch.from_numpy(tus),
-            shp_y, shp_c, 8, device_tables(CPU))
-    with pytest.raises(NotImplementedError):
-        TQ.itdq(*args, iqt=True)
-    with pytest.raises(NotImplementedError):
-        TQ.itdq(*args, trs=5)

@@ -1,0 +1,25 @@
+"""The PyTorch port's Main-profile 10-bit slice with DRA (applied by the
+shared host code at pull time) end to end, on the CPU: `m10_dra_i`,
+`m10_dra_p`, tuples of tests/test_main_profile.py CASES10 (none has SUCO,
+ADDB or ALF), each decoded by the torch backend (plain PyTorch versions),
+the JAX backend and the numpy oracle backend; the written 10-bit YUV must
+be equal byte for byte. The Main gate cases are spread over several files
+so that the workers of a parallel run (--dist loadfile) share the JAX
+backend's compile time."""
+import pytest
+
+from .test_torch_slice import assert_backends_agree
+
+CASES = [
+    # name, w, h, frames, qp, seed, gop, tools
+    ("m10_dra_i", 176, 144, 2, 30, 801, "I", ("dra", "eipd", "cm_init")),
+    ("m10_dra_p", 176, 144, 4, 30, 802, "IPPP",
+     ("dra", "eipd", "cm_init", "admvp", "hmvp")),
+]
+
+
+@pytest.mark.parametrize("name,w,h,n,qp,seed,gop,tools", CASES)
+def test_torch_main_10bit_equals_jax_and_numpy(
+        fixtures_dir, tmp_path, name, w, h, n, qp, seed, gop, tools):
+    assert_backends_agree(fixtures_dir, tmp_path, f"main_{name}", w, h, n, qp,
+                          seed, gop, 10, profile=1, tools=tools)

@@ -1,17 +1,15 @@
 """Motion compensation and recon with prediction of the PyTorch port
 against the JAX package (`mc_bucket`, `_mc_all`, `_recon_plane`; exact:
-integer).  The CUDA and Triton kernels are held to the plain versions in
-test_torch_cuda.py."""
+integer), with the Baseline and the Main (ADMVP) taps.  The CUDA and
+Triton kernels are held to the plain versions in test_torch_cuda.py."""
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
 
-from xevd_tpu import NAL_UNIT_LENGTH_BYTE, Decoder, info
 from xevd_tpu.ops import jax_mc as JM
 from xevd_tpu.ops import pipeline as PL
-from xevd_tpu_torch import TorchPixelBackend
 from xevd_tpu_torch.kernels import build as K
 from xevd_tpu_torch.ops import mc as TM
 from xevd_tpu_torch.ops import pack as PK
@@ -19,21 +17,15 @@ from xevd_tpu_torch.ops import recon as TR
 from xevd_tpu_torch.ops.tables import device_tables
 
 from .conftest import make_stream
-from .torch_helpers import (mc_blocks, mc_frame, mc_shapes,
+from .torch_helpers import (captured_frames, mc_blocks, mc_frame, mc_shapes,
                             recon_pred_planes)
 
 CPU = torch.device("cpu")
 TAB = device_tables(CPU)
 
 
-@pytest.mark.parametrize("bd", [8, 10])
-@pytest.mark.parametrize("is_luma", [True, False])
-@pytest.mark.parametrize("case", [0, 1, 2, 3])
-def test_mc_blocks_match_jax_mc_bucket(case, is_luma, bd):
-    """Every size, two reference slots (the second over the whole int16
-    range, so NN's int16 intermediate wraps), and a quarter of the
-    filtering blocks at phase 0 (a clipped MV under a filtering case)."""
-    rng = np.random.default_rng(10 * case + bd + is_luma)
+def _mc_blocks_vs_jax(case, is_luma, bd, main_taps):
+    rng = np.random.default_rng(10 * case + bd + is_luma + 50 * main_taps)
     smax = 64 if is_luma else 32
     hw = (2 * smax + 16, 2 * smax + 24)
     refs = np.stack([rng.integers(0, 1 << bd, size=hw),
@@ -45,12 +37,30 @@ def test_mc_blocks_match_jax_mc_bucket(case, is_luma, bd):
             rng, 8, is_luma, case, (w, h), hw))
         want = np.asarray(JM.mc_bucket(
             (jnp.asarray(refs), jnp.asarray(slot), jnp.asarray(gx),
-             jnp.asarray(gy)), case, w, h, bd, is_luma))
+             jnp.asarray(gy)), case, w, h, bd, is_luma, main_taps))
         got = TM.mc_blocks_ref(torch.from_numpy(refs), torch.from_numpy(slot),
                                torch.from_numpy(gx), torch.from_numpy(gy),
-                               case, w, h, bd, is_luma, TAB)
+                               case, w, h, bd, is_luma, TAB, main_taps)
         assert got.dtype == torch.int32
         np.testing.assert_array_equal(got.numpy(), want, err_msg=f"{w}x{h}")
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("is_luma", [True, False])
+@pytest.mark.parametrize("case", [0, 1, 2, 3])
+def test_mc_blocks_match_jax_mc_bucket(case, is_luma, bd):
+    """Every size, two reference slots (the second over the whole int16
+    range, so NN's int16 intermediate wraps), and a quarter of the
+    filtering blocks at phase 0 (a clipped MV under a filtering case)."""
+    _mc_blocks_vs_jax(case, is_luma, bd, False)
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("is_luma", [True, False])
+@pytest.mark.parametrize("case", [0, 1, 2, 3])
+def test_mc_blocks_main_taps_match_jax_mc_bucket(case, is_luma, bd):
+    """The same blocks with the Main (ADMVP) tap tables."""
+    _mc_blocks_vs_jax(case, is_luma, bd, True)
 
 
 def _jax_mc_all(pack):
@@ -60,7 +70,8 @@ def _jax_mc_all(pack):
     refs = tuple(jnp.stack([jnp.asarray(np.asarray(p)) for p in planes])
                  if planes else None for planes in pack["refs"])
     out = PL._mc_all(jnp.asarray(pack["payload"]), refs, st["sig_m"],
-                     st["shp_y"], st["shp_c"], st["bd"])
+                     st["shp_y"], st["shp_c"], st["bd"],
+                     st.get("main_taps", False))
     return [None if o is None else np.asarray(o) for o in out]
 
 
@@ -96,52 +107,31 @@ def test_mc_all_matches_jax_on_synthetic_frame(chroma):
     assert (got[1] == 2).any()             # bi-predicted samples
 
 
-class _Capture(TorchPixelBackend):
-    """Records (job, sps, refp) of every frame with inter CUs."""
-
-    def __init__(self):
-        super().__init__(device="cpu")
-        self.frames = []
-
-    def pack_frame(self, job, sps, refp):
-        pf = super().pack_frame(job, sps, refp)
-        if pf.refs:
-            self.frames.append((job, sps, refp, pf))
-        return pf
-
-
-def _inter_frames(stream):
-    backend = _Capture()
-    dec = Decoder(backend=backend)
-    data = stream.read_bytes()
-    pos = 0
-    while pos + NAL_UNIT_LENGTH_BYTE <= len(data):
-        ln, _, _ = info(data[pos:pos + 6])
-        dec.decode(data[pos + 4:pos + 4 + ln])
-        pos += 4 + ln
-    dec._drain_pipeline()
-    return backend.frames
-
-
-@pytest.mark.parametrize("name,w,h,n,qp,seed,gop", [
-    ("p176x144", 176, 144, 4, 35, 7, "IPPP"),
-    ("ra176x144", 176, 144, 9, 32, 10, "RA"),
+@pytest.mark.parametrize("name,w,h,n,qp,seed,gop,profile,tools", [
+    ("p176x144", 176, 144, 4, 35, 7, "IPPP", 0, ()),
+    ("ra176x144", 176, 144, 9, 32, 10, "RA", 0, ()),
+    # tests/test_main_profile.py m_admvp_ra: Main taps, both lists
+    ("main_m_admvp_ra", 176, 144, 5, 30, 113, "RA", 1,
+     ("admvp", "hmvp", "cm_init", "eipd")),
 ])
 def test_mc_all_matches_jax_on_stream_frame(fixtures_dir, name, w, h, n, qp,
-                                            seed, gop):
-    """A real P frame and a real B frame: the frame with the most list-1
-    rows (else the most rows), its payload packed by JaxPixelBackend."""
+                                            seed, gop, profile, tools):
+    """A real P frame and real B frames (Baseline, and Main with the ADMVP
+    taps): the frame with the most list-1 rows (else the most rows), its
+    payload packed by JaxPixelBackend."""
     stream = make_stream(fixtures_dir / f"torch_mc_{name}.evc", w, h, n, qp,
-                         seed, gop)
-    frames = _inter_frames(stream)
+                         seed, gop, profile=profile, tools=tools)
+    frames = [f for f in captured_frames(stream) if f[3].refs]
     assert frames
     job, sps, refp, pf = max(frames, key=lambda f: (f[3].mc_lists[1],
                                                     sum(f[3].mc_lists)))
     if gop == "RA":
         assert pf.mc_lists[1] > 0
+    assert pf.main_taps == bool(profile)
     want = _jax_mc_all(PL.JaxPixelBackend().pack_frame(job, sps, refp))
     df = PK.upload(pf, CPU)
-    got = TM.mc_all_ref(df.mc, pf.refs, pf.shp_y, pf.shp_c, pf.bd, TAB)
+    got = TM.mc_all_ref(df.mc, pf.refs, pf.shp_y, pf.shp_c, pf.bd, TAB,
+                        pf.main_taps)
     _assert_planes_equal(got, want)
 
 

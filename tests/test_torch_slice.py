@@ -3,8 +3,9 @@
 Each stream is decoded by the torch backend (plain PyTorch versions), the
 JAX backend and the numpy oracle backend; the written YUV must be equal
 byte for byte (`assert_backends_agree`, which the inter-slice files
-test_torch_inter_p.py and test_torch_inter_ra.py share).  Streams the port
-does not cover are refused."""
+test_torch_inter_p.py and test_torch_inter_ra.py and the Main files
+test_torch_main_*.py share).  Streams the port does not cover are
+refused."""
 import subprocess
 import sys
 
@@ -46,10 +47,12 @@ def _decode(stream, out, backend, out_bd=10):
 
 
 def assert_backends_agree(fixtures_dir, tmp_path, name, w, h, n, qp, seed,
-                          gop, bd):
+                          gop, bd, profile=0, tools=()):
     """Decode one generated stream with the torch, JAX and numpy backends;
-    all n frames written, the three outputs equal."""
-    stream = _stream(fixtures_dir, name, w, h, n, qp, seed, gop, bd)
+    all n frames written, the three outputs equal.  `profile` 1 with
+    `tools` (tools/evc_enc.py Tools flags) makes a Main stream."""
+    stream = _stream(fixtures_dir, name, w, h, n, qp, seed, gop, bd,
+                     profile=profile, tools=tools)
     outs = {}
     for backend in ("torch", "jax", "numpy"):
         rc, outs[backend] = _decode(stream, tmp_path / f"{backend}.yuv",
@@ -111,33 +114,35 @@ def test_dpb_planes_equal_jax(fixtures_dir):
             assert np.array_equal(np.asarray(a), np.asarray(b))
 
 
-def test_refuses_main_p_stream(fixtures_dir, tmp_path):
-    """A Main-profile IPPP stream (test_main_profile.py `m_off_p`) is
-    refused at its SPS, before any frame: Baseline inter is ported, the
-    Main inter tools are not."""
-    stream = _stream(fixtures_dir, "m_off_p", 176, 144, 3, 33, 102, "IPPP",
-                     profile=1)
+@pytest.mark.parametrize("name,w,h,n,qp,seed,gop,tools,missing", [
+    # tuples of tests/test_main_profile.py CASES and CASES_AFFINE
+    ("m_suco_i", 176, 144, 2, 30, 108, "I",
+     ("btt", "suco", "eipd", "cm_init"), "SUCO"),
+    ("m_addb_i", 176, 144, 2, 30, 501, "I", ("addb", "eipd", "cm_init"),
+     "ADDB"),
+    ("m_alf_i", 176, 144, 3, 30, 711, "I", ("alf", "eipd", "cm_init"), "ALF"),
+    ("m_aff_p", 176, 144, 4, 30, 951, "IPPP",
+     ("admvp", "hmvp", "affine", "eipd", "cm_init"), "affine"),
+    ("m_ibc_i", 176, 144, 3, 30, 961, "I", ("ibc", "eipd", "cm_init"), "IBC"),
+    # DMVR and BTT without EIPD, on short streams of their own
+    ("dmvr_p", 64, 64, 2, 30, 971, "IPPP",
+     ("dmvr", "admvp", "hmvp", "eipd", "cm_init"), "DMVR"),
+    ("btt_no_eipd_i", 64, 64, 1, 30, 106, "I", ("btt", "cm_init"), "EIPD"),
+])
+def test_refuses_unported_main_tools(fixtures_dir, tmp_path, name, w, h, n,
+                                     qp, seed, gop, tools, missing):
+    """A Main stream with a tool whose kernel is not ported (or that the
+    JAX backend refuses too) is refused at its SPS, before any frame, with
+    a message that names the tool."""
+    stream = _stream(fixtures_dir, f"main_{name}", w, h, n, qp, seed, gop,
+                     profile=1, tools=tools)
     rc, out = _decode(stream, tmp_path / "m.yuv", "torch")
     assert rc != 0 and out == b""
     from xevd_tpu import Decoder, info
     from xevd_tpu_torch import TorchPixelBackend
     data = stream.read_bytes()
     ln, _, _ = info(data[:6])
-    with pytest.raises(UnsupportedStream, match="Main"):
-        Decoder(backend=TorchPixelBackend(device="cpu")).decode(
-            data[4:4 + ln])
-
-
-def test_refuses_main_stream(fixtures_dir, tmp_path):
-    stream = _stream(fixtures_dir, "m_off_i", 64, 64, 1, 30, 101, "I",
-                     profile=1)
-    rc, out = _decode(stream, tmp_path / "m.yuv", "torch")
-    assert rc != 0 and out == b""
-    from xevd_tpu import Decoder, info
-    from xevd_tpu_torch import TorchPixelBackend
-    data = stream.read_bytes()
-    ln, _, _ = info(data[:6])
-    with pytest.raises(UnsupportedStream, match="Main"):
+    with pytest.raises(UnsupportedStream, match=missing):
         Decoder(backend=TorchPixelBackend(device="cpu")).decode(
             data[4:4 + ln])
 
@@ -200,5 +205,5 @@ def test_pack_rejects_blocks_outside_their_planes(x, y, log2):
     with pytest.raises(ValueError):
         PK.pack_intra(fs, job)
     fs, job = _fake_frame(0, 0, 6)      # the same frame, in bounds
-    assert PK.pack_itdq(fs, 8, True).shape == (3, 6)
+    assert PK.pack_itdq(fs, 8, True).shape == (3, 7)
     assert PK.pack_intra(fs, job).shape == (1, 8)

@@ -13,6 +13,7 @@ from xevd_tpu import tables as T
 from xevd_tpu.ops.ref_numpy import qp_scale
 from xevd_tpu_torch.ops import deblock as TD
 from xevd_tpu_torch.ops import intra as TI
+from xevd_tpu_torch.ops import intra_main as TIM
 from xevd_tpu_torch.ops import itdq as TQ
 from xevd_tpu_torch.ops import mc as TM
 from xevd_tpu_torch.ops import pack as PK
@@ -56,10 +57,12 @@ def bordered(rng, h, w, lo, hi, dtype=np.int16):
                         ).astype(dtype)
 
 
-def itdq_frame(bd, h=64, w=128, chroma=True, seed=0, coef_max=3000):
+def itdq_frame(bd, h=64, w=128, chroma=True, seed=0, coef_max=3000,
+               main=False):
     """Random coefficient planes in [-coef_max, coef_max) and a quadtree TU
-    table (comp, log2w, log2h, scale, y, x) covering them, with the
-    bordered plane shapes."""
+    table (comp, log2w, log2h, scale, y, x, trs) covering them, with the
+    bordered plane shapes.  `main`: Main scales (DQ_SCALE), and luma TUs
+    up to 32 wide take a random ATS trs (or 0, the DCT-2)."""
     rng = np.random.default_rng(seed + bd)
     coefs = [rng.integers(-coef_max, coef_max, size=(h, w)).astype(np.int16)]
     comps = [(0, h, w, 6, 2)]
@@ -72,7 +75,9 @@ def itdq_frame(bd, h=64, w=128, chroma=True, seed=0, coef_max=3000):
         for y, x, lg in quadtree(rng, hh, ww, lmax, lmin):
             if rng.random() < 0.8:           # some TUs have no residual
                 qp = int(rng.integers(0, 52 + 6 * (bd - 8)))
-                rows.append((comp, lg, lg, qp_scale(qp), y, x))
+                trs = (int(rng.choice([0, 5, 6, 9, 10]))
+                       if main and comp == 0 and lg <= 5 else 0)
+                rows.append((comp, lg, lg, qp_scale(qp, main), y, x, trs))
     tus = np.array(rows, np.int32)
     shp_y = (BORDER + h + PAD_R, BORDER + w + PAD_R)
     shp_c = (BORDER + h // 2 + PAD_R, BORDER + w // 2 + PAD_R) if chroma \
@@ -105,6 +110,136 @@ def intra_scene(H, W, bd, seed):
                      int(rng.integers(-2 ** 31, 2 ** 31)),
                      int(rng.integers(0, 2)), int(rng.random() > 0.05)))
     return recs, res, np.array(rows, np.int32)
+
+
+def _btt(rng, cus, p=0.3):
+    """Split some squares of a z-order (y, x, log2) list in two halves (a
+    binary split, decode order kept): (y, x, log2w, log2h) rows."""
+    out = []
+    for y, x, lg in cus:
+        if lg >= 3 and rng.random() < p:
+            if rng.random() < 0.5:          # two (w, h / 2) halves
+                h = 1 << (lg - 1)
+                out += [(y, x, lg, lg - 1), (y + h, x, lg, lg - 1)]
+            else:                           # two (w / 2, h) halves
+                w = 1 << (lg - 1)
+                out += [(y, x, lg - 1, lg), (y, x + w, lg - 1, lg)]
+        else:
+            out.append((y, x, lg, lg))
+    return out
+
+
+def eipd_scene(H, W, bd, seed, chroma=True, htdf=True):
+    """A synthetic EIPD frame over an H x W picture (multiples of 64):
+    random bordered planes and residuals, and a z-order CU list (4..64,
+    square and binary-split rectangles) with random modes, chroma modes and
+    trees (mostly 0, some TREE_L / TREE_C), and, with `htdf`, some
+    HTDF-only inter CUs and HTDF on a share of the CUs.  Neighbour masks,
+    left/right availability and the HTDF ring bits are set where the cell
+    was written by an earlier CU, as a decoder sets them; the levels come
+    from `xevd_tpu.ops.wavefront.level_scan_cus`.  Returns (recs, res,
+    table, level_off) as `pack_intra_main` would (numpy)."""
+    from types import SimpleNamespace
+
+    from xevd_tpu.ops.wavefront import level_scan_cus
+
+    rng = np.random.default_rng(seed)
+    maxv = (1 << bd) - 1
+    recs = [bordered(rng, H, W, 0, maxv + 1)]
+    recs += [bordered(rng, H // 2, W // 2, 0, maxv + 1) for _ in range(2)]
+    res = [bordered(rng, H, W, -600, 600)]
+    res += [bordered(rng, H // 2, W // 2, -600, 600) for _ in range(2)]
+    res[0][BORDER, BORDER] = 32767     # int16 wrap of pred + resid
+    cus = _btt(rng, quadtree(rng, H, W, 6, 2))
+    hs, ws = H >> 2, W >> 2
+    done = np.zeros((hs, ws), bool)
+
+    def cell(cy, cx):
+        return 0 <= cy < hs and 0 <= cx < ws and bool(done[cy, cx])
+
+    def bits(cells):
+        return sum(1 << u for u, c in enumerate(cells) if c)
+
+    rows = []
+    for y, x, lw, lh in cus:
+        ys, xs, sw, sh = y >> 2, x >> 2, 1 << (lw - 2), 1 << (lh - 2)
+        nu = sw + sh
+        up = bits(cell(ys - 1, xs + u) for u in range(nu))
+        left = bits(cell(ys + u, xs - 1) for u in range(nu))
+        right = bits(cell(ys + u, xs + sw) for u in range(nu))
+        corner = int(cell(ys - 1, xs - 1))
+        lr = int(cell(ys, xs - 1)) | (2 * int(cell(ys, xs + sw)))
+        intra = not htdf or rng.random() > 0.2
+        tree = int(rng.choice([0, 1, 2], p=[0.8, 0.1, 0.1])) if intra else 0
+        hidx = int(rng.integers(0, 5)) if htdf and (
+            not intra or rng.random() < 0.4) else -1
+        ring = (cell(ys, xs - 1), cell(ys, xs + sw), cell(ys - 1, xs),
+                corner, cell(ys - 1, xs + sw), cell(ys + sh, xs - 1),
+                cell(ys + sh, xs + sw))
+        rows.append((x, y, lw, lh, int(rng.integers(0, 33)),
+                     int(rng.integers(0, 5)),
+                     np.uint32(up).astype(np.int32),
+                     np.uint32(left).astype(np.int32),
+                     np.uint32(right).astype(np.int32), corner, lr, tree, 1,
+                     int(intra), hidx, bits(ring)))
+        done[ys:ys + sh, xs:xs + sw] = True
+    a = np.array(rows, np.int64)
+    fs = SimpleNamespace(h_scu=hs, w_scu=ws, cu_x=a[:, 0], cu_y=a[:, 1],
+                         cu_log2w=a[:, 2], cu_log2h=a[:, 3], cu_tree=a[:, 11],
+                         cu_pred_mode=np.where(a[:, 13] == 1, T.MODE_INTRA,
+                                               T.MODE_INTER))
+    job = SimpleNamespace(cu_nbr_up=a[:, 6] & 0xFFFFFFFF,
+                          cu_nbr_left=a[:, 7] & 0xFFFFFFFF,
+                          cu_nbr_right=a[:, 8] & 0xFFFFFFFF,
+                          cu_nbr_upext=np.zeros(len(a), np.int64),
+                          cu_nbr_corner=a[:, 9].astype(np.uint8),
+                          cu_htdf_idx=a[:, 14] if htdf else None)
+    levels = np.asarray(level_scan_cus(fs, job, np.arange(len(a)), chroma))
+    table = a[:, :16 if htdf else 13].astype(np.int32)
+    order = np.argsort(levels, kind="stable")
+    level_off = np.concatenate([[0], np.cumsum(np.bincount(levels))])
+    return (recs, res, np.ascontiguousarray(table[order]),
+            level_off.astype(np.int32), table, levels)
+
+
+def captured_frames(stream, device="cpu"):
+    """Decode `stream` (a path) with the torch backend on `device`; every
+    frame's (job, sps, refp, PackedFrame)."""
+    from xevd_tpu import NAL_UNIT_LENGTH_BYTE, Decoder, info
+    from xevd_tpu_torch import TorchPixelBackend
+
+    class Capture(TorchPixelBackend):
+        def __init__(self):
+            super().__init__(device=device)
+            self.frames = []
+
+        def pack_frame(self, job, sps, refp):
+            pf = super().pack_frame(job, sps, refp)
+            self.frames.append((job, sps, refp, pf))
+            return pf
+
+    backend = Capture()
+    dec = Decoder(backend=backend)
+    data = stream.read_bytes()
+    pos = 0
+    while pos + NAL_UNIT_LENGTH_BYTE <= len(data):
+        ln, _, _ = info(data[pos:pos + 6])
+        dec.decode(data[pos + 4:pos + 4 + ln])
+        pos += 4 + ln
+    dec._drain_pipeline()
+    return backend.frames
+
+
+def planes_before_intra(pf, dev):
+    """(recs, resids, df): a packed frame's bordered picture planes after
+    ITDQ, MC and recon, the planes its intra stage starts from, on `dev`
+    (ops/pipeline.residuals_and_recon, as the main path runs it); u/v
+    None for 4:0:0."""
+    from xevd_tpu_torch.ops.pipeline import residuals_and_recon
+
+    df = PK.upload(pf, dev)
+    resids, recs = residuals_and_recon(df, device_tables(dev))
+    return list(recs), list(resids), df
 
 
 def mc_frame(H, W, bd, chroma=True, seed=0, device="cpu"):
@@ -224,28 +359,34 @@ def _dev(a, dev):
                                                    ).to(dev)
 
 
-def itdq_case(dev, bd, h, w, chroma=True, seed=0, coef_max=3000):
-    """A frame's TU table over h x w coefficient planes."""
-    coefs, tus, shp_y, shp_c = itdq_frame(bd, h, w, chroma, seed, coef_max)
+def itdq_case(dev, bd, h, w, chroma=True, seed=0, coef_max=3000, iqt=False):
+    """A frame's TU table over h x w coefficient planes; `iqt`: the Main
+    transforms, with ATS bases on some luma TUs."""
+    coefs, tus, shp_y, shp_c = itdq_frame(bd, h, w, chroma, seed, coef_max,
+                                          main=iqt)
     tc = [_dev(c, dev) for c in coefs] + [None] * (3 - len(coefs))
-    args = (tc, _dev(tus, dev), shp_y, shp_c, bd, device_tables(dev))
-    return KernelCase("itdq", f"{h}x{w} bd{bd}, {len(tus)} TUs",
+    args = (tc, _dev(tus, dev), shp_y, shp_c, bd, device_tables(dev), iqt)
+    return KernelCase("itdq", f"{h}x{w} bd{bd}{' iqt+ATS' if iqt else ''}, "
+                      f"{len(tus)} TUs",
                       lambda: TQ.itdq(*args), lambda: TQ.itdq_ref(*args))
 
 
-def itdq_size_case(dev, bd, log2, n=64, seed=0):
+def itdq_size_case(dev, bd, log2, n=64, seed=0, iqt=False, trs=0):
     """n TUs of one size (2^log2 square) with coefficients over the whole
-    int16 range, so the dequant and stage-0 clips are hit."""
-    rng = np.random.default_rng(seed + 16 * log2 + bd)
+    int16 range, so the dequant and stage clips are hit; `iqt` / `trs` the
+    Main DCT-2 / an ATS basis pair (log2 <= 5)."""
+    rng = np.random.default_rng(seed + 16 * log2 + bd + trs)
     s = 1 << log2
     coef = rng.integers(-32768, 32768, size=(s * 8, s * (n // 8)))
     qps = rng.integers(0, 52 + 6 * (bd - 8), size=n)
-    tus = np.array([(0, log2, log2, qp_scale(int(qps[i])), (i % 8) * s,
-                     (i // 8) * s) for i in range(n)], np.int32)
+    main = bool(iqt or trs)
+    tus = np.array([(0, log2, log2, qp_scale(int(qps[i]), main), (i % 8) * s,
+                     (i // 8) * s, trs) for i in range(n)], np.int32)
     shp = (BORDER + s * 8 + PAD_R, BORDER + s * (n // 8) + PAD_R)
     args = ([_dev(coef.astype(np.int16), dev), None, None], _dev(tus, dev),
-            shp, None, bd, device_tables(dev))
-    return KernelCase("itdq", f"{s}x{s} bd{bd}, {n} TUs",
+            shp, None, bd, device_tables(dev), iqt)
+    kind = f" trs {trs}" if trs else (" iqt" if iqt else "")
+    return KernelCase("itdq", f"{s}x{s} bd{bd}{kind}, {n} TUs",
                       lambda: TQ.itdq(*args), lambda: TQ.itdq_ref(*args))
 
 
@@ -287,6 +428,34 @@ def intra_case(dev, H, W, bd, chroma=True, seed=0):
         f"{H}x{W} bd{bd}{'' if chroma else ' luma'}, {len(icu)} CUs")
 
 
+def intra_wave_planes_case(dev, recs, res, icu, level_off, bd, chroma,
+                           shape):
+    """The EIPD wavefront scan on device planes `recs` (left untouched:
+    each side scans a copy of its own) with residuals `res`, CU table
+    `icu` and host level offsets `level_off`."""
+    tab = device_tables(dev)
+    a = [None if r is None else r.clone() for r in recs]
+    b = [None if r is None else r.clone() for r in recs]
+    return KernelCase(
+        "intra_scan_wave", shape,
+        lambda: list(TIM.intra_scan_wave(a, res, icu, level_off, bd, chroma,
+                                         tab)),
+        lambda: list(TIM.intra_scan_wave_ref(b, res, icu, level_off, bd,
+                                             chroma)))
+
+
+def intra_wave_case(dev, H, W, bd, chroma=True, seed=0, htdf=True):
+    """A synthetic EIPD frame (`eipd_scene`) over H x W."""
+    recs, res, icu, level_off, _, _ = eipd_scene(H, W, bd, seed, chroma,
+                                                  htdf)
+    return intra_wave_planes_case(
+        dev, [_dev(p, dev) for p in recs], [_dev(p, dev) for p in res],
+        _dev(icu, dev), torch.from_numpy(level_off), bd, chroma,
+        f"{H}x{W} bd{bd}{'' if chroma else ' luma'}"
+        f"{' htdf' if htdf else ''}, {len(icu)} CUs, "
+        f"{len(level_off) - 1} levels")
+
+
 def deblock_case(dev, kind, bd, h_scu, w_scu, seed=0):
     """One pass in place on the SCU-area view of a bordered plane (as the
     pipeline calls it); each side filters a plane of its own."""
@@ -318,7 +487,8 @@ def mc_case(dev, H, W, bd, chroma=True, seed=0):
                          f"{lists[0]}+{lists[1]} blocks, {len(refs)} slots")
 
 
-def mc_table_case(dev, table, lists, refs, shp_y, shp_c, bd, shape):
+def mc_table_case(dev, table, lists, refs, shp_y, shp_c, bd, shape,
+                  main_taps=False):
     """The MC kernel and its plain version on one block table (int32
     [N, 10], host or device) and per-slot reference planes on `dev`."""
     tab = device_tables(dev)
@@ -326,11 +496,13 @@ def mc_table_case(dev, table, lists, refs, shp_y, shp_c, bd, shape):
         table, np.ndarray) else table
     return KernelCase(
         "mc", shape,
-        lambda: list(TM.mc_all(mc, lists, refs, shp_y, shp_c, bd, tab)),
-        lambda: list(TM.mc_all_ref(mc, refs, shp_y, shp_c, bd, tab)))
+        lambda: list(TM.mc_all(mc, lists, refs, shp_y, shp_c, bd, tab,
+                               main_taps)),
+        lambda: list(TM.mc_all_ref(mc, refs, shp_y, shp_c, bd, tab,
+                                   main_taps)))
 
 
-def mc_size_case(dev, is_luma, case, bd, seed=0):
+def mc_size_case(dev, is_luma, case, bd, seed=0, main_taps=False):
     """Blocks of one plane group and case at every size (luma 4..64,
     chroma 2..32, square and not), in both lists over the same cells (so
     cnt reaches 2), from two reference slots whose second plane holds
@@ -363,8 +535,9 @@ def mc_size_case(dev, is_luma, case, bd, seed=0):
     n = len(rows) // 2
     return mc_table_case(
         dev, table, (n, n), refs, shp, None if is_luma else shp, bd,
-        f"{'luma' if is_luma else 'chroma'} case {case} bd{bd}, {len(rows)} "
-        "blocks")
+        f"{'luma' if is_luma else 'chroma'} case {case} bd{bd}"
+        f"{' Main taps' if main_taps else ''}, {len(rows)} blocks",
+        main_taps)
 
 
 def recon_pred_planes(bd, H=96, W=160, seed=0):

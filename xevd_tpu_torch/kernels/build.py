@@ -23,7 +23,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "xevd_tpu_torch"
-SOURCES = ("itdq.cu", "intra.cu", "deblock.cu", "mc.cu")
+SOURCES = ("itdq.cu", "intra.cu", "deblock.cu", "mc.cu", "intra_main.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -32,8 +32,8 @@ _I = ctypes.c_int
 # C entry points: name -> argument types (every pointer and the stream are
 # void*, every scalar int); each returns cudaGetLastError().
 SIGNATURES = {
-    "xevd_itdq": (_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _I, _P, _I,
-                  _P),
+    "xevd_itdq": (_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _I, _P, _P,
+                  _I, _I, _P),
     "xevd_intra_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _P),
     "xevd_deblock_luma_ver": (_P, _I, _I, _I, _P, _I, _P),
     "xevd_deblock_luma_hor": (_P, _I, _I, _I, _P, _I, _P),
@@ -41,11 +41,14 @@ SIGNATURES = {
     "xevd_deblock_chroma_hor": (_P, _I, _I, _I, _P, _I, _P),
     "xevd_mc": (_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I,
                 _P, _P, _I, _P),
+    "xevd_intra_scan_wave": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _I,
+                             _P, _I, _I, _P),
 }
 
 launch_counts = {"itdq": 0, "recon": 0, "pad": 0, "intra_scan": 0,
                  "deblock_luma_ver": 0, "deblock_luma_hor": 0,
-                 "deblock_chroma_ver": 0, "deblock_chroma_hor": 0, "mc": 0}
+                 "deblock_chroma_ver": 0, "deblock_chroma_hor": 0, "mc": 0,
+                 "intra_scan_wave": 0}
 
 _LIB = None
 build_seconds = None

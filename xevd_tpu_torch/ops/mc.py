@@ -7,8 +7,9 @@ xevd_tpu/ops/pipeline.py:179).
 the frame's MC block table (ops/pack.py `pack_mc`) for CUDA reference
 planes, and runs `mc_all_ref`, the plain PyTorch version, for CPU ones.
 With CUDA planes every operand, the block table and the tap tables
-included, must be on the card.  Baseline taps only: Main streams, whose
-ADMVP taps are not ported, are refused at their SPS."""
+included, must be on the card.  `main_taps` (a Main stream with ADMVP)
+selects the Main tap tables; the arithmetic is the same
+(xevd_tpu/ops/jax_mc.py:61-66)."""
 from __future__ import annotations
 
 import ctypes
@@ -20,18 +21,23 @@ from .pack import (MAX_REF_SLOTS, MC_CASE, MC_GX, MC_GY, MC_H, MC_PLANE,
                    MC_PX, MC_PY, MC_SLOT, MC_W)
 
 
-def mc_blocks_ref(refs, slot, gx, gy, case, w, h, bd, is_luma, tables):
+def _taps(tables, is_luma, main_taps):
+    return tables[("mc_l" if is_luma else "mc_c")
+                  + ("_main" if main_taps else "")]
+
+
+def mc_blocks_ref(refs, slot, gx, gy, case, w, h, bd, is_luma, tables,
+                  main_taps=False):
     """refs int16 [R, H, W]; slot, gx, gy [N] -> int32 [N, h, w], clipped
     to [0, 2^bd - 1] (case 00 copies).  gx, gy are 1/16-pel (luma) or
     1/32-pel (chroma) positions from the padded plane origin; `case` (0 =
     00, 1 = N0, 2 = 0N, 3 = NN) chooses the filters, whatever the phase:
     a clipped MV can give phase 0 with taps, and tap row 0 then runs.
     N0 and 0N round nothing; NN truncates its intermediate to int16 (a
-    wrap) and rounds (ref: xevd_tpu/ops/jax_mc.py:50-96)."""
-    if is_luma:
-        fbits, ntap, tbl = 4, 8, tables["mc_l"]
-    else:
-        fbits, ntap, tbl = 5, 4, tables["mc_c"]
+    wrap) and rounds (ref: xevd_tpu/ops/jax_mc.py:50-96).  `main_taps`
+    takes the Main (ADMVP) tap tables."""
+    fbits, ntap = (4, 8) if is_luma else (5, 4)
+    tbl = _taps(tables, is_luma, main_taps)
     dev = refs.device
     slot, gx, gy = (t.to(dev, torch.int64) for t in (slot, gx, gy))
     half = ntap // 2 - 1
@@ -74,7 +80,7 @@ def _new_planes(shp_y, shp_c, device):
             z(shp_c, torch.int32), z(shp_c, torch.int32), z(shp_c, torch.int8))
 
 
-def mc_all_ref(mc, refs, shp_y, shp_c, bd, tables):
+def mc_all_ref(mc, refs, shp_y, shp_c, bd, tables, main_taps=False):
     """Plain version of `mc_all`: rows grouped by (plane, w, h, case), each
     group predicted by `mc_blocks_ref` and scatter-added into the planes,
     its count plane by one (ref: xevd_tpu/ops/pipeline.py:179-215)."""
@@ -95,7 +101,7 @@ def mc_all_ref(mc, refs, shp_y, shp_c, bd, tables):
         xx = sel[:, MC_PX, None, None] + torch.arange(w, device=dev)[
             None, None, :]
         args = (sel[:, MC_SLOT], sel[:, MC_GX], sel[:, MC_GY], case, w, h, bd,
-                plane == 0, tables)
+                plane == 0, tables, main_taps)
         if plane == 0:
             pred_y.index_put_((yy, xx), mc_blocks_ref(stacks[0], *args),
                               accumulate=True)
@@ -111,17 +117,18 @@ def mc_all_ref(mc, refs, shp_y, shp_c, bd, tables):
     return planes
 
 
-def mc_all(mc, lists, refs, shp_y, shp_c, bd, tables):
+def mc_all(mc, lists, refs, shp_y, shp_c, bd, tables, main_taps=False):
     """mc: int32 [N, 10] MC block table (ops/pack.py), `lists` = (rows of
     list 0, rows of list 1), list 0 first; refs: per slot a (y, u, v)
-    tuple of padded int16 reference planes (u, v None for 4:0:0).
-    Returns (pred_y, cnt_y, pred_u, pred_v, cnt_c): int32 prediction sums
-    and int8 counts over bordered planes of shapes shp_y / shp_c."""
+    tuple of padded int16 reference planes (u, v None for 4:0:0);
+    `main_taps`: the Main (ADMVP) filters.  Returns (pred_y, cnt_y,
+    pred_u, pred_v, cnt_c): int32 prediction sums and int8 counts over
+    bordered planes of shapes shp_y / shp_c."""
     if not refs:
         raise ValueError("mc_all: no reference planes")
     if refs[0][0].device.type == "cpu":
-        return mc_all_ref(mc, refs, shp_y, shp_c, bd, tables)
-    return _mc_cuda(mc, lists, refs, shp_y, shp_c, bd, tables)
+        return mc_all_ref(mc, refs, shp_y, shp_c, bd, tables, main_taps)
+    return _mc_cuda(mc, lists, refs, shp_y, shp_c, bd, tables, main_taps)
 
 
 def _ref_pointers(refs, i):
@@ -136,11 +143,13 @@ def _ref_pointers(refs, i):
     return arr, planes[0].stride(0)
 
 
-def _mc_cuda(mc, lists, refs, shp_y, shp_c, bd, tables):
+def _mc_cuda(mc, lists, refs, shp_y, shp_c, bd, tables, main_taps):
     chroma = shp_c is not None
+    taps_l = _taps(tables, True, main_taps)
+    taps_c = _taps(tables, False, main_taps)
     K.require(mc, torch.int32, 2, contiguous=True)
-    K.require(tables["mc_l"], torch.int32, 2, contiguous=True)
-    K.require(tables["mc_c"], torch.int32, 2, contiguous=True)
+    K.require(taps_l, torch.int32, 2, contiguous=True)
+    K.require(taps_c, torch.int32, 2, contiguous=True)
     if mc.shape[1] != 10:
         raise ValueError(f"MC table wants 10 columns, got {tuple(mc.shape)}")
     n0, n1 = lists
@@ -168,7 +177,7 @@ def _mc_cuda(mc, lists, refs, shp_y, shp_c, bd, tables):
             pitch_c, pred_y.data_ptr(), pred_u.data_ptr() if chroma else None,
             pred_v.data_ptr() if chroma else None, cnt_y.data_ptr(),
             cnt_c.data_ptr() if chroma else None, pred_y.stride(0),
-            pred_u.stride(0) if chroma else 0, tables["mc_l"].data_ptr(),
-            tables["mc_c"].data_ptr(), bd, stream)
+            pred_u.stride(0) if chroma else 0, taps_l.data_ptr(),
+            taps_c.data_ptr(), bd, stream)
         K.check(err, "xevd_mc")
     return planes

@@ -1,12 +1,14 @@
 """Host half of one frame: the per-frame syntax tensors as one flat payload.
 
-JAX-free port of `_Packer`, `_pack_itdq`, `_pack_mc` and `_pack_intra`
-(xevd_tpu/ops/pipeline.py:79-116, 580-833) for Baseline intra and inter
-frames.  What the JAX version does only to keep jit signatures stable is
-gone: no pow2 bucket padding, no pad rows at 1<<20, no per-size or
-per-(size, case) buckets.  The TU table and the MC block table are one list
-each, which the ITDQ kernel walks in a single launch and the MC kernel in
-one launch per reference list.
+JAX-free port of `_Packer`, `_pack_itdq`, `_pack_mc`, `_pack_intra` and
+`_pack_intra_main` (xevd_tpu/ops/pipeline.py:79-116, 580-881) for Baseline
+and Main intra and inter frames.  What the JAX version does only to keep
+jit signatures stable is gone: no pow2 bucket padding, no pad rows at
+1<<20, no per-size or per-(size, case) buckets, no per-size-class
+wavefront slots.  The TU table and the MC block table are one list each,
+which the ITDQ kernel walks in a single launch and the MC kernel in one
+launch per reference list; the EIPD scan table is one list sorted by
+wavefront level, with the level offsets beside it.
 
 Per frame there is one int32 payload and one int16 coefficient buffer, so
 two host->device copies.  Both are fresh host arrays: the native entropy
@@ -25,10 +27,18 @@ from xevd_tpu.syntax import UnsupportedStream
 from ..plane import DevicePlane
 from .tables import BORDER, PAD_C, PAD_L, PAD_R
 
-# TU table columns (one row per transform unit)
-TU_COMP, TU_LOG2W, TU_LOG2H, TU_SCALE, TU_Y, TU_X = range(6)
+# TU table columns (one row per transform unit); trs is 0 for DCT-2, else
+# ((horizontal + 1) << 2) | (vertical + 1) with 0 = DST-7, 1 = DCT-8 per
+# axis (xevd_tpu/ops/jax_itdq.py:47-54)
+TU_COMP, TU_LOG2W, TU_LOG2H, TU_SCALE, TU_Y, TU_X, TU_TRS = range(7)
+TU_COLS = 7
 # CU table columns of the Baseline intra scan (xevd_tpu/ops/pipeline.py:825)
 CU_X, CU_Y, CU_LOG2, CU_IPM, CU_UP, CU_LEFT, CU_CORNER, CU_VALID = range(8)
+# CU table columns of the EIPD scan (xevd_tpu/ops/pipeline.py:862-872):
+# 13, or 16 when the frame has HTDF work (do_intra, htdf_idx, htdf_avail)
+(ICM_X, ICM_Y, ICM_LOG2W, ICM_LOG2H, ICM_IPM, ICM_IPM_C, ICM_UP, ICM_LEFT,
+ ICM_RIGHT, ICM_CORNER, ICM_LR, ICM_TREE, ICM_VALID, ICM_DO_INTRA,
+ ICM_HTDF_IDX, ICM_HTDF_AVAIL) = range(16)
 # MC block table columns (one row per inter CU, reference list and plane
 # group): plane (0 luma, 1 chroma u and v), block w, h, filter case
 # (0 = 00, 1 = N0, 2 = 0N, 3 = NN), reference slot, position gx, gy in
@@ -59,12 +69,30 @@ class Packer:
         return np.concatenate(self.chunks), dict(self.layout)
 
 
-def pack_itdq(fs, bd: int, chroma: bool) -> np.ndarray:
-    """TU table int32 [N, 6]: (comp, log2w, log2h, scale, y, x) for every
-    coded block with cbf set; chroma coordinates are in chroma samples."""
-    if np.any(fs.cu_ats[:, 0] != 0) or np.any(fs.cu_ats[:, 2] != 0):
+def _ats_trs(a_cu, a_mode):
+    """The trs code of an ATS (cu, mode) pair, 0 where ATS is off
+    (xevd_tpu/ops/pipeline.py:604-606)."""
+    a_mode = np.asarray(a_mode, np.int64)
+    return np.where(np.asarray(a_cu) != 0,
+                    (((a_mode >> 1) + 1) << 2) | ((a_mode & 1) + 1), 0)
+
+
+def pack_itdq(fs, bd: int, chroma: bool, iqt: bool = False,
+              main: bool = False) -> np.ndarray:
+    """TU table int32 [N, 7]: (comp, log2w, log2h, scale, y, x, trs) for
+    every coded block with cbf set; chroma coordinates are in chroma
+    samples.  Port of `_pack_itdq` (xevd_tpu/ops/pipeline.py:580-675):
+    with `iqt` the scale comes from DQ_SCALE, else DQ_SCALE_B; intra ATS
+    sets a luma TU's trs; an ATS-inter CU gives one sub-TU per component,
+    its size, offset and (luma) trs from `xevd_tpu.tables.ats_inter_*`,
+    its coefficients read at the sub-TU's own position.  ATS is a Main
+    tool: a Baseline (`main` False) frame with ATS is refused."""
+    if not main and (np.any(fs.cu_ats[:, 0] != 0)
+                     or np.any(fs.cu_ats[:, 2] != 0)):
         raise UnsupportedStream("torch backend: ATS transforms are Main only")
     coded = fs.cu_pred_mode != T.MODE_SKIP
+    ats = np.asarray(fs.cu_ats)
+    dq = T.DQ_SCALE if iqt else T.DQ_SCALE_B
     qps = (fs.cu_qp + 6 * (bd - 8), fs.cu_qp_u, fs.cu_qp_v)
     planes = (fs.coef_y, fs.coef_u, fs.coef_v)
     rows = []
@@ -72,23 +100,36 @@ def pack_itdq(fs, bd: int, chroma: bool) -> np.ndarray:
         idx = np.nonzero(coded & (fs.cu_cbf[:, comp] != 0))[0]
         s = 1 if comp else 0
         qp = np.asarray(qps[comp])[idx].astype(np.int64)
-        r = np.empty((len(idx), 6), np.int32)
+        r = np.empty((len(idx), TU_COLS), np.int64)
         r[:, TU_COMP] = comp
         r[:, TU_LOG2W] = fs.cu_log2w[idx] - s
         r[:, TU_LOG2H] = fs.cu_log2h[idx] - s
-        r[:, TU_SCALE] = T.DQ_SCALE_B[qp % 6].astype(np.int64) << (qp // 6)
+        r[:, TU_SCALE] = dq[qp % 6].astype(np.int64) << (qp // 6)
         r[:, TU_Y] = fs.cu_y[idx] >> s
         r[:, TU_X] = fs.cu_x[idx] >> s
-        if (r[:, TU_LOG2W:TU_LOG2H + 1] < 1).any() or \
-                (r[:, TU_LOG2W:TU_LOG2H + 1] > 6).any():
+        r[:, TU_TRS] = _ats_trs(ats[idx, 0], ats[idx, 1]) if comp == 0 else 0
+        for j in np.nonzero(ats[idx, 2] != 0)[0]:  # ATS-inter sub-TUs
+            info = int(ats[idx[j], 2])
+            lw, lh = int(r[j, TU_LOG2W]), int(r[j, TU_LOG2H])
+            ltw, lth = T.ats_inter_tu_size(info, lw, lh)
+            xo, yo = T.ats_inter_tu_offset(info, lw, lh)
+            r[j, TU_LOG2W], r[j, TU_LOG2H] = ltw, lth
+            r[j, TU_X] += xo
+            r[j, TU_Y] += yo
+            r[j, TU_TRS] = (_ats_trs(*T.ats_inter_trs(info, lw, lh))
+                            if comp == 0 else 0)
+        size = r[:, TU_LOG2W:TU_LOG2H + 1]
+        if (size < 1).any() or (size > 6).any():
             raise ValueError("TU size outside 2..64")
+        if ((r[:, TU_TRS] != 0) & (size.max(1) > 5)).any():
+            raise ValueError("ATS TU with a side of 64: the DST-7/DCT-8 "
+                             "bases stop at 32")
         hp, wp = planes[comp].shape
-        if ((r[:, TU_Y] + (1 << r[:, TU_LOG2H].astype(np.int64)) > hp).any()
-                or (r[:, TU_X] + (1 << r[:, TU_LOG2W].astype(np.int64))
-                    > wp).any()):
+        if ((r[:, TU_Y] + (1 << r[:, TU_LOG2H]) > hp).any()
+                or (r[:, TU_X] + (1 << r[:, TU_LOG2W]) > wp).any()):
             raise ValueError("TU outside its coefficient plane")
         rows.append(r)
-    return np.concatenate(rows)
+    return np.concatenate(rows).astype(np.int32)
 
 
 def pack_intra(fs, job) -> np.ndarray:
@@ -114,6 +155,63 @@ def pack_intra(fs, job) -> np.ndarray:
          u32(job.cu_nbr_up[idx]), u32(job.cu_nbr_left[idx]),
          job.cu_nbr_corner[idx].astype(np.int32),
          np.ones(len(idx), np.int32)], 1).astype(np.int32)
+
+
+def pack_intra_main(fs, job, chroma: bool):
+    """(table, level_off): the EIPD scan table int32 [N, 13] (columns
+    ICM_*), or [N, 16] when the frame has HTDF work, whose rows then also
+    hold the HTDF-only inter CUs; rows sorted by wavefront level (a stable
+    sort, so decode order within a level), and int32 [L + 1] level offsets
+    (rows of level l are table[level_off[l]:level_off[l + 1]]).
+
+    Port of `_pack_intra_main` (xevd_tpu/ops/pipeline.py:836-881).  The
+    levels come from `xevd_tpu.ops.wavefront.level_scan_cus` (host code,
+    native C when built).  CUs of one level touch disjoint pixels, so the
+    sorted table is the same schedule as `group_wavefront`'s slots, without
+    their padding.  Raises UnsupportedStream for a CU larger than 64, and
+    ValueError for a CU whose neighbour or HTDF ring reads would leave the
+    bordered plane: the kernel reads without clamping."""
+    from xevd_tpu.ops.wavefront import level_scan_cus
+
+    intra = fs.cu_pred_mode == T.MODE_INTRA
+    htdf_any = (job.cu_htdf_idx is not None
+                and bool((job.cu_htdf_idx >= 0).any()))
+    sel = intra | (job.cu_htdf_idx >= 0) if htdf_any else intra
+    idx = np.nonzero(sel)[0]
+    ncol = 16 if htdf_any else 13
+    if len(idx) == 0:
+        return np.zeros((0, ncol), np.int32), np.zeros(1, np.int32)
+    lw = fs.cu_log2w[idx].astype(np.int64)
+    lh = fs.cu_log2h[idx].astype(np.int64)
+    if (lw > 6).any() or (lh > 6).any():
+        raise UnsupportedStream("torch EIPD kernel: intra CU > 64 "
+                                "unsupported")
+    if (lw < 2).any() or (lh < 2).any():
+        raise ValueError("EIPD CU side below 4")
+    x = fs.cu_x[idx].astype(np.int64)
+    y = fs.cu_y[idx].astype(np.int64)
+    if ((x < 0).any() or (y < 0).any() or (x + (1 << lw) > fs.w_pad).any()
+            or (y + (1 << lh) > fs.h_pad).any()):
+        # then every read (up to w + h samples along a side, the HTDF
+        # ring) stays in the 72 / 136-px borders
+        raise ValueError("EIPD CU outside the CTU-padded picture")
+
+    def u32(v):
+        return (np.asarray(v) & 0xFFFFFFFF).astype(np.uint32).astype(np.int32)
+
+    cols = [x, y, lw, lh, fs.cu_ipm[idx], fs.cu_ipm_c[idx],
+            u32(job.cu_nbr_up[idx]), u32(job.cu_nbr_left[idx]),
+            u32(job.cu_nbr_right[idx]), job.cu_nbr_corner[idx],
+            job.cu_avail_lr[idx], fs.cu_tree[idx], np.ones(len(idx))]
+    if htdf_any:
+        cols += [intra[idx], job.cu_htdf_idx[idx], job.cu_htdf_avail[idx]]
+    rows = np.stack([np.asarray(c).astype(np.int64) for c in cols],
+                    1).astype(np.int32)
+    levels = np.asarray(level_scan_cus(fs, job, idx, chroma=chroma))
+    order = np.argsort(levels, kind="stable")
+    counts = np.bincount(levels, minlength=int(levels.max()) + 1)
+    level_off = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    return np.ascontiguousarray(rows[order]), level_off
 
 
 def _ref_tensor(plane) -> torch.Tensor:
@@ -242,6 +340,10 @@ class PackedFrame:
     bd: int
     chroma: bool
     deblock_on: bool
+    iqt: bool                    # Main per-stage-clipped transforms
+    eipd: bool                   # icu is the EIPD scan table (K6/K7)
+    main_taps: bool              # Main (ADMVP) MC taps
+    level_off: np.ndarray | None  # EIPD level offsets [L + 1], host
     geom: tuple                  # (h, w, h_scu, w_scu)
     shp_y: tuple                 # bordered working plane shapes
     shp_c: tuple | None
@@ -253,8 +355,8 @@ class PackedFrame:
 class DeviceFrame:
     """A PackedFrame after its host->device copies (views into two
     device buffers)."""
-    tus: torch.Tensor            # int32 [Nt, 6]
-    icu: torch.Tensor            # int32 [Nc, 8]
+    tus: torch.Tensor            # int32 [Nt, 7]
+    icu: torch.Tensor            # int32 [Nc, 8], EIPD: [Nc, 13 or 16]
     mc: torch.Tensor             # int32 [Nm, 10], list 0 rows first
     dbst: torch.Tensor | None    # int32 [6, h_scu, w_scu]
     coef_y: torch.Tensor         # int16 [h_pad, w_pad]
@@ -264,8 +366,10 @@ class DeviceFrame:
 
 
 def pack_frame(job, sps, refp) -> PackedFrame:
-    """Build the payload of one Baseline frame (intra, P or B); refuse the
-    rest.  `refp[refi][list]` are the reference pictures (xevd_tpu.dpb)."""
+    """Build the payload of one frame (intra, P or B, Baseline or Main);
+    refuse ALF and ADDB frames here too, behind the SPS refusals of
+    `TorchPixelBackend.check_caps`.  `refp[refi][list]` are the reference
+    pictures (xevd_tpu.dpb)."""
     fs = job.fs
     bd = sps.bit_depth_luma_minus8 + 8
     cfi = sps.chroma_format_idc
@@ -277,10 +381,18 @@ def pack_frame(job, sps, refp) -> PackedFrame:
         raise UnsupportedStream("torch backend: ADDB is Main only")
     chroma = cfi == 1
     deblock_on = bool(fs.sh.deblocking_filter_on)
+    is_main = bool(getattr(sps, "is_main", False))
+    iqt = bool(is_main and sps.tool_iqt)
+    eipd = bool(is_main and sps.tool_eipd)
 
     pk = Packer()
-    pk.add("tus", pack_itdq(fs, bd, chroma))
-    pk.add("icu", pack_intra(fs, job))
+    pk.add("tus", pack_itdq(fs, bd, chroma, iqt, main=is_main))
+    level_off = None
+    if eipd:
+        icu, level_off = pack_intra_main(fs, job, chroma)
+    else:
+        icu = pack_intra(fs, job)
+    pk.add("icu", icu)
     mc, mc_lists, refs = pack_mc(fs, job, refp, chroma)
     pk.add("mc", mc)
     if deblock_on:
@@ -301,7 +413,8 @@ def pack_frame(job, sps, refp) -> PackedFrame:
         payload=payload, layout=layout, coefs=coefs,
         coef_shapes=(fs.coef_y.shape,
                      fs.coef_u.shape if chroma else None),
-        bd=bd, chroma=chroma, deblock_on=deblock_on,
+        bd=bd, chroma=chroma, deblock_on=deblock_on, iqt=iqt, eipd=eipd,
+        main_taps=bool(is_main and sps.tool_admvp), level_off=level_off,
         geom=(fs.h, fs.w, fs.h_scu, fs.w_scu), shp_y=shp_y, shp_c=shp_c,
         mc_lists=mc_lists, refs=refs)
 
