@@ -57,6 +57,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "cuda: needs an NVIDIA GPU (CUDA/Triton kernels); skips "
         "without one")
+    config.addinivalue_line(
+        "markers", "slow: a long case whose tools faster cases cover too; "
+        "left out of the tier-1 run (-m 'not slow')")
 
 
 @pytest.fixture(scope="session")

@@ -13,6 +13,8 @@ import pytest
 import torch
 
 from xevd_tpu_torch.kernels import build as K
+from xevd_tpu_torch.ops import addb as TA
+from xevd_tpu_torch.ops import alf as TL
 from xevd_tpu_torch.ops import deblock as TD
 from xevd_tpu_torch.ops import intra as TI
 from xevd_tpu_torch.ops import intra_main as TIM
@@ -22,10 +24,11 @@ from xevd_tpu_torch.ops import pack as PK
 from xevd_tpu_torch.ops import recon as TR
 from xevd_tpu_torch.ops.tables import PAD_C, PAD_L, device_tables
 
-from .torch_helpers import (compare, deblock_case, eipd_scene, intra_case,
-                            intra_wave_case, itdq_case, itdq_size_case,
-                            mc_case, mc_frame, mc_shapes, mc_size_case,
-                            pad_case, recon_case, recon_pred_case)
+from .torch_helpers import (addb_case, alf_case, compare, deblock_case,
+                            eipd_scene, intra_case, intra_wave_case,
+                            itdq_case, itdq_size_case, mc_case, mc_frame,
+                            mc_shapes, mc_size_case, pad_case, recon_case,
+                            recon_pred_case, suco_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -130,6 +133,31 @@ def test_deblock_kernel_matches_plain(dev, kind, bd):
     _check(deblock_case(dev, kind, bd, 270, 480))
 
 
+@pytest.mark.parametrize("bd", [8, 10])
+def test_chroma_ver_ordered_kernel_matches_plain(dev, bd):
+    """The SUCO-order chroma edges on the 1080p chroma SCU grid."""
+    _check(suco_case(dev, bd, 270, 480, seed=bd))
+
+
+@pytest.mark.parametrize("kind,cb", [("luma_ver", 1), ("luma_hor", 1),
+                                     ("chroma_ver", 1), ("chroma_ver", 4),
+                                     ("chroma_hor", 1), ("chroma_hor", 4)])
+@pytest.mark.parametrize("bd", [8, 10])
+def test_addb_kernel_matches_plain(dev, kind, cb, bd):
+    H, W = (272, 480) if kind.startswith("luma") else (136, 240)
+    _check(addb_case(dev, kind, bd, H, W, seed=bd, cb=cb))
+
+
+@pytest.mark.parametrize("luma", [True, False])
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("log2_ctu,h,w,across", [
+    (6, 288, 352, 1), (6, 272, 360, 0), (7, 264, 392, 1), (7, 264, 392, 0)])
+def test_alf_kernel_matches_plain(dev, luma, bd, log2_ctu, h, w, across):
+    """CTU 64 and 128, partial CTUs at the right and bottom, across tiles
+    or not, random CTU flags (luma)."""
+    _check(alf_case(dev, luma, bd, h, w, log2_ctu, across, seed=bd))
+
+
 def test_wrappers_refuse_cpu_operands_mixed_with_cuda(dev):
     """A CUDA launch checks every operand: a CPU table beside CUDA planes
     raises instead of running the plain version or reading host memory."""
@@ -176,3 +204,14 @@ def test_wrappers_refuse_cpu_operands_mixed_with_cuda(dev):
     with pytest.raises(ValueError):       # the prediction on the CPU
         TR.recon(resid, 8, torch.zeros(8, 8, dtype=torch.int32),
                  torch.zeros(8, 8, dtype=torch.int8, device=dev))
+    u = torch.zeros(16, 32, dtype=torch.int16, device=dev)
+    with pytest.raises(ValueError):       # the SUCO edge table on the CPU
+        TD.chroma_ver_ordered(u, u.clone(), torch.zeros(9, dtype=torch.int32),
+                              torch.zeros(0, 3, dtype=torch.int32), 8)
+    with pytest.raises(ValueError):       # the ADDB map on the CPU
+        TA.addb_pass("luma_ver", area, torch.zeros(4, 8, 4, dtype=torch.int32),
+                     8)
+    with pytest.raises(ValueError):       # the ALF coefficients on the CPU
+        TL.alf_plane(area, torch.zeros(25, 13, dtype=torch.int32),
+                     torch.ones(1, dtype=torch.int32, device=dev), 16, 32, 6,
+                     8, True, True)

@@ -1,18 +1,19 @@
 """The PyTorch port's Baseline all-intra slice end to end, on the CPU.
 
-Each stream is decoded by the torch backend (plain PyTorch versions), the
-JAX backend and the numpy oracle backend; the written YUV must be equal
-byte for byte (`assert_backends_agree`, which the inter-slice files
+Each stream is decoded by the torch backend (plain PyTorch versions) under
+the port's own `Decoder` (`xevd_tpu_torch.host`), and by the JAX backend
+and the numpy oracle backend under `xevd_tpu`'s; the written YUV must be
+equal byte for byte (`assert_backends_agree`, which the inter-slice files
 test_torch_inter_p.py and test_torch_inter_ra.py and the Main files
-test_torch_main_*.py share).  Streams the port does not cover are
-refused."""
+test_torch_main_*.py share), so every case also holds the host copy equal
+to its original.  Streams the port does not cover are refused."""
 import subprocess
 import sys
 
 import numpy as np
 import pytest
 
-from xevd_tpu.syntax import UnsupportedStream
+from xevd_tpu_torch import UnsupportedStream
 
 from .conftest import REPO, make_stream
 
@@ -33,7 +34,8 @@ def _stream(fixtures_dir, name, w, h, n, qp, seed, gop, bd=8, **kw):
 
 
 def _decode(stream, out, backend, out_bd=10):
-    """Decode with one backend's app; returns the rc and the written bytes."""
+    """Decode with one backend's app (the port's CLI for "torch",
+    `xevd_tpu`'s for the others); returns the rc and the written bytes."""
     bd_args = ["--output-bit-depth", str(out_bd)] if out_bd else []
     if backend == "torch":
         from xevd_tpu_torch.app import main
@@ -47,18 +49,32 @@ def _decode(stream, out, backend, out_bd=10):
 
 
 def assert_backends_agree(fixtures_dir, tmp_path, name, w, h, n, qp, seed,
-                          gop, bd, profile=0, tools=()):
-    """Decode one generated stream with the torch, JAX and numpy backends;
-    all n frames written, the three outputs equal.  `profile` 1 with
-    `tools` (tools/evc_enc.py Tools flags) makes a Main stream."""
+                          gop, bd, profile=0, tools=(), frames=None):
+    """Decode one generated stream with the torch backend (the port's
+    `Decoder`) and the JAX and numpy backends (`xevd_tpu`'s `Decoder`); all
+    `frames` frames written (default n; an RA stream rounds n up to whole
+    GOPs), the three outputs equal.  `profile` 1 with `tools`
+    (tools/evc_enc.py Tools flags) makes a Main stream."""
     stream = _stream(fixtures_dir, name, w, h, n, qp, seed, gop, bd,
                      profile=profile, tools=tools)
     outs = {}
+    # the JAX package is frozen: its decode of a stream is cached next to
+    # the stream (streams are cached by name), which saves its compiles
+    jax_out = stream.with_suffix(".jax.yuv")
+    if jax_out.exists():
+        outs["jax"] = jax_out.read_bytes()
     for backend in ("torch", "jax", "numpy"):
+        if backend in outs:
+            continue
         rc, outs[backend] = _decode(stream, tmp_path / f"{backend}.yuv",
                                     backend)
         assert rc == 0, backend
-    assert len(outs["torch"]) == n * w * h * 3  # 4:2:0, 2 bytes a sample
+        if backend == "jax":
+            tmp = jax_out.with_suffix(f".{id(outs)}.tmp")
+            tmp.write_bytes(outs["jax"])
+            tmp.replace(jax_out)
+    # 4:2:0, 2 bytes a sample
+    assert len(outs["torch"]) == (frames or n) * w * h * 3
     assert outs["torch"] == outs["jax"], f"{name}: torch != jax"
     assert outs["torch"] == outs["numpy"], f"{name}: torch != numpy"
 
@@ -83,12 +99,14 @@ def test_eight_bit_output(fixtures_dir, tmp_path):
 
 def test_dpb_planes_equal_jax(fixtures_dir):
     """The padded DPB pictures (the decoder's state), not only the output:
-    the JAX backend's planes, carried into the port with planes_from_numpy,
-    equal the port's own, after an intra stream and after an RA stream
-    (the last picture decoded there is a B picture)."""
-    from xevd_tpu import Decoder, NAL_UNIT_LENGTH_BYTE, info
+    the JAX backend's planes (under `xevd_tpu`'s `Decoder`), carried into
+    the port with planes_from_numpy, equal the port's own (under its own
+    `Decoder`), after an intra stream and after an RA stream (the last
+    picture decoded there is a B picture)."""
+    import xevd_tpu
     from xevd_tpu.ops.pipeline import JaxPixelBackend
-    from xevd_tpu_torch import TorchPixelBackend
+    from xevd_tpu_torch import Decoder, TorchPixelBackend, info
+    from xevd_tpu_torch.host import NAL_UNIT_LENGTH_BYTE
     from xevd_tpu_torch.ops.tables import planes_from_numpy
 
     for stream in (_stream(fixtures_dir, "i96x48", 96, 48, 2, 27, 4, "I"),
@@ -96,9 +114,10 @@ def test_dpb_planes_equal_jax(fixtures_dir):
                            "RA", 10)):
         data = stream.read_bytes()
         pics = {}
-        for key, backend in (("jax", JaxPixelBackend()),
-                             ("torch", TorchPixelBackend(device="cpu"))):
-            dec = Decoder(backend=backend)
+        for key, decoder, backend in (
+                ("jax", xevd_tpu.Decoder, JaxPixelBackend()),
+                ("torch", Decoder, TorchPixelBackend(device="cpu"))):
+            dec = decoder(backend=backend)
             pos = 0
             while pos + NAL_UNIT_LENGTH_BYTE <= len(data):
                 ln, _, _ = info(data[pos:pos + 6])
@@ -115,15 +134,13 @@ def test_dpb_planes_equal_jax(fixtures_dir):
 
 
 @pytest.mark.parametrize("name,w,h,n,qp,seed,gop,tools,missing", [
-    # tuples of tests/test_main_profile.py CASES and CASES_AFFINE
-    ("m_suco_i", 176, 144, 2, 30, 108, "I",
-     ("btt", "suco", "eipd", "cm_init"), "SUCO"),
-    ("m_addb_i", 176, 144, 2, 30, 501, "I", ("addb", "eipd", "cm_init"),
-     "ADDB"),
-    ("m_alf_i", 176, 144, 3, 30, 711, "I", ("alf", "eipd", "cm_init"), "ALF"),
+    # tuples of tests/test_main_profile.py CASES_AFFINE
     ("m_aff_p", 176, 144, 4, 30, 951, "IPPP",
      ("admvp", "hmvp", "affine", "eipd", "cm_init"), "affine"),
     ("m_ibc_i", 176, 144, 3, 30, 961, "I", ("ibc", "eipd", "cm_init"), "IBC"),
+    ("m_ibc_addb", 176, 144, 5, 30, 973, "RA",
+     ("ibc", "admvp", "hmvp", "amvr", "mmvd", "btt", "suco", "adcc", "iqt",
+      "ats", "addb", "eipd", "cm_init"), "IBC"),
     # DMVR and BTT without EIPD, on short streams of their own
     ("dmvr_p", 64, 64, 2, 30, 971, "IPPP",
      ("dmvr", "admvp", "hmvp", "eipd", "cm_init"), "DMVR"),
@@ -131,15 +148,15 @@ def test_dpb_planes_equal_jax(fixtures_dir):
 ])
 def test_refuses_unported_main_tools(fixtures_dir, tmp_path, name, w, h, n,
                                      qp, seed, gop, tools, missing):
-    """A Main stream with a tool whose kernel is not ported (or that the
-    JAX backend refuses too) is refused at its SPS, before any frame, with
-    a message that names the tool."""
+    """A Main stream with a tool that the JAX backend refuses too (affine,
+    IBC, DMVR, BTT without EIPD) is refused at its SPS, before any frame,
+    with a message that names the tool, also beside ADDB and SUCO, which
+    the port decodes."""
     stream = _stream(fixtures_dir, f"main_{name}", w, h, n, qp, seed, gop,
                      profile=1, tools=tools)
     rc, out = _decode(stream, tmp_path / "m.yuv", "torch")
     assert rc != 0 and out == b""
-    from xevd_tpu import Decoder, info
-    from xevd_tpu_torch import TorchPixelBackend
+    from xevd_tpu_torch import Decoder, TorchPixelBackend, info
     data = stream.read_bytes()
     ln, _, _ = info(data[:6])
     with pytest.raises(UnsupportedStream, match=missing):
@@ -147,15 +164,29 @@ def test_refuses_unported_main_tools(fixtures_dir, tmp_path, name, w, h, n,
             data[4:4 + ln])
 
 
+_CUT_LOOSE = """
+import importlib, pkgutil, sys
+import xevd_tpu_torch
+for m in pkgutil.walk_packages(xevd_tpu_torch.__path__, "xevd_tpu_torch."):
+    importlib.import_module(m.name)
+import xevd_tpu_torch.app, xevd_tpu_torch.profile, tests.torch_helpers
+import chip_smoke
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "xevd_tpu")]
+assert not bad, bad
+assert "xevd_tpu_torch.host.decoder" in sys.modules
+print(len([m for m in sys.modules if m.startswith("xevd_tpu_torch.")]))
+"""
+
+
 def test_import_leaves_jax_out():
-    """A fresh interpreter (this one has jax loaded by conftest)."""
-    r = subprocess.run(
-        [sys.executable, "-c",
-         "import sys, xevd_tpu_torch, xevd_tpu_torch.app; "
-         "bad = [m for m in sys.modules if m.split('.')[0] == 'jax']; "
-         "assert not bad, bad"],
-        cwd=REPO, capture_output=True, text=True)
+    """In a fresh interpreter (this one has jax loaded by conftest), the
+    port with every submodule, its CLI and profile tool, the shared test
+    helpers and chip_smoke.py (imported, not run) load neither JAX nor any
+    module of `xevd_tpu`: the port runs on its own host copy."""
+    r = subprocess.run([sys.executable, "-c", _CUT_LOOSE], cwd=REPO,
+                       capture_output=True, text=True)
     assert r.returncode == 0, r.stderr
+    assert int(r.stdout.split()[-1]) > 40, r.stdout
 
 
 def test_cuda_device_without_gpu_raises():

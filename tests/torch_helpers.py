@@ -1,7 +1,9 @@
 """Shared numpy-seeded inputs of the tests/test_torch_*.py files (planes,
 TU, CU and MC tables, deblock strengths) and the kernel-against-plain-
 version cases that both tests/test_torch_cuda.py and chip_smoke.py run on
-the card.  Imports no JAX, so it also serves on a machine without JAX."""
+the card.  Imports neither JAX nor `xevd_tpu` (host code comes from the
+port's own copy, `xevd_tpu_torch.host`), so it also serves on a machine
+without JAX."""
 from dataclasses import dataclass
 from types import SimpleNamespace
 from typing import Callable
@@ -9,8 +11,10 @@ from typing import Callable
 import numpy as np
 import torch
 
-from xevd_tpu import tables as T
-from xevd_tpu.ops.ref_numpy import qp_scale
+from xevd_tpu_torch.host import tables as T
+from xevd_tpu_torch.host.ops.ref_numpy import qp_scale
+from xevd_tpu_torch.ops import addb as TA
+from xevd_tpu_torch.ops import alf as TL
 from xevd_tpu_torch.ops import deblock as TD
 from xevd_tpu_torch.ops import intra as TI
 from xevd_tpu_torch.ops import intra_main as TIM
@@ -137,11 +141,11 @@ def eipd_scene(H, W, bd, seed, chroma=True, htdf=True):
     HTDF-only inter CUs and HTDF on a share of the CUs.  Neighbour masks,
     left/right availability and the HTDF ring bits are set where the cell
     was written by an earlier CU, as a decoder sets them; the levels come
-    from `xevd_tpu.ops.wavefront.level_scan_cus`.  Returns (recs, res,
+    from `xevd_tpu_torch.host.ops.wavefront.level_scan_cus`.  Returns (recs, res,
     table, level_off) as `pack_intra_main` would (numpy)."""
     from types import SimpleNamespace
 
-    from xevd_tpu.ops.wavefront import level_scan_cus
+    from xevd_tpu_torch.host.ops.wavefront import level_scan_cus
 
     rng = np.random.default_rng(seed)
     maxv = (1 << bd) - 1
@@ -205,8 +209,8 @@ def eipd_scene(H, W, bd, seed, chroma=True, htdf=True):
 def captured_frames(stream, device="cpu"):
     """Decode `stream` (a path) with the torch backend on `device`; every
     frame's (job, sps, refp, PackedFrame)."""
-    from xevd_tpu import NAL_UNIT_LENGTH_BYTE, Decoder, info
     from xevd_tpu_torch import TorchPixelBackend
+    from xevd_tpu_torch.host import NAL_UNIT_LENGTH_BYTE, Decoder, info
 
     class Capture(TorchPixelBackend):
         def __init__(self):
@@ -315,6 +319,66 @@ def strengths(rng, h_scu, w_scu, n=1):
     return (st * (rng.random((n, h_scu, w_scu)) < 0.6)).astype(np.int32)
 
 
+def suco_edges(rng, h_scu, w_scu, max_edges=5):
+    """A SUCO chroma edge table as ops/pack.py `chroma_ver_edges` returns it
+    (row_off int32 [h_scu + 1], edges int32 [E, 3] = (x, st_u, st_v)): up
+    to `max_edges` edges a SCU row at random SCU columns 1..w_scu - 1 in a
+    random order (repeats and neighbours cascade), each with a strength
+    in 1..12 in U, V or both."""
+    rows, edges = [], []
+    for r in range(h_scu):
+        for _ in range(int(rng.integers(0, max_edges + 1))):
+            su, sv = (int(rng.integers(1, 13)) * int(rng.random() < 0.7)
+                      for _ in range(2))
+            if su == sv == 0:
+                su = 3
+            rows.append(r)
+            edges.append((2 * int(rng.integers(1, w_scu)), su, sv))
+    row_off = np.concatenate([[0], np.cumsum(np.bincount(
+        np.asarray(rows, np.int64), minlength=h_scu))]).astype(np.int32)
+    return row_off, np.asarray(edges, np.int32).reshape(-1, 3)
+
+
+def smooth_plane(rng, h, w, bd, noise=3):
+    """int16 [h, w]: a slow gradient over the whole sample range plus
+    +-noise steps per 4x4 block and per sample (clipped), so that deblock
+    filters decide both ways and both clips are reached."""
+    maxv = (1 << bd) - 1
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = (yy + xx) * (maxv + 40) // max(h + w - 2, 1) - 20
+    s = 1 << (bd - 8)
+    blocks = rng.integers(-4 * noise, 4 * noise + 1,
+                          size=(-(-h // 4), -(-w // 4)))
+    base = base + s * np.kron(blocks, np.ones((4, 4), np.int64))[:h, :w]
+    base = base + s * rng.integers(-noise, noise + 1, size=(h, w))
+    return np.clip(base, 0, maxv).astype(np.int16)
+
+
+def addb_pars(rng, hs, ws, bd, nch=4):
+    """An ADDB parameter map int32 [2, hs, ws, nch]: bs in 0..4 (a third 0,
+    a quarter 4), then (alpha, beta, c) triples scaled to the bit depth as
+    the derive scales them, so that filters apply and skip."""
+    s = 1 << (bd - 8)
+    out = np.zeros((2, hs, ws, nch), np.int32)
+    out[..., 0] = rng.choice([0, 1, 2, 3, 4], size=(2, hs, ws),
+                             p=[0.3, 0.15, 0.15, 0.15, 0.25])
+    for c in range(1, nch, 3):
+        out[..., c] = rng.integers(0, 40, size=(2, hs, ws)) * s
+        out[..., c + 1] = rng.integers(0, 18, size=(2, hs, ws)) * s
+        out[..., c + 2] = rng.integers(0, 12, size=(2, hs, ws)) * s
+    return out
+
+
+def alf_coefs(rng):
+    """(coef_l int32 [25, 13], coef_c int32 [7]): random taps with the
+    centre tap completing 512, as host/ops/alf.py reconstructs them."""
+    cl = rng.integers(-48, 49, size=(25, 13))
+    cl[:, 12] = 512 - 2 * cl[:, :12].sum(1)
+    cc = rng.integers(-48, 49, size=7)
+    cc[6] = 512 - 2 * cc[:6].sum()
+    return cl.astype(np.int32), cc.astype(np.int32)
+
+
 # --------------------------------------------------------------------------
 # kernel-against-plain-version cases (run on a CUDA device)
 # --------------------------------------------------------------------------
@@ -328,6 +392,8 @@ class KernelCase:
     shape: str                # what the inputs are, for a log line
     kernel: Callable
     plain: Callable
+    bytes: int = 0            # each input read once, each output written once
+    ops: int = 0              # integer operations these inputs need
 
 
 def max_abs_err(got, want) -> int:
@@ -359,6 +425,59 @@ def _dev(a, dev):
                                                    ).to(dev)
 
 
+def _host(t) -> np.ndarray:
+    return np.asarray(t.cpu() if isinstance(t, torch.Tensor) else t)
+
+
+def itdq_work(tus):
+    """(bytes, ops) of the ITDQ of a TU table: each TU's coefficients read
+    and residuals written once (int16), a dequant and two separable stages
+    of w * h * (w + h) multiply-adds."""
+    t = _host(tus).astype(np.int64)
+    w, h = 1 << t[:, PK.TU_LOG2W], 1 << t[:, PK.TU_LOG2H]
+    n = w * h
+    return int(4 * n.sum() + t.size * 4), int((2 * n * (w + h) + 4 * n).sum())
+
+
+def mc_work(table):
+    """(bytes, ops) of MC over a block table: each block's reference window
+    (taps included) read, its int32 prediction and int8 count written (two
+    planes for a chroma row), 2 operations a tap and pass per sample."""
+    t = _host(table).astype(np.int64)
+    luma = t[:, PK.MC_PLANE] == 0
+    ntap = np.where(luma, 8, 4)
+    planes = np.where(luma, 1, 2)
+    cx, cy = (t[:, PK.MC_CASE] & 1) != 0, (t[:, PK.MC_CASE] & 2) != 0
+    w, h = t[:, PK.MC_W], t[:, PK.MC_H]
+    win = (w + cx * (ntap - 1)) * (h + cy * (ntap - 1))
+    n = w * h
+    taps = np.maximum(1, 2 * ntap * (cx.astype(np.int64) + cy))
+    return (int((planes * (2 * win + 5 * n)).sum() + t.size * 4),
+            int((planes * n * taps).sum()))
+
+
+def intra_work(icu, log2w, log2h, chroma):
+    """(bytes, ops) of an intra scan over a CU table: each CU's residual
+    read and samples written (int16) with its 2 (w + h) neighbours read,
+    in every plane, about 12 operations a sample."""
+    t = _host(icu).astype(np.int64)
+    w, h = 1 << t[:, log2w], 1 << t[:, log2h]
+    n = w * h * (1.5 if chroma else 1)
+    nb = 2 * (w + h) * (2 if chroma else 1)
+    return int((4 * n + 2 * nb).sum() + t.size * 4), int(12 * n.sum())
+
+
+def deblock_work(kind, st):
+    """(bytes, ops) of a Baseline deblock pass: per edge line with a
+    strength, 4 samples read and 4 (luma) or 2 (chroma) written, about 20
+    operations; the strength map read."""
+    s = _host(st) > 0
+    luma = kind.startswith("luma")
+    on = (s[:, 1:] if kind.endswith("ver") else s[1:, :]).sum() * (
+        4 if luma else 2)
+    return int(on * (16 if luma else 12) + s.size * 4), int(on * 20)
+
+
 def itdq_case(dev, bd, h, w, chroma=True, seed=0, coef_max=3000, iqt=False):
     """A frame's TU table over h x w coefficient planes; `iqt`: the Main
     transforms, with ATS bases on some luma TUs."""
@@ -366,9 +485,11 @@ def itdq_case(dev, bd, h, w, chroma=True, seed=0, coef_max=3000, iqt=False):
                                           main=iqt)
     tc = [_dev(c, dev) for c in coefs] + [None] * (3 - len(coefs))
     args = (tc, _dev(tus, dev), shp_y, shp_c, bd, device_tables(dev), iqt)
+    nbytes, ops = itdq_work(tus)
     return KernelCase("itdq", f"{h}x{w} bd{bd}{' iqt+ATS' if iqt else ''}, "
                       f"{len(tus)} TUs",
-                      lambda: TQ.itdq(*args), lambda: TQ.itdq_ref(*args))
+                      lambda: TQ.itdq(*args), lambda: TQ.itdq_ref(*args),
+                      nbytes, ops)
 
 
 def itdq_size_case(dev, bd, log2, n=64, seed=0, iqt=False, trs=0):
@@ -405,7 +526,8 @@ def pad_case(dev, bd, h, w, pad, seed=0):
     area = plane[BORDER:BORDER + h, BORDER:BORDER + w]
     return KernelCase("pad", f"{h}x{w} +{pad} bd{bd}",
                       lambda: [TR.pad(area, h, w, pad)],
-                      lambda: [TR.pad_ref(area, h, w, pad)])
+                      lambda: [TR.pad_ref(area, h, w, pad)],
+                      2 * (h * w + (h + 2 * pad) * (w + 2 * pad)), 0)
 
 
 def intra_planes_case(dev, recs, res, icu, bd, chroma, shape):
@@ -416,7 +538,8 @@ def intra_planes_case(dev, recs, res, icu, bd, chroma, shape):
     return KernelCase(
         "intra_scan", shape,
         lambda: list(TI.intra_scan(a, res, icu, bd, chroma)),
-        lambda: list(TI.intra_scan_ref(b, res, icu, bd, chroma)))
+        lambda: list(TI.intra_scan_ref(b, res, icu, bd, chroma)),
+        *intra_work(icu, PK.CU_LOG2, PK.CU_LOG2, chroma))
 
 
 def intra_case(dev, H, W, bd, chroma=True, seed=0):
@@ -441,7 +564,8 @@ def intra_wave_planes_case(dev, recs, res, icu, level_off, bd, chroma,
         lambda: list(TIM.intra_scan_wave(a, res, icu, level_off, bd, chroma,
                                          tab)),
         lambda: list(TIM.intra_scan_wave_ref(b, res, icu, level_off, bd,
-                                             chroma)))
+                                             chroma)),
+        *intra_work(icu, PK.ICM_LOG2W, PK.ICM_LOG2H, chroma))
 
 
 def intra_wave_case(dev, H, W, bd, chroma=True, seed=0, htdf=True):
@@ -474,7 +598,7 @@ def deblock_case(dev, kind, bd, h_scu, w_scu, seed=0):
         TD._REFS[kind](b[sl], st, bd)
         return [b]
     return KernelCase(f"deblock_{kind}", f"{h_scu * u}x{w_scu * u} bd{bd}",
-                      kernel, plain)
+                      kernel, plain, *deblock_work(kind, st))
 
 
 def mc_case(dev, H, W, bd, chroma=True, seed=0):
@@ -499,7 +623,8 @@ def mc_table_case(dev, table, lists, refs, shp_y, shp_c, bd, shape,
         lambda: list(TM.mc_all(mc, lists, refs, shp_y, shp_c, bd, tab,
                                main_taps)),
         lambda: list(TM.mc_all_ref(mc, refs, shp_y, shp_c, bd, tab,
-                                   main_taps)))
+                                   main_taps)),
+        *mc_work(table))
 
 
 def mc_size_case(dev, is_luma, case, bd, seed=0, main_taps=False):
@@ -556,4 +681,150 @@ def recon_pred_case(dev, bd, H, W, seed=0):
                                                                   seed))
     return KernelCase("recon", f"{H}x{W} bd{bd} with prediction",
                       lambda: [TR.recon(resid, bd, pred, cnt)],
-                      lambda: [TR.recon_ref(resid, bd, pred, cnt)])
+                      lambda: [TR.recon_ref(resid, bd, pred, cnt)],
+                      H * W * 9, H * W * 6)
+
+
+# --------------------------------------------------------------------------
+# SUCO chroma order (K10), ADDB (K11), ALF (K13)
+# --------------------------------------------------------------------------
+def suco_planes_case(dev, u, v, row_off, edges, bd, shape):
+    """K10 on chroma areas u, v (views into device planes, left untouched:
+    each side filters copies of its own) with the edge table row_off,
+    edges (host or device)."""
+    off, ed = (_dev(np.asarray(a), dev) if isinstance(a, np.ndarray) else a
+               for a in (row_off, edges))
+    a = (u.clone(), v.clone())
+    b = (u.clone(), v.clone())
+    n = int(ed.shape[0])
+    return KernelCase(
+        "chroma_ver_ordered", shape,
+        lambda: list(TD.chroma_ver_ordered(*a, off, ed, bd)),
+        lambda: (TD.chroma_ver_ordered_ref(*b, off, ed, bd), list(b))[1],
+        bytes=n * 2 * 2 * 6 * 2 + (off.numel() + ed.numel()) * 4,
+        ops=n * 2 * 2 * 14)
+
+
+def suco_case(dev, bd, h_scu, w_scu, seed=0):
+    """K10 on synthetic chroma planes with a random edge table."""
+    rng = np.random.default_rng(seed + bd)
+    u, v = (_dev(smooth_plane(rng, 2 * h_scu, 2 * w_scu, bd, 8), dev)
+            for _ in range(2))
+    row_off, edges = suco_edges(rng, h_scu, w_scu)
+    return suco_planes_case(dev, u, v, row_off, edges, bd,
+                            f"{2 * h_scu}x{2 * w_scu} bd{bd}, {len(edges)} "
+                            "edges")
+
+
+def _addb_work(kind, pars):
+    """(bytes, ops) of an ADDB pass: per edge line with bs > 0, 8 samples
+    read and 6 written (luma) or 4 and 2 (chroma), about 60 (25)
+    operations; the 4 parameters of each map cell on the edge grid."""
+    bs = _host(pars)[..., 0]
+    grid = bs[:, 2::2] if kind.endswith("ver") else bs[2::2, :]
+    luma = kind.startswith("luma")
+    n = int((grid > 0).sum()) * (4 if luma else 2)
+    return n * (28 if luma else 12) + grid.size * 16, n * (60 if luma else 25)
+
+
+def _two_copies(area):
+    """(a, b, view): two copies of the whole plane `area` is a view into,
+    and view(copy), the same view into a copy -- so that a kernel and its
+    plain version each filter a plane of their own in place, with the row
+    pitch and border the main path gives them."""
+    base = area
+    while base._base is not None:
+        base = base._base
+    off, (H, W), stride = area.storage_offset(), area.shape, area.stride()
+    return (base.clone(), base.clone(),
+            lambda t: t.as_strided((H, W), stride, off))
+
+
+def addb_planes_case(dev, kind, area, pars, bd, cb, shape):
+    """One ADDB pass on `area` (a view into a device plane, left untouched)
+    with `pars` [H/u, W/u, C] on the device."""
+    a, b, view = _two_copies(area)
+    return KernelCase(
+        f"addb_{kind}", shape,
+        lambda: (TA.addb_pass(kind, view(a), pars, bd, cb), [a])[1],
+        lambda: (TA._REFS[kind](view(b), pars, bd, cb), [b])[1],
+        *_addb_work(kind, pars))
+
+
+def addb_case(dev, kind, bd, H, W, seed=0, cb=1):
+    """One ADDB pass on a synthetic H x W area of a bordered plane, with a
+    random parameter map (7 channels for chroma: U at cb 1, V at cb 4)."""
+    rng = np.random.default_rng(seed + bd + len(kind))
+    luma = kind.startswith("luma")
+    u = 4 if luma else 2
+    plane = bordered(rng, H, W, 0, 1 << bd)
+    plane[BORDER:BORDER + H, BORDER:BORDER + W] = smooth_plane(rng, H, W, bd)
+    d = _dev(plane, dev)
+    pars = _dev(addb_pars(rng, H // u, W // u, bd, 4 if luma else 7)[0], dev)
+    area = d[BORDER:BORDER + H, BORDER:BORDER + W]
+    return addb_planes_case(dev, kind, area, pars, bd, cb,
+                            f"{H}x{W} bd{bd}" + ("" if luma else f" cb{cb}"))
+
+
+def alf_planes_case(dev, luma, area, coef, ctu_on, ph, pw, log2_s, bd,
+                    across, shape):
+    """ALF of one plane on `area` (a view into a device plane, left
+    untouched)."""
+    a, b, view = _two_copies(area)
+    S = 1 << log2_s
+    n_w, n_h = -(-pw // S), -(-ph // S)
+    if luma:
+        on = np.asarray(ctu_on.cpu()) > 0
+        idx = np.arange(n_w * n_h)
+        wb = np.minimum(S, pw - idx % n_w * S)
+        hb = np.minimum(S, ph - idx // n_w * S)
+        samples = int((wb * hb)[on].sum())
+    else:
+        samples = ph * pw
+    return KernelCase(
+        "alf_luma" if luma else "alf_chroma", shape,
+        lambda: (TL.alf_plane(view(a), coef, ctu_on, ph, pw, log2_s, bd,
+                              across, luma), [a])[1],
+        lambda: (TL.alf_plane_ref(view(b), coef, ctu_on, ph, pw, log2_s, bd,
+                                  across, luma), [b])[1],
+        # a sample's operations, each counted once: luma four Laplacians
+        # (4 each) and their sums (3 of 4 samples) 19, box sums and the
+        # classification about 4, the 7x7 diamond (12 tap-pair adds, 13
+        # multiply-adds, round, shift, clip) 41; chroma the 5x5 diamond 23
+        bytes=ph * pw * 2 + samples * 2 + coef.numel() * 4,
+        ops=samples * (64 if luma else 23))
+
+
+def alf_case(dev, luma, bd, h, w, log2_ctu, across, seed=0):
+    """ALF of one plane of an h x w picture (chroma: h/2 x w/2) on the
+    SCU-rounded area of a bordered plane of random samples, random
+    coefficients and CTU flags."""
+    rng = np.random.default_rng(seed + bd + 2 * luma + across)
+    ph, pw = (h, w) if luma else (h >> 1, w >> 1)
+    log2_s = log2_ctu if luma else log2_ctu - 1
+    plane = _dev(bordered(rng, ph + 8, pw + 8, 0, 1 << bd), dev)
+    area = plane[BORDER:BORDER + ph + 4, BORDER:BORDER + pw + 4]
+    cl, cc = alf_coefs(rng)
+    S = 1 << log2_ctu
+    n_ctu = -(-h // S) * -(-w // S)
+    ctu_on = _dev((rng.random(n_ctu) < 0.7).astype(np.int32), dev)
+    return alf_planes_case(
+        dev, luma, area, _dev(cl if luma else cc, dev), ctu_on, ph, pw,
+        log2_s, bd, across,
+        f"{'luma' if luma else 'chroma'} {pw}x{ph} CTU {1 << log2_s} bd{bd}"
+        f" across {int(across)}")
+
+
+def frame_areas_before(pf, dev, stage):
+    """(areas, df): a packed frame's deblock/ALF areas on `dev` just before
+    `stage` ("deblock" or "alf"), run through the main path's own stage
+    functions (ops/pipeline.py)."""
+    from xevd_tpu_torch.ops import pipeline as PP
+    tables = device_tables(dev)
+    df = PK.upload(pf, dev)
+    resids, recs = PP.residuals_and_recon(df, tables)
+    PP.intra_stage(df, recs, resids, tables)
+    areas = PP.frame_areas(df, recs)
+    if stage == "alf":
+        PP.deblock_stage(df, areas)
+    return areas, df

@@ -10,8 +10,8 @@ import argparse
 import sys
 import time
 
-from xevd_tpu import NAL_UNIT_LENGTH_BYTE, Decoder, info
-from xevd_tpu.utils.yuv import YuvWriter
+from .host import NAL_UNIT_LENGTH_BYTE, Decoder, info
+from .host.utils.yuv import YuvWriter
 
 from .ops.pipeline import TorchPixelBackend
 
@@ -38,7 +38,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.trace:
-        from xevd_tpu import trace as _trace
+        from .host import trace as _trace
         _trace.init(args.trace, bins=args.trace_bins)
 
     dec = Decoder(threads=args.threads,

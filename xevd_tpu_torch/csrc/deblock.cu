@@ -1,8 +1,9 @@
 // Baseline deblocking passes, in place on the SCU-cropped picture area.
 //
 // Replaces: xevd_tpu/ops/jax_deblock.py `luma_ver_pass`, `luma_hor_pass`
-// (K8, `_luma_filter`) and `chroma_ver_pass`, `chroma_hor_pass` (K9,
-// `_chroma_filter`; ref: src_base/xevd_df.c:96-195).  The function that runs
+// (K8, `_luma_filter`), `chroma_ver_pass`, `chroma_hor_pass` (K9,
+// `_chroma_filter`; ref: src_base/xevd_df.c:96-195) and `chroma_ver_ordered`
+// (K10, the SUCO-order chroma vertical edges).  The function that runs
 // them in reference order (luma ver, chroma ver, luma hor, chroma hor) is
 // xevd_tpu_torch/ops/deblock.py `deblock_frame` (K12).
 //
@@ -19,6 +20,13 @@
 // and writing the plane in place -- the in-place walk is exactly the
 // lax.scan carry of the JAX version.  Division is C truncating division
 // (`_div_trunc`), not an arithmetic shift.
+//
+// K10: under SUCO a row's chroma edges cascade in the order of the per-CU
+// deblock visit, not left to right.  The JAX version scans waves of at
+// most one edge per SCU row; here the host ships each SCU row's edges in
+// that order (ops/pack.py `chroma_ver_edges`, a CSR table), and one
+// thread per chroma line and plane walks its row's list -- one launch a
+// frame, no waves.  Its dependency chain is the longest row's edge count.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -122,6 +130,26 @@ __global__ void chroma_hor_kernel(int16_t* area, int stride, int H, int W,
   }
 }
 
+// K10: u, v [H, W] (H = 2 h_scu), one row pitch; row_off [h_scu + 1] and
+// edges [E, 3] = (x, st_u, st_v), each SCU row's edges in filter order.
+// Thread per (plane, line): the two lines of an SCU row see the same
+// edges; the pack checks 2 <= x <= W - 2.
+__global__ void chroma_ver_ordered_kernel(int16_t* u, int16_t* v, int stride,
+                                          int H,
+                                          const int32_t* __restrict__ row_off,
+                                          const int32_t* __restrict__ edges,
+                                          int maxv) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= 2 * H) return;
+  const int plane = idx >= H, r = idx - plane * H;
+  int16_t* row = (plane ? v : u) + (long)r * stride;
+  const int e1 = row_off[(r >> 1) + 1];
+  for (int e = row_off[r >> 1]; e < e1; ++e) {
+    const int s = edges[3 * e + 1 + plane];
+    if (s > 0) chroma_edge(row + edges[3 * e], 1, s, maxv);
+  }
+}
+
 inline int blocks(long n) { return (int)((n + DB_THREADS - 1) / DB_THREADS); }
 
 }  // namespace
@@ -157,5 +185,16 @@ extern "C" int xevd_deblock_chroma_hor(void* area, int stride, int H, int W,
   if (W > 0)
     chroma_hor_kernel<<<blocks(W), DB_THREADS, 0, (cudaStream_t)stream>>>(
         (int16_t*)area, stride, H, W, (const int32_t*)st, (1 << bd) - 1);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int xevd_chroma_ver_ordered(void* u, void* v, int stride, int H,
+                                       const void* row_off, const void* edges,
+                                       int bd, void* stream) {
+  if (H > 0)
+    chroma_ver_ordered_kernel<<<blocks(2L * H), DB_THREADS, 0,
+                                (cudaStream_t)stream>>>(
+        (int16_t*)u, (int16_t*)v, stride, H, (const int32_t*)row_off,
+        (const int32_t*)edges, (1 << bd) - 1);
   return (int)cudaGetLastError();
 }

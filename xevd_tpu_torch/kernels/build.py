@@ -23,7 +23,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "xevd_tpu_torch"
-SOURCES = ("itdq.cu", "intra.cu", "deblock.cu", "mc.cu", "intra_main.cu")
+SOURCES = ("itdq.cu", "intra.cu", "deblock.cu", "mc.cu", "intra_main.cu",
+           "addb.cu", "alf.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -43,12 +44,22 @@ SIGNATURES = {
                 _P, _P, _I, _P),
     "xevd_intra_scan_wave": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _I,
                              _P, _I, _I, _P),
+    "xevd_chroma_ver_ordered": (_P, _P, _I, _I, _P, _P, _I, _P),
+    "xevd_addb_luma_ver": (_P, _I, _I, _I, _P, _I, _I, _I, _P),
+    "xevd_addb_luma_hor": (_P, _I, _I, _I, _P, _I, _I, _I, _P),
+    "xevd_addb_chroma_ver": (_P, _I, _I, _I, _P, _I, _I, _I, _P),
+    "xevd_addb_chroma_hor": (_P, _I, _I, _I, _P, _I, _I, _I, _P),
+    "xevd_alf_luma": (_P, _I, _P, _I, _I, _I, _I, _P, _P, _I, _I, _P),
+    "xevd_alf_chroma": (_P, _I, _P, _I, _I, _I, _I, _P, _P, _I, _I, _P),
 }
 
 launch_counts = {"itdq": 0, "recon": 0, "pad": 0, "intra_scan": 0,
                  "deblock_luma_ver": 0, "deblock_luma_hor": 0,
                  "deblock_chroma_ver": 0, "deblock_chroma_hor": 0, "mc": 0,
-                 "intra_scan_wave": 0}
+                 "intra_scan_wave": 0, "chroma_ver_ordered": 0,
+                 "addb_luma_ver": 0, "addb_luma_hor": 0,
+                 "addb_chroma_ver": 0, "addb_chroma_hor": 0, "alf_luma": 0,
+                 "alf_chroma": 0}
 
 _LIB = None
 build_seconds = None

@@ -1,7 +1,7 @@
 """Baseline deblocking (the port of K8 `luma_ver_pass` / `luma_hor_pass`,
-K9 `chroma_ver_pass` / `chroma_hor_pass`, xevd_tpu/ops/jax_deblock.py:59-188,
-and of K12 `_deblock_finish`, xevd_tpu/ops/pipeline.py:285, which
-sequences them).
+K9 `chroma_ver_pass` / `chroma_hor_pass`, K10 `chroma_ver_ordered`,
+xevd_tpu/ops/jax_deblock.py:59-188, and of K12 `_deblock_finish`,
+xevd_tpu/ops/pipeline.py:285, which sequences them).
 
 Every pass filters an SCU-cropped area in place (a strided view into the
 bordered picture plane).  `st` is the per-SCU strength map
@@ -121,13 +121,69 @@ def deblock_pass(kind: str, area: torch.Tensor, st: torch.Tensor, bd: int):
     return area
 
 
-def deblock_frame(y_area, u_area, v_area, st, bd):
+def chroma_ver_ordered_ref(u, v, row_off, edges, bd):
+    """K10's plain version, a literal port of the wave scan
+    (xevd_tpu/ops/jax_deblock.py:122-166): wave k filters the edge of rank k
+    of every SCU row that has one, on both chroma lines of the row and in
+    both planes, vectorised over the rows.  row_off int32 [h_scu + 1],
+    edges int32 [E, 3] (ops/pack.py `chroma_ver_edges`)."""
+    maxv = (1 << bd) - 1
+    off = row_off.to(torch.int64)
+    cnt = off[1:] - off[:-1]
+    pu, pv = u.to(torch.int32), v.to(torch.int32)
+    for k in range(int(cnt.max()) if cnt.numel() else 0):
+        rows = torch.nonzero(cnt > k).squeeze(1)
+        e = edges[off[rows] + k].to(torch.int64)
+        xx = e[:, 0]
+        for p, st in ((pu, e[:, 1]), (pv, e[:, 2])):
+            for dy in (0, 1):
+                yy = 2 * rows + dy
+                p[yy, xx - 1], p[yy, xx] = _chroma_filter(
+                    p[yy, xx - 2], p[yy, xx - 1], p[yy, xx], p[yy, xx + 1],
+                    st.to(torch.int32), maxv)
+    u.copy_(pu)
+    v.copy_(pv)
+
+
+def chroma_ver_ordered(u, v, row_off, edges, bd):
+    """K10: the SUCO-order chroma vertical edges, in place on the chroma
+    areas u, v [H, W] int16 (H = 2 h_scu).  CUDA tensors launch
+    csrc/deblock.cu `chroma_ver_ordered_kernel`, CPU tensors take
+    `chroma_ver_ordered_ref`."""
+    H, W = u.shape
+    if v.shape != u.shape or row_off.shape != (H // 2 + 1,) or H % 2 \
+            or edges.dim() != 2 or edges.shape[1] != 3:
+        raise ValueError(f"chroma_ver_ordered: areas {tuple(u.shape)} "
+                         f"{tuple(v.shape)}, row offsets "
+                         f"{tuple(row_off.shape)}, edges {tuple(edges.shape)}")
+    if u.device.type == "cpu":
+        chroma_ver_ordered_ref(u, v, row_off, edges, bd)
+        return u, v
+    for a in (u, v):
+        K.require(a, torch.int16, 2, rows_contiguous=True)
+    K.require(row_off, torch.int32, 1, contiguous=True)
+    K.require(edges, torch.int32, 2, contiguous=True)
+    if u.stride(0) != v.stride(0):
+        raise ValueError("chroma_ver_ordered: u and v differ in row pitch")
+    K.count("chroma_ver_ordered")
+    err = K.lib().xevd_chroma_ver_ordered(
+        u.data_ptr(), v.data_ptr(), u.stride(0), H, row_off.data_ptr(),
+        edges.data_ptr(), bd, K.stream_ptr(u.device))
+    K.check(err, "xevd_chroma_ver_ordered")
+    return u, v
+
+
+def deblock_frame(y_area, u_area, v_area, st, bd, suco=None):
     """K12: the passes in reference order -- luma ver, chroma ver (u, v),
     luma hor, chroma hor (u, v) (ref: xevd_tpu/ops/pipeline.py:299-309).
     st: int32 [6, h_scu, w_scu] = ver_y, hor_y, ver_u, hor_u, ver_v, hor_v.
-    u_area / v_area are None for 4:0:0."""
+    suco: (row_off, edges) of a SUCO frame's chroma vertical edges, which
+    then run in that order (K10) instead of the raster pass.  u_area /
+    v_area are None for 4:0:0."""
     deblock_pass("luma_ver", y_area, st[0], bd)
-    if u_area is not None:
+    if u_area is not None and suco is not None:
+        chroma_ver_ordered(u_area, v_area, *suco, bd)
+    elif u_area is not None:
         deblock_pass("chroma_ver", u_area, st[2], bd)
         deblock_pass("chroma_ver", v_area, st[4], bd)
     deblock_pass("luma_hor", y_area, st[1], bd)

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from xevd_tpu import tables as T
+from ..host import tables as T
 
 from ..kernels import build as K
 from .tables import BORDER

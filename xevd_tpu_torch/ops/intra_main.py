@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from xevd_tpu import tables as T
+from ..host import tables as T
 
 from ..kernels import build as K
 from .pack import (ICM_CORNER, ICM_DO_INTRA, ICM_HTDF_AVAIL, ICM_HTDF_IDX,

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from xevd_tpu import tables as T
+from ..host import tables as T
 
 from ..kernels import build as K
 from .pack import (TU_COLS, TU_COMP, TU_LOG2H, TU_LOG2W, TU_SCALE, TU_TRS,

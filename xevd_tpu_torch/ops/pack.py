@@ -1,14 +1,16 @@
 """Host half of one frame: the per-frame syntax tensors as one flat payload.
 
-JAX-free port of `_Packer`, `_pack_itdq`, `_pack_mc`, `_pack_intra` and
-`_pack_intra_main` (xevd_tpu/ops/pipeline.py:79-116, 580-881) for Baseline
-and Main intra and inter frames.  What the JAX version does only to keep
+JAX-free port of `_Packer`, `_pack_itdq`, `_pack_mc`, `_pack_intra`,
+`_pack_intra_main` and `_chroma_ver_waves` (xevd_tpu/ops/pipeline.py:79-116,
+580-927) and of the ADDB and ALF parts of `JaxPixelBackend.pack_frame`
+(:505-517, 538-546) for Baseline and Main intra and inter frames.  What the JAX version does only to keep
 jit signatures stable is gone: no pow2 bucket padding, no pad rows at
 1<<20, no per-size or per-(size, case) buckets, no per-size-class
 wavefront slots.  The TU table and the MC block table are one list each,
 which the ITDQ kernel walks in a single launch and the MC kernel in one
 launch per reference list; the EIPD scan table is one list sorted by
-wavefront level, with the level offsets beside it.
+wavefront level, with the level offsets beside it; the SUCO chroma edges
+are one list sorted by SCU row and rank, with row offsets (no waves).
 
 Per frame there is one int32 payload and one int16 coefficient buffer, so
 two host->device copies.  Both are fresh host arrays: the native entropy
@@ -21,8 +23,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from xevd_tpu import tables as T
-from xevd_tpu.syntax import UnsupportedStream
+from ..host import tables as T
+from ..host.syntax import UnsupportedStream
 
 from ..plane import DevicePlane
 from .tables import BORDER, PAD_C, PAD_L, PAD_R
@@ -47,6 +49,10 @@ CU_X, CU_Y, CU_LOG2, CU_IPM, CU_UP, CU_LEFT, CU_CORNER, CU_VALID = range(8)
 (MC_PLANE, MC_W, MC_H, MC_CASE, MC_SLOT, MC_GX, MC_GY, MC_PY, MC_PX,
  MC_LIST) = range(10)
 MAX_REF_SLOTS = 32      # the MC kernel's pointer table (csrc/mc.cu)
+# SUCO chroma edge columns: x of the edge in chroma samples, strength in U
+# and in V (xevd_tpu/ops/jax_deblock.py:134-136 without the row, which the
+# row offsets give)
+SE_COL, SE_ST_U, SE_ST_V = range(3)
 
 
 class Packer:
@@ -84,7 +90,7 @@ def pack_itdq(fs, bd: int, chroma: bool, iqt: bool = False,
     samples.  Port of `_pack_itdq` (xevd_tpu/ops/pipeline.py:580-675):
     with `iqt` the scale comes from DQ_SCALE, else DQ_SCALE_B; intra ATS
     sets a luma TU's trs; an ATS-inter CU gives one sub-TU per component,
-    its size, offset and (luma) trs from `xevd_tpu.tables.ats_inter_*`,
+    its size, offset and (luma) trs from `host.tables.ats_inter_*`,
     its coefficients read at the sub-TU's own position.  ATS is a Main
     tool: a Baseline (`main` False) frame with ATS is refused."""
     if not main and (np.any(fs.cu_ats[:, 0] != 0)
@@ -165,13 +171,13 @@ def pack_intra_main(fs, job, chroma: bool):
     (rows of level l are table[level_off[l]:level_off[l + 1]]).
 
     Port of `_pack_intra_main` (xevd_tpu/ops/pipeline.py:836-881).  The
-    levels come from `xevd_tpu.ops.wavefront.level_scan_cus` (host code,
+    levels come from `host.ops.wavefront.level_scan_cus` (host code,
     native C when built).  CUs of one level touch disjoint pixels, so the
     sorted table is the same schedule as `group_wavefront`'s slots, without
     their padding.  Raises UnsupportedStream for a CU larger than 64, and
     ValueError for a CU whose neighbour or HTDF ring reads would leave the
     bordered plane: the kernel reads without clamping."""
-    from xevd_tpu.ops.wavefront import level_scan_cus
+    from ..host.ops.wavefront import level_scan_cus
 
     intra = fs.cu_pred_mode == T.MODE_INTRA
     htdf_any = (job.cu_htdf_idx is not None
@@ -212,6 +218,93 @@ def pack_intra_main(fs, job, chroma: bool):
     counts = np.bincount(levels, minlength=int(levels.max()) + 1)
     level_off = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
     return np.ascontiguousarray(rows[order]), level_off
+
+
+def chroma_ver_edges(fs, job):
+    """(row_off, edges) of the SUCO-order chroma vertical-edge pass, or None
+    when the frame has no such edge: edges int32 [E, 3] (columns SE_*),
+    the edges of SCU row r at edges[row_off[r]:row_off[r + 1]] in the
+    order the pass filters them; row_off int32 [h_scu + 1].
+
+    Port of `_chroma_ver_waves` (xevd_tpu/ops/pipeline.py:884-927): the
+    replay of the per-CU deblock visit with the pass-local coded map
+    (ref: src_base/xevd_df.c:388-545).  There, wave k holds the edge of rank
+    k of each row; here each row lists its edges by rank, which is the
+    order of the cascade within the row (rows never interact)."""
+    h_scu, w_scu = fs.h_scu, fs.w_scu
+    w, h = fs.w, fs.h
+    h_scu_max = (h + 3) >> 2
+    cod = np.zeros((h_scu, w_scu), np.uint8)
+    dvu, dvv = job.db_ver_u, job.db_ver_v
+    rows, edges = [], []
+    for i in range(fs.num_cus()):
+        x0, y0 = fs.cu_x[i], fs.cu_y[i]
+        cuw = 1 << fs.cu_log2w[i]
+        cuh = 1 << fs.cu_log2h[i]
+        xs_, ys_ = x0 >> 2, y0 >> 2
+        scuw, scuh = cuw >> 2, cuh >> 2
+        if fs.cu_tree[i] != 1:  # do_chroma
+            cands = []
+            if 0 < x0 < w and cod[ys_, xs_ - 1]:
+                cands.append(xs_)
+            if x0 + cuw < w and xs_ + scuw < w_scu and cod[ys_, xs_ + scuw]:
+                cands.append(xs_ + scuw)
+            for xp in cands:
+                for ys in range(ys_, min(ys_ + scuh, h_scu_max)):
+                    su = int(dvu[ys, xp])
+                    sv = int(dvv[ys, xp])
+                    if su or sv:
+                        rows.append(ys)
+                        edges.append((xp * 2, su, sv))
+        cod[ys_:ys_ + scuh, xs_:xs_ + scuw] = 1
+    if not edges:
+        return None
+    rows = np.asarray(rows, np.int64)
+    order = np.argsort(rows, kind="stable")     # rank order within a row
+    row_off = np.concatenate(
+        [[0], np.cumsum(np.bincount(rows, minlength=h_scu))]).astype(np.int32)
+    edges = np.asarray(edges, np.int32)[order]
+    if (rows >= h_scu).any() or (edges[:, SE_COL] < 2).any() \
+            or (edges[:, SE_COL] > 2 * w_scu - 2).any():
+        # the filter reads 2 samples a side, without clamping
+        raise ValueError("SUCO chroma edge outside the chroma area")
+    return row_off, np.ascontiguousarray(edges)
+
+
+def addb_maps(fs, job):
+    """(luma [2, hs2, ws2, 4], chroma [2, hs2, ws2, 7]) int32: the per-SCU
+    ADDB parameter maps ([0] vertical, [1] horizontal edges; luma (bs,
+    alpha, beta, c1), chroma (bs, alpha, beta, c0 of U, alpha, beta, c0 of
+    V)), padded to an even SCU count with bs = 0 so the covered area is a
+    multiple of 8 px (xevd_tpu/ops/pipeline.py:505-517)."""
+    hs2 = (fs.h_scu + 1) & ~1
+    ws2 = (fs.w_scu + 1) & ~1
+    luma = np.zeros((2, hs2, ws2, 4), np.int32)
+    luma[:, :fs.h_scu, :fs.w_scu] = job.addb_luma
+    chroma = np.zeros((2, hs2, ws2, 7), np.int32)
+    chroma[:, :fs.h_scu, :fs.w_scu] = job.addb_chroma
+    return luma, chroma
+
+
+def alf_params(fs, job):
+    """(coef_l int32 [25, 13], coef_c int32 [7], ctu_on int32 [n_ctu],
+    (enables, log2_ctu, across)) of an ALF frame
+    (xevd_tpu/ops/pipeline.py:538-546, jax_alf.py:233-240): the final
+    coefficients from the host oracle's reconstruction (host/ops/alf.py);
+    chroma coefficients are zero when neither chroma plane is filtered."""
+    from ..host.ops.alf import recon_coef_chroma, recon_coef_luma
+    log2_ctu, across = job.alf_misc
+    enables = tuple(bool(e) for e in job.alf_enable)
+    coef_l = recon_coef_luma(job.alf_param)
+    coef_c = (recon_coef_chroma(job.alf_param) if enables[1] or enables[2]
+              else np.zeros(7, np.int32))
+    n_ctu = (((fs.w + (1 << log2_ctu) - 1) >> log2_ctu)
+             * ((fs.h + (1 << log2_ctu) - 1) >> log2_ctu))
+    ctu_on = np.asarray(fs.alf_ctu_on, np.int32).ravel()
+    if ctu_on.size < n_ctu:
+        raise ValueError(f"ALF CTU flags: {ctu_on.size} < {n_ctu} CTUs")
+    return coef_l, coef_c, ctu_on[:n_ctu], (enables, int(log2_ctu),
+                                            bool(across))
 
 
 def _ref_tensor(plane) -> torch.Tensor:
@@ -340,6 +433,9 @@ class PackedFrame:
     bd: int
     chroma: bool
     deblock_on: bool
+    addb: bool                   # ADDB maps instead of strengths (K11)
+    suco: bool                   # SUCO-order chroma ver edges (K10)
+    alf: tuple | None            # (enables, log2_ctu, across) or None (K13)
     iqt: bool                    # Main per-stage-clipped transforms
     eipd: bool                   # icu is the EIPD scan table (K6/K7)
     main_taps: bool              # Main (ADMVP) MC taps
@@ -359,6 +455,13 @@ class DeviceFrame:
     icu: torch.Tensor            # int32 [Nc, 8], EIPD: [Nc, 13 or 16]
     mc: torch.Tensor             # int32 [Nm, 10], list 0 rows first
     dbst: torch.Tensor | None    # int32 [6, h_scu, w_scu]
+    addb_l: torch.Tensor | None  # int32 [2, hs2, ws2, 4]
+    addb_c: torch.Tensor | None  # int32 [2, hs2, ws2, 7]
+    suco_off: torch.Tensor | None    # int32 [h_scu + 1]
+    suco_edges: torch.Tensor | None  # int32 [E, 3]
+    alf_l: torch.Tensor | None   # int32 [25, 13]
+    alf_c: torch.Tensor | None   # int32 [7]
+    alf_on: torch.Tensor | None  # int32 [n_ctu]
     coef_y: torch.Tensor         # int16 [h_pad, w_pad]
     coef_u: torch.Tensor | None
     coef_v: torch.Tensor | None
@@ -366,22 +469,18 @@ class DeviceFrame:
 
 
 def pack_frame(job, sps, refp) -> PackedFrame:
-    """Build the payload of one frame (intra, P or B, Baseline or Main);
-    refuse ALF and ADDB frames here too, behind the SPS refusals of
-    `TorchPixelBackend.check_caps`.  `refp[refi][list]` are the reference
-    pictures (xevd_tpu.dpb)."""
+    """Build the payload of one frame (intra, P or B, Baseline or Main,
+    with SUCO, ADDB and ALF as the JAX backend packs them).
+    `refp[refi][list]` are the reference pictures (host/dpb.py)."""
     fs = job.fs
     bd = sps.bit_depth_luma_minus8 + 8
     cfi = sps.chroma_format_idc
     if cfi not in (0, 1):
         raise UnsupportedStream("torch backend: 4:2:0/4:0:0 only")
-    if job.alf_param is not None:
-        raise UnsupportedStream("torch backend: ALF is Main only")
-    if getattr(job, "addb_luma", None) is not None:
-        raise UnsupportedStream("torch backend: ADDB is Main only")
     chroma = cfi == 1
     deblock_on = bool(fs.sh.deblocking_filter_on)
     is_main = bool(getattr(sps, "is_main", False))
+    addb = bool(deblock_on and getattr(job, "addb_luma", None) is not None)
     iqt = bool(is_main and sps.tool_iqt)
     eipd = bool(is_main and sps.tool_eipd)
 
@@ -395,13 +494,31 @@ def pack_frame(job, sps, refp) -> PackedFrame:
     pk.add("icu", icu)
     mc, mc_lists, refs = pack_mc(fs, job, refp, chroma)
     pk.add("mc", mc)
-    if deblock_on:
+    suco = False
+    if addb:
+        # ADDB takes precedence over the SUCO order (pipeline.py:525)
+        luma_p, chroma_p = addb_maps(fs, job)
+        pk.add("addb_l", luma_p)
+        pk.add("addb_c", chroma_p)
+    elif deblock_on:
         dbst = np.stack([job.db_ver_y, job.db_hor_y, job.db_ver_u,
                          job.db_hor_u, job.db_ver_v, job.db_hor_v])
         if dbst.shape[1:] != (fs.h_scu, fs.w_scu):
             raise ValueError(f"deblock strength maps {dbst.shape[1:]} != "
                              f"SCU grid {(fs.h_scu, fs.w_scu)}")
         pk.add("dbst", dbst)
+        if chroma and is_main and getattr(sps, "sps_suco_flag", 0):
+            sched = chroma_ver_edges(fs, job)
+            if sched is not None:     # else the plain raster order (:301)
+                suco = True
+                pk.add("suco_off", sched[0])
+                pk.add("suco_edges", sched[1])
+    alf = None
+    if job.alf_param is not None:
+        coef_l, coef_c, ctu_on, alf = alf_params(fs, job)
+        pk.add("alf_l", coef_l)
+        pk.add("alf_c", coef_c)
+        pk.add("alf_on", ctu_on)
     payload, layout = pk.finish()
 
     planes = [fs.coef_y] + ([fs.coef_u, fs.coef_v] if chroma else [])
@@ -413,7 +530,8 @@ def pack_frame(job, sps, refp) -> PackedFrame:
         payload=payload, layout=layout, coefs=coefs,
         coef_shapes=(fs.coef_y.shape,
                      fs.coef_u.shape if chroma else None),
-        bd=bd, chroma=chroma, deblock_on=deblock_on, iqt=iqt, eipd=eipd,
+        bd=bd, chroma=chroma, deblock_on=deblock_on, addb=addb, suco=suco,
+        alf=alf, iqt=iqt, eipd=eipd,
         main_taps=bool(is_main and sps.tool_admvp), level_off=level_off,
         geom=(fs.h, fs.w, fs.h_scu, fs.w_scu), shp_y=shp_y, shp_c=shp_c,
         mc_lists=mc_lists, refs=refs)
@@ -439,6 +557,9 @@ def upload(pf: PackedFrame, device: torch.device) -> DeviceFrame:
         coef_u = coefs[hy * wy:hy * wy + n].view(hc, wc)
         coef_v = coefs[hy * wy + n:hy * wy + 2 * n].view(hc, wc)
     return DeviceFrame(tus=view("tus"), icu=view("icu"), mc=view("mc"),
-                       dbst=view("dbst"),
+                       dbst=view("dbst"), addb_l=view("addb_l"),
+                       addb_c=view("addb_c"), suco_off=view("suco_off"),
+                       suco_edges=view("suco_edges"), alf_l=view("alf_l"),
+                       alf_c=view("alf_c"), alf_on=view("alf_on"),
                        coef_y=coef_y, coef_u=coef_u, coef_v=coef_v,
                        packed=pf)

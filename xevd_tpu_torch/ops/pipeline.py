@@ -1,6 +1,6 @@
 """PyTorch pixel backend: the device half of one frame, and the decoder seam.
 
-`TorchPixelBackend` plugs into `xevd_tpu.decoder.Decoder(backend=...)` at
+`TorchPixelBackend` plugs into `host.decoder.Decoder(backend=...)` at
 the same seam as the JAX package's `JaxPixelBackend`
 (xevd_tpu/ops/pipeline.py:392).  Per frame: host pack (ops/pack.py), two
 host->device copies, then `run_frame_device`:
@@ -8,8 +8,9 @@ host->device copies, then `run_frame_device`:
   ITDQ (kernel: csrc/itdq.cu; Main iqt and ATS bases) -> MC of the inter
   CUs (csrc/mc.cu; Main ADMVP taps) -> recon with the prediction (Triton)
   -> intra: the Baseline scan (csrc/intra.cu), or with EIPD the wavefront
-  scan with HTDF (csrc/intra_main.cu) -> deblock (csrc/deblock.cu) ->
-  pad-expand (Triton)
+  scan with HTDF (csrc/intra_main.cu) -> deblock (csrc/deblock.cu, with
+  SUCO its ordered chroma pass; with ADDB csrc/addb.cu) -> ALF
+  (csrc/alf.cu) -> pad-expand (Triton)
 
 The decoded picture planes stay on the device as DPB references
 (DevicePlane); MC reads them there, and they reach the host only when the
@@ -18,20 +19,22 @@ stream, so a frame's MC reads its references after the frames that wrote
 them.
 
 Scope: Baseline and Main profile, I, P and B frames (IPPP and RA), 4:2:0
-or 4:0:0, 8 to 10 bit; of the Main tools eipd, btt, iqt, ats, admvp, hmvp,
-mmvd, amvr, adcc, cm_init, htdf, dquant, rpl, pocs and dra (applied by the
-host at pull time).  SUCO, ADDB, ALF, affine, IBC, DMVR, and BTT or HTDF
-without EIPD raise UnsupportedStream at the SPS, before any pixel is
-produced."""
+or 4:0:0, 8 to 10 bit; of the Main tools eipd, btt, suco, iqt, ats, admvp,
+hmvp, mmvd, amvr, adcc, cm_init, htdf, addb, alf, dquant, rpl, pocs and
+dra (applied by the host at pull time).  Affine, IBC, DMVR, and BTT or
+HTDF without EIPD raise UnsupportedStream at the SPS, before any pixel is
+produced, as the JAX backend refuses them."""
 from __future__ import annotations
 
 import numpy as np
 
-from xevd_tpu.syntax import UnsupportedStream
+from ..host.syntax import UnsupportedStream
 
 from ..device import resolve_device
 from ..plane import DevicePlane
 from . import pack as PK
+from .addb import addb_frame
+from .alf import alf_frame
 from .deblock import deblock_frame
 from .intra import intra_scan
 from .intra_main import intra_scan_wave
@@ -40,7 +43,7 @@ from .mc import mc_all
 from .recon import pad, recon
 from .tables import BORDER, PAD_C, PAD_L, device_tables
 
-STAGES = ("pack", "itdq", "mc", "recon", "intra", "deblock", "pad")
+STAGES = ("pack", "itdq", "mc", "recon", "intra", "deblock", "alf", "pad")
 
 
 def residuals_and_recon(df: PK.DeviceFrame, tables: dict, mark=None):
@@ -68,36 +71,76 @@ def residuals_and_recon(df: PK.DeviceFrame, tables: dict, mark=None):
     return resids, recs
 
 
+def intra_stage(df: PK.DeviceFrame, recs, resids, tables: dict):
+    """The intra scan in place on `recs`: the EIPD wavefront scan with HTDF
+    when the frame has EIPD, else the Baseline scan."""
+    pf = df.packed
+    if pf.eipd:
+        intra_scan_wave(recs, resids, df.icu, pf.level_off, pf.bd,
+                        pf.chroma, tables)
+    else:
+        intra_scan(recs, resids, df.icu, pf.bd, pf.chroma)
+
+
+def frame_areas(df: PK.DeviceFrame, recs):
+    """(y, u, v): the views of the bordered planes that deblock and ALF
+    filter -- the SCU area, or with ADDB the H8 x W8 crop of its
+    even-padded maps (xevd_tpu/ops/pipeline.py:260-261); u, v None for
+    4:0:0."""
+    pf = df.packed
+    if pf.addb:
+        H4, W4 = df.addb_l.shape[1] * 4, df.addb_l.shape[2] * 4
+    else:
+        H4, W4 = pf.geom[2] * 4, pf.geom[3] * 4
+    y = recs[0][BORDER:BORDER + H4, BORDER:BORDER + W4]
+    if not pf.chroma:
+        return y, None, None
+    return (y,) + tuple(r[BORDER:BORDER + (H4 >> 1), BORDER:BORDER + (W4 >> 1)]
+                        for r in recs[1:])
+
+
+def deblock_stage(df: PK.DeviceFrame, areas):
+    """Deblock in place on the areas: ADDB, or the Baseline filter with the
+    SUCO chroma order when the frame has one, or nothing."""
+    pf = df.packed
+    if pf.addb:
+        addb_frame(*areas, df.addb_l, df.addb_c, pf.bd)
+    elif pf.deblock_on:
+        deblock_frame(*areas, df.dbst, pf.bd,
+                      (df.suco_off, df.suco_edges) if pf.suco else None)
+
+
+def alf_stage(df: PK.DeviceFrame, areas):
+    """ALF in place on the areas, when the frame has it."""
+    pf = df.packed
+    if pf.alf is not None:
+        alf_frame(*areas, df.alf_l, df.alf_c, df.alf_on, pf.geom[0],
+                  pf.geom[1], pf.alf, pf.bd)
+
+
 def run_frame_device(df: PK.DeviceFrame, tables: dict, on_stage=None):
-    """Device half of one frame (xevd_tpu/ops/pipeline.py:334-376): ITDQ
+    """Device half of one frame (xevd_tpu/ops/pipeline.py:334-389): ITDQ
     -> MC (frames with inter CUs) -> recon -> intra scan (the EIPD
     wavefront scan with HTDF when the frame has EIPD, else the Baseline
-    scan) -> deblock -> padded picture planes (y, u, v) as int16 tensors
-    (u, v None for 4:0:0).  `on_stage(name)`, if given, is called after
-    each stage."""
+    scan) -> deblock (ADDB, or the Baseline filter with the SUCO chroma
+    order when the frame has one) -> ALF -> padded picture planes (y, u, v)
+    as int16 tensors (u, v None for 4:0:0).  `on_stage(name)`, if given,
+    is called after each stage."""
     mark = on_stage or (lambda name: None)
     pf = df.packed
-    bd, chroma = pf.bd, pf.chroma
     resids, recs = residuals_and_recon(df, tables, mark)
-    if pf.eipd:
-        intra_scan_wave(recs, resids, df.icu, pf.level_off, bd, chroma,
-                        tables)
-    else:
-        intra_scan(recs, resids, df.icu, bd, chroma)
+    intra_stage(df, recs, resids, tables)
     mark("intra")
-    h, w, h_scu, w_scu = pf.geom
-    H4, W4 = h_scu * 4, w_scu * 4
-    y_area = recs[0][BORDER:BORDER + H4, BORDER:BORDER + W4]
-    u_area = v_area = None
-    if chroma:
-        u_area = recs[1][BORDER:BORDER + (H4 >> 1), BORDER:BORDER + (W4 >> 1)]
-        v_area = recs[2][BORDER:BORDER + (H4 >> 1), BORDER:BORDER + (W4 >> 1)]
-    if pf.deblock_on:
-        deblock_frame(y_area, u_area, v_area, df.dbst, bd)
+    areas = frame_areas(df, recs)
+    deblock_stage(df, areas)
     mark("deblock")
+    alf_stage(df, areas)
+    mark("alf")
+    h, w = pf.geom[0], pf.geom[1]
+    y_area, u_area, v_area = areas
     pic_y = pad(y_area, h, w, PAD_L)
     pic_u = pic_v = None
-    if chroma:
+    if pf.chroma:
         pic_u = pad(u_area, h >> 1, w >> 1, PAD_C)
         pic_v = pad(v_area, h >> 1, w >> 1, PAD_C)
     mark("pad")
@@ -106,7 +149,7 @@ def run_frame_device(df: PK.DeviceFrame, tables: dict, on_stage=None):
 
 class TorchPixelBackend:
     """Bit-exact PyTorch + CUDA/Triton pixel pipeline (Baseline, and Main
-    without SUCO, ADDB or ALF).
+    with the tools the JAX backend decodes).
 
     device: "cuda" (kernels) or "cpu" (plain PyTorch versions; tests).
     on_stage: optional callback, called with "start" when a frame begins
@@ -123,16 +166,10 @@ class TorchPixelBackend:
     def check_caps(self, sps):
         """Refuse, at the SPS, every stream the port cannot decode
         bit-exactly; never emit wrong pixels.  Mirrors the JAX backend's
-        refusals (xevd_tpu/ops/pipeline.py:434-460) and adds the Main
-        tools whose kernels are not ported yet."""
+        refusals (xevd_tpu/ops/pipeline.py:434-460) and its in-pack ones
+        (chroma format, bit depth)."""
         if getattr(sps, "is_main", False):
             for flag, what in (
-                    ("sps_suco_flag", "SUCO (its chroma deblock order, "
-                     "kernel K10) is not ported yet: ROADMAP M6"),
-                    ("tool_addb", "ADDB (kernel K11) is not ported yet: "
-                     "ROADMAP M7"),
-                    ("tool_alf", "ALF (kernel K13) is not ported yet: "
-                     "ROADMAP M8"),
                     ("tool_affine", "affine MC is not on the device path "
                      "(the JAX backend refuses it too)"),
                     ("ibc_flag", "IBC is not on the device path (the JAX "

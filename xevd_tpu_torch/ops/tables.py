@@ -1,13 +1,13 @@
 """Constant tables on the device, and JAX/numpy picture state into the port.
 
 The decoder has no weights: these tables are its parameters, and the DPB
-planes are its state.  Values come from `xevd_tpu.tables` (numpy, no JAX)."""
+planes are its state.  Values come from `host/tables.py` (numpy)."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from xevd_tpu import tables as T
+from ..host import tables as T
 
 from ..plane import DevicePlane
 
