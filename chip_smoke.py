@@ -47,18 +47,34 @@
    it; every kernel the path needs must have launched, and none it must
    not.  Each counted decode prints its frames/s and per-stage CUDA-event
    times.
-5. Prints {"kernels": [...]} (launches from the config-3 path; the
+5. GOP phase (K15, xevd_tpu_torch/parallel/gop.py): 8 independent
+   1920x1080 Baseline IPPP GOPs of 2, 3 or 4 frames (xevd_tpu/parallel/
+   gop.py `gen_gop_streams(8, 1920, 1080, frames=2, variable=True)`'s
+   encoder settings), each generated by a reference worker and captured
+   (decoded serially by the numpy oracle backend, each frame's pack kept)
+   by the port's host decoder in a worker (`python -m
+   xevd_tpu_torch.parallel.gop --capture`).  Every batched
+   kernel, and the whole batched step, is held to its batched plain
+   version on the batch's own step-1 (P) tables and DPB at G = 8 and G =
+   1; then all 8 GOPs decode as one batch per time step on the card
+   (counted: each batched kernel once a step, the intra scan once a step,
+   not once a frame), twice, and every frame's MD5 must equal the numpy
+   oracle's serial decode; the same 8 GOPs then decode serially through
+   Decoder + TorchPixelBackend("cuda"), equal too, for the record.
+6. Prints {"kernels": [...]} (launches from the config-3 path; the
    Baseline intra scan's and deblock's from the IPPP path, the SUCO
-   order's from the SUCO path; each kernel's bound from its main case's
-   bytes and operations) and, as the last line, {"ok": true, "device":
-   {...}}.
+   order's from the SUCO path, the batched kernels' (gop_*) and K15's
+   from the GOP path; each kernel's bound from its main case's bytes and
+   operations) and, as the last line, {"ok": true, "device": {...}}.
 
 Any failure raises and the exit code is non-zero.  Imports neither JAX
 nor `xevd_tpu`: the reference runs in its own processes.
 """
 from __future__ import annotations
 
+import hashlib
 import json
+import pickle
 import subprocess
 import sys
 import time
@@ -98,6 +114,11 @@ STREAMS = {
 }
 # frames each stream decodes to (RA rounds up to a whole GOP)
 FRAMES = {"1080p_main_c3": 5, "1080p_main_suco": 5, "1080p_main_ra": 5}
+# the GOP batch (K15): xevd_tpu/parallel/gop.py gen_gop_streams(8, 1920,
+# 1080, frames=2, qp=30, variable=True), 2 + g % 3 frames each
+GOP_SPECS = [(1920, 1080, 2 + g % 3, 30, 1000 + 7 * g, "IPPP", 0.5, 8, 0,
+              (), 0.35) for g in range(8)]
+TIMED_RUNS_GOP = 2
 # the card's peaks for a kernel's bound (H100 SXM datasheet figures):
 # HBM bytes/s; integer operations/s taken at the scalar (non-tensor)
 # float32 FMA rate counted as two operations, a deliberate upper peak: the
@@ -142,12 +163,21 @@ KERNELS = {
     "alf_chroma": ("cuda", "xevd_tpu_torch/csrc/alf.cu",
                    "xevd_tpu/ops/jax_alf.py:150"),
 }
+# the batched kernels of the GOP path (K15), "gop_" + their counter name,
+# and K15's step itself
+GOP_KERNELS = ("itdq", "mc", "recon", "intra_scan", "deblock_luma_ver",
+               "deblock_chroma_ver", "deblock_luma_hor", "deblock_chroma_hor",
+               "pad")
+KERNELS.update({f"gop_{k}": KERNELS[k] for k in GOP_KERNELS})
+KERNELS["gop_step"] = ("cuda", "xevd_tpu_torch/parallel/gop.py",
+                       "xevd_tpu/parallel/gop.py:197")
 # the counted path whose launches the kernels line reports, where it is
 # not the main path (the config-3 stream, whose deblock is ADDB)
 PATH_OF = {"intra_scan": "1080p_p", "deblock_luma_ver": "1080p_p",
            "deblock_luma_hor": "1080p_p", "deblock_chroma_ver": "1080p_p",
            "deblock_chroma_hor": "1080p_p",
            "chroma_ver_ordered": "1080p_main_suco"}
+PATH_OF.update({k: "gop" for k in KERNELS if k.startswith("gop_")})
 MAIN_PATH = "1080p_main_c3"
 
 
@@ -177,11 +207,13 @@ def timed(torch, fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
-def run_case(torch, case, results, reps, plain_reps, main=False):
+def run_case(torch, case, results, reps, plain_reps, main=False, key=None):
     """Holds one kernel against its plain version (exact) and times both:
     `reps` kernel runs, `plain_reps` plain runs (0: the timed comparison
     run itself, for a plain version too slow to run twice).  `main` marks
-    the case at the main path's shapes, whose times the summary reports."""
+    the case at the main path's shapes, whose times the summary reports;
+    `key` files the result under another name than the kernel's.  Returns
+    the kernel's ms."""
     from tests.torch_helpers import max_abs_err
     got = case.kernel()
     torch.cuda.synchronize()
@@ -198,7 +230,7 @@ def run_case(torch, case, results, reps, plain_reps, main=False):
     ms = timed(torch, case.kernel, reps) if reps else None
     plain_ms = (timed(torch, case.plain, plain_reps) if plain_reps
                 else t0.elapsed_time(t1))
-    r = results.setdefault(case.name, {"max_abs_err": 0})
+    r = results.setdefault(key or case.name, {"max_abs_err": 0})
     r["max_abs_err"] = max(r["max_abs_err"], err)
     if main:
         r.update(ms=ms, plain_ms=plain_ms, shape=case.shape,
@@ -207,6 +239,7 @@ def run_case(torch, case, results, reps, plain_reps, main=False):
               else "")
     log(f"  {case.name:20s} {case.shape:34s} equal  {timing}"
         f"{'  (main path)' if main else ''}")
+    return ms
 
 
 # --------------------------------------------------------------------------
@@ -442,6 +475,23 @@ def start_reference(name):
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
+def start_gop_worker(g):
+    """Start GOP g's workers, one after the other: the reference worker
+    generates the stream (tests/fixtures/torch_smoke_gop<g>.evc), then the
+    port's host decoder captures it (WORK/gop<g>.pkl): the numpy oracle's
+    serial decode, with each frame's pack.  (The capture is the serial
+    oracle decode that decode_gops_sharded holds the batch to, so the
+    reference worker does not decode it a second time: a 1080p GOP frame
+    takes tens of CPU seconds to encode and to decode.)"""
+    script = ('"$0" tests/torch_reference.py "$1" "$2" && '
+              '"$0" -m xevd_tpu_torch.parallel.gop --capture "$2" "$3"')
+    return subprocess.Popen(
+        ["sh", "-c", script, sys.executable, json.dumps(GOP_SPECS[g]),
+         str(STREAM_DIR / f"torch_smoke_gop{g}.evc"),
+         str(WORK / f"gop{g}.pkl")],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
 def reference_result(proc, name):
     """(frames, generation s, numpy decode s) of a finished worker."""
     out, err = proc.communicate()
@@ -640,6 +690,123 @@ def slice_phase(torch, dev, K, results, prepared):
     return runs
 
 
+def device_ms(marks):
+    """Device milliseconds between the stage marks of decodes (CUDA events;
+    pack, host work, left out)."""
+    return sum(marks[i - 1][1].elapsed_time(ev)
+               for i, (stage, ev, _) in enumerate(marks)
+               if stage not in ("start", "pack"))
+
+
+def gop_phase(torch, dev, K, results, workers):
+    """K15: the 8 1080p GOPs as one batch per time step (parallel/gop.py),
+    after each batched kernel and the batched step against its plain
+    version on step 1 at G = 8 and G = 1.  Returns (counts, frames/s per
+    batched run, record)."""
+    from tests.torch_helpers import gop_step_cases
+    from xevd_tpu_torch import TorchPixelBackend
+    from xevd_tpu_torch.parallel import gop as TG
+
+    log("phase gop: 8 1080p Baseline IPPP GOPs (K15); streams and captures "
+        "(the numpy oracle's serial decodes) in worker processes")
+    caps = []
+    for g, proc in enumerate(workers):
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            raise AssertionError(f"GOP {g} worker failed (rc "
+                                 f"{proc.returncode}):\n{err[-4000:]}")
+        ref, cap = [json.loads(x) for x in out.splitlines()
+                    if x.startswith("{")][-2:]
+        caps.append(pickle.loads((WORK / f"gop{g}.pkl").read_bytes()))
+        if len(caps[-1]) != GOP_SPECS[g][2]:
+            raise AssertionError(f"GOP {g}: {len(caps[-1])} frames captured, "
+                                 f"{GOP_SPECS[g][2]} encoded")
+        log(f"  GOP {g}: {len(caps[-1])} frames; stream {ref['gen_s']:.1f} "
+            f"s, capture (numpy oracle) {cap['seconds']:.1f} s")
+
+    log("phase gop kernels (each batched kernel and the batched step on "
+        "step 1, G = 8 and G = 1)")
+    for G in (len(caps), 1):
+        for case in gop_step_cases(dev, caps[:G]):
+            key = case.name if case.name == "gop_step" else f"gop_{case.name}"
+            slow = case.name in ("intra_scan", "gop_step")
+            ms = run_case(torch, case, results, 5 if slow else 20,
+                          0 if slow else 3, main=G > 1, key=key)
+            if G == 1:
+                results[key]["ms_g1"] = ms
+
+    # launches a batched run must make: one a step for each kernel (a
+    # plane each for recon, pad and the chroma passes), MC once per list
+    _, [(_, steps)] = TG._plan(caps, 1)
+    expect = dict.fromkeys(K.launch_counts, 0)
+    for pb in steps:
+        expect["gop_step"] += 1
+        expect["itdq"] += int(pb.layout["tus"][1][0] > 0)
+        expect["mc"] += sum(int(n > 0) for n in pb.mc_lists)
+        expect["recon"] += 3
+        expect["intra_scan"] += int(pb.layout["icu"][1][0] > 0)
+        expect["pad"] += 3
+        for kind in ("luma_ver", "luma_hor", "chroma_ver", "chroma_hor"):
+            expect[f"deblock_{kind}"] += pb.deblock_on * (
+                1 if kind.startswith("luma") else 2)
+    fps, counts, stats = [], None, None
+    for rep in range(TIMED_RUNS_GOP):
+        torch.cuda.synchronize()
+        K.reset_counts()
+        stats = {}
+        dmd5, smd5 = TG.decode_gops_sharded(None, mesh=[dev], captures=caps,
+                                            stats=stats)
+        counts = dict(K.launch_counts)
+        if dmd5 != smd5:
+            raise AssertionError("GOP batch: a frame's MD5 differs from the "
+                                 "numpy oracle's")
+        if stats["checksum"] != stats["serial_checksum"]:
+            raise AssertionError(f"GOP batch checksum {stats['checksum']} != "
+                                 f"{stats['serial_checksum']}")
+        if counts != expect or counts["intra_scan"] != stats["steps"]:
+            raise AssertionError(f"GOP batch launches {counts} != {expect}")
+        fps.append(stats["frames"] / stats["seconds"])
+        log(f"  batched run {rep}: {stats['frames']} frames in "
+            f"{stats['steps']} steps (batches {stats['batches'][0]}, DPB "
+            f"depth {stats['depth']}) in {stats['seconds'] * 1e3:.3f} ms = "
+            f"{fps[-1]:.3f} frames/s (uploads, kernels, output copies); "
+            f"every MD5 equal to the numpy oracle; checksum "
+            f"{stats['checksum']}")
+    log(f"  launch counts during a batched run: {counts}")
+
+    # the same GOPs serially, frame by frame, for the record
+    marks = []
+
+    def on_stage(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev, time.perf_counter()))
+
+    backend = TorchPixelBackend(device=dev, on_stage=on_stage)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = 0
+    outs = []
+    for g in range(len(caps)):
+        n += decode_to_yuv((STREAM_DIR / f"torch_smoke_gop{g}.evc")
+                           .read_bytes(), backend, WORK / f"gop{g}_t.yuv")
+        outs.append((WORK / f"gop{g}_t.yuv").read_bytes())
+    w, h = GOP_SPECS[0][:2]
+    fsz = w * h * 3                       # 4:2:0, 2 bytes a sample
+    if [[hashlib.md5(y[i:i + fsz]).hexdigest() for i in range(0, len(y), fsz)]
+            for y in outs] != smd5:
+        raise AssertionError("GOP serial decode differs from the numpy oracle")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    serial = {"frames": n, "fps": n / wall, "device_ms": device_ms(marks)}
+    log(f"  serial TorchPixelBackend('cuda') decode of the 8 GOPs: {n} "
+        f"frames in {wall:.4f} s = {serial['fps']:.3f} frames/s (host "
+        f"entropy + pack + device + 10-bit write); device stages "
+        f"{serial['device_ms']:.3f} ms in all, batched step "
+        f"{stats['seconds'] * 1e3:.3f} ms")
+    return counts, fps, {"batched": stats, "serial": serial}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -658,6 +825,8 @@ def main() -> int:
     WORK.mkdir(parents=True, exist_ok=True)
     # the streams and their numpy decodes take minutes of host time: the
     # reference workers run while the kernels build and are compared
+    # the GOP workers first: theirs is the longest host work
+    gop_workers = [start_gop_worker(g) for g in range(len(GOP_SPECS))]
     prepared = {name: start_reference(name) for name in STREAMS}
     try:
         K.build(verbose=True)      # always from this checkout's sources
@@ -668,8 +837,9 @@ def main() -> int:
         results = {}
         kernel_phases(torch, dev, results)
         runs = slice_phase(torch, dev, K, results, prepared)
+        runs["gop"] = gop_phase(torch, dev, K, results, gop_workers)
     finally:
-        for p in prepared.values():
+        for p in list(prepared.values()) + gop_workers:
             if p.poll() is None:
                 p.kill()
             p.communicate()
@@ -679,10 +849,13 @@ def main() -> int:
         r = results[name]
         t_bytes = r["bytes"] / HBM_BYTES_PER_S
         t_ops = r["ops"] / SCALAR_OPS_PER_S
+        counter = name[4:] if name in (f"gop_{k}" for k in GOP_KERNELS) \
+            else name
+        extra = {"ms_g1": r["ms_g1"]} if "ms_g1" in r else {}
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces,
                         "launches": runs[PATH_OF.get(name, MAIN_PATH)][0][
-                            name],
+                            counter],
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -691,10 +864,11 @@ def main() -> int:
                         # no single PyTorch call computes any of these
                         # integer pipelines (PERF.md)
                         "library_ms": None,
-                        "shape": r["shape"]})
+                        "shape": r["shape"], **extra})
     for name, (_, fps, stage_ms) in runs.items():
-        log(f"slice {name}: frames/s {[round(f, 3) for f in fps]}; stage "
-            f"ms/frame {json.dumps(stage_ms)}")
+        log(f"slice {name}: frames/s {[round(f, 3) for f in fps]}; "
+            f"{'record' if name == 'gop' else 'stage ms/frame'} "
+            f"{json.dumps(stage_ms, default=str)}")
     log(f"total smoke time {time.perf_counter() - t_start:.1f} s")
     log(gpu_line())
     print(json.dumps({"kernels": kernels}))

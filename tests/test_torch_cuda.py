@@ -9,6 +9,9 @@ no JAX, so it also runs on a GPU machine without JAX, where conftest.py
     python -m pytest --noconftest -p no:cacheprovider -o "markers=cuda" \
         tests/test_torch_cuda.py -q
 """
+import sys
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -25,10 +28,10 @@ from xevd_tpu_torch.ops import recon as TR
 from xevd_tpu_torch.ops.tables import PAD_C, PAD_L, device_tables
 
 from .torch_helpers import (addb_case, alf_case, compare, deblock_case,
-                            eipd_scene, intra_case, intra_wave_case,
-                            itdq_case, itdq_size_case, mc_case, mc_frame,
-                            mc_shapes, mc_size_case, pad_case, recon_case,
-                            recon_pred_case, suco_case)
+                            eipd_scene, gop_step_cases, intra_case,
+                            intra_wave_case, itdq_case, itdq_size_case,
+                            mc_case, mc_frame, mc_shapes, mc_size_case,
+                            pad_case, recon_case, recon_pred_case, suco_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -156,6 +159,26 @@ def test_alf_kernel_matches_plain(dev, luma, bd, log2_ctu, h, w, across):
     """CTU 64 and 128, partial CTUs at the right and bottom, across tiles
     or not, random CTU flags (luma)."""
     _check(alf_case(dev, luma, bd, h, w, log2_ctu, across, seed=bd))
+
+
+@pytest.fixture(scope="module")
+def gop_captures():
+    """Three IPPP GOPs of 2, 3 and 4 frames at 192x128 (tools/evc_enc with
+    xevd_tpu/parallel/gop.py `gen_gop_streams`' settings), captured by the
+    port's host decoder."""
+    from xevd_tpu_torch.parallel.gop import _capture_gop
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
+    import evc_enc
+    return [_capture_gop(evc_enc.encode_stream(
+        192, 128, 2 + g, 30, 1000 + 7 * g, "IPPP", 0.5)) for g in range(3)]
+
+
+@pytest.mark.parametrize("G", [1, 3])
+def test_gop_batched_kernels_match_plain(dev, gop_captures, G):
+    """K15: every batched kernel, and the whole batched step, on step 1 of
+    a batch of G GOPs (its own tables and DPB), one launch each."""
+    for case in gop_step_cases(dev, gop_captures[:G]):
+        _check(case)
 
 
 def test_wrappers_refuse_cpu_operands_mixed_with_cuda(dev):

@@ -16,6 +16,7 @@ import pytest
 from xevd_tpu_torch import UnsupportedStream
 
 from .conftest import REPO, make_stream
+from .torch_helpers import use_port_native_library
 
 CASES = [
     # name, w, h, frames, qp, seed, gop, bd (tests/test_golden.py:20-24)
@@ -43,6 +44,7 @@ def _decode(stream, out, backend, out_bd=10):
                    "--device", "cpu", *bd_args])
     else:
         from xevd_tpu.app import main
+        use_port_native_library()
         rc = main(["-i", str(stream), "-o", str(out), "-v", "0",
                    "--backend", backend, *bd_args])
     return rc, (out.read_bytes() if out.exists() else b"")
@@ -109,6 +111,7 @@ def test_dpb_planes_equal_jax(fixtures_dir):
     from xevd_tpu_torch.host import NAL_UNIT_LENGTH_BYTE
     from xevd_tpu_torch.ops.tables import planes_from_numpy
 
+    use_port_native_library()
     for stream in (_stream(fixtures_dir, "i96x48", 96, 48, 2, 27, 4, "I"),
                    _stream(fixtures_dir, "dpb_ra10_96", 96, 64, 5, 32, 21,
                            "RA", 10)):
@@ -174,6 +177,8 @@ import chip_smoke
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "xevd_tpu")]
 assert not bad, bad
 assert "xevd_tpu_torch.host.decoder" in sys.modules
+assert {"xevd_tpu_torch.parallel.gop", "xevd_tpu_torch.native_build"} <= set(
+    sys.modules)
 print(len([m for m in sys.modules if m.startswith("xevd_tpu_torch.")]))
 """
 

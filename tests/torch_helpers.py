@@ -27,6 +27,20 @@ from xevd_tpu_torch.ops.tables import (BORDER, PAD_C, PAD_L, PAD_R,
 from xevd_tpu_torch.plane import DevicePlane
 
 
+def use_port_native_library():
+    """Point `xevd_tpu`'s native engine at the library the port builds for
+    this host (xevd_tpu_torch/native_build.py; the same sources), before
+    the JAX package's decoders run: `xevd_tpu.native` would load the
+    committed native/libevc_entropy.so, built `-march=native` on another
+    host, which dies with SIGILL on a CPU that lacks its instructions.
+    Edits no file of `xevd_tpu`: only its module's library path."""
+    import xevd_tpu.native as XN
+    from xevd_tpu_torch.host import native as PN
+    PN.get_lib()         # this host's build, made here on first use
+    if XN._SO != PN._SO:
+        XN._SO, XN._LIB = PN._SO, None
+
+
 def quadtree(rng, H, W, log2_max, log2_min):
     """Random square tiling of [H, W] in z-order (decode order of a
     quadtree): list of (y, x, log2).  Blocks that cross the picture edge
@@ -473,7 +487,7 @@ def deblock_work(kind, st):
     operations; the strength map read."""
     s = _host(st) > 0
     luma = kind.startswith("luma")
-    on = (s[:, 1:] if kind.endswith("ver") else s[1:, :]).sum() * (
+    on = (s[..., 1:] if kind.endswith("ver") else s[..., 1:, :]).sum() * (
         4 if luma else 2)
     return int(on * (16 if luma else 12) + s.size * 4), int(on * 20)
 
@@ -728,16 +742,17 @@ def _addb_work(kind, pars):
 
 
 def _two_copies(area):
-    """(a, b, view): two copies of the whole plane `area` is a view into,
-    and view(copy), the same view into a copy -- so that a kernel and its
-    plain version each filter a plane of their own in place, with the row
-    pitch and border the main path gives them."""
+    """(a, b, view): two copies of the whole plane (or GOP batch of planes)
+    `area` is a view into, and view(copy), the same view into a copy -- so
+    that a kernel and its plain version each filter a plane of their own
+    in place, with the row pitch and border the main path gives them."""
     base = area
     while base._base is not None:
         base = base._base
-    off, (H, W), stride = area.storage_offset(), area.shape, area.stride()
+    off, shape, stride = area.storage_offset(), tuple(area.shape), \
+        area.stride()
     return (base.clone(), base.clone(),
-            lambda t: t.as_strided((H, W), stride, off))
+            lambda t: t.as_strided(shape, stride, off))
 
 
 def addb_planes_case(dev, kind, area, pars, bd, cb, shape):
@@ -828,3 +843,145 @@ def frame_areas_before(pf, dev, stage):
     if stage == "alf":
         PP.deblock_stage(df, areas)
     return areas, df
+
+
+# --------------------------------------------------------------------------
+# the GOP batch (K15): the batched kernels on one time step of a batch
+# --------------------------------------------------------------------------
+DEBLOCK_ORDER = (("luma_ver", 0, 0), ("chroma_ver", 1, 2),
+                 ("chroma_ver", 2, 4), ("luma_hor", 0, 1),
+                 ("chroma_hor", 1, 3), ("chroma_hor", 2, 5))
+
+
+def gop_step_plain(batch, tables, dpb):
+    """K15's plain step: the batched plain versions of
+    ops/pipeline.run_frames_device's stages, in its order, on its inputs;
+    returns the padded pictures (y, u, v) [G, ...] (dpb.out is untouched)."""
+    pb = batch.packed
+    bd, chroma = pb.bd, pb.chroma
+    resids = TQ.itdq_batch_ref((batch.coef_y, batch.coef_u, batch.coef_v),
+                               batch.tus, batch.tu_off, pb.shp_y, pb.shp_c,
+                               bd, tables, pb.iqt)
+    if batch.mc.shape[0]:
+        p = TM.mc_all_batch_ref(batch.mc, batch.mc_off, dpb.refs, pb.shp_y,
+                                pb.shp_c, bd, tables, pb.main_taps)
+        preds = ((p[0], p[1]), (p[2], p[4]), (p[3], p[4]))
+    else:
+        preds = ((None, None),) * 3
+    recs = [None if r is None else TR.recon_ref(r, bd, *q)
+            for r, q in zip(resids, preds)]
+    TI.intra_scan_batch_ref(recs, resids, batch.icu, batch.icu_off, bd,
+                            chroma)
+    h, w, h_scu, w_scu = pb.geom
+    areas = _batch_areas(recs, h_scu, w_scu)
+    if pb.deblock_on:
+        for kind, plane, k in DEBLOCK_ORDER:
+            if areas[plane] is not None:
+                TD.deblock_pass_ref(kind, areas[plane], batch.dbst[:, k], bd)
+    return [TR.pad_ref(areas[0], h, w, PAD_L)] + [
+        None if a is None else TR.pad_ref(a, h >> 1, w >> 1, PAD_C)
+        for a in areas[1:]]
+
+
+def _batch_areas(recs, h_scu, w_scu):
+    """The SCU-area views of a batch's bordered planes (chroma None for
+    4:0:0)."""
+    H4, W4 = h_scu * 4, w_scu * 4
+    return [recs[0][:, BORDER:BORDER + H4, BORDER:BORDER + W4]] + [
+        None if r is None else
+        r[:, BORDER:BORDER + H4 // 2, BORDER:BORDER + W4 // 2]
+        for r in recs[1:]]
+
+
+def gop_step_cases(dev, caps, t=1):
+    """The batched kernels and K15's step against their batched plain
+    versions on time step `t` of the GOP batch of `caps` (every GOP on one
+    device; parallel/gop.py `_capture_gop` captures) on `dev`: the step's
+    own tables, its DPB after steps 0 .. t - 1 (decoded by the kernels),
+    and each stage's input as the batched path gives it (the kernels'
+    outputs of the stages before it)."""
+    from xevd_tpu_torch.ops.pipeline import DpbStep, run_frames_device
+    from xevd_tpu_torch.parallel import gop as TG
+
+    D, [(gops, steps)] = TG._plan(caps, 1)
+    h, w = caps[0][0]["pack"].geom[:2]
+    run = TG._DeviceRun(dev, gops, steps, D, h, w)
+    for s in range(t):
+        run.step(s)
+    run.finish()
+    pb = steps[t]
+    G, bd, chroma = pb.G, pb.bd, pb.chroma
+    tab = device_tables(dev)
+    b = PK.upload_batch(pb, dev)
+    dpb = run.dpb(t, G)
+    label = f"G {G}, step {t}"
+    cases = []
+    q = ((b.coef_y, b.coef_u, b.coef_v), b.tus, pb.shp_y, pb.shp_c, bd, tab,
+         pb.iqt)
+    cases.append(KernelCase(
+        "itdq", f"{label}, {b.tus.shape[0]} TUs",
+        lambda: list(TQ.itdq(*q, tu_off=b.tu_off)),
+        lambda: list(TQ.itdq_batch_ref(*q[:2], b.tu_off, *q[2:])),
+        *itdq_work(b.tus)))
+    resids = TQ.itdq(*q, tu_off=b.tu_off)
+    m = (pb.shp_y, pb.shp_c, bd, tab, pb.main_taps)
+    cases.append(KernelCase(
+        "mc", f"{label}, {b.mc.shape[0]} blocks",
+        lambda: list(TM.mc_all(b.mc, pb.mc_lists, dpb.refs, *m,
+                               mc_off=b.mc_off)),
+        lambda: list(TM.mc_all_batch_ref(b.mc, b.mc_off, dpb.refs, *m)),
+        *mc_work(b.mc)))
+    p = TM.mc_all(b.mc, pb.mc_lists, dpb.refs, *m, mc_off=b.mc_off)
+    preds = ((p[0], p[1]), (p[2], p[4]), (p[3], p[4]))
+    n = p[0].numel()
+    cases.append(KernelCase(
+        "recon", f"{label}, luma {tuple(p[0].shape)} with prediction",
+        lambda: [TR.recon(resids[0], bd, *preds[0])],
+        lambda: [TR.recon_ref(resids[0], bd, *preds[0])], n * 9, n * 6))
+    recs = [None if r is None else TR.recon(r, bd, *pr)
+            for r, pr in zip(resids, preds)]
+    ka = [None if r is None else r.clone() for r in recs]
+    kb = [None if r is None else r.clone() for r in recs]
+    cases.append(KernelCase(
+        "intra_scan", f"{label}, {b.icu.shape[0]} CUs",
+        lambda: list(TI.intra_scan(ka, resids, b.icu, bd, chroma,
+                                   icu_off=b.icu_off)),
+        lambda: list(TI.intra_scan_batch_ref(kb, resids, b.icu, b.icu_off,
+                                             bd, chroma)),
+        *intra_work(b.icu, PK.CU_LOG2, PK.CU_LOG2, chroma)))
+    TI.intra_scan(recs, resids, b.icu, bd, chroma, icu_off=b.icu_off)
+    # each pass on the areas it filters on the path, then run on them
+    areas = _batch_areas(recs, *pb.geom[2:])
+    for kind, plane, k in DEBLOCK_ORDER:
+        st = b.dbst[:, k]
+        if plane < 2:
+            x, y, view = _two_copies(areas[plane])
+            cases.append(KernelCase(
+                f"deblock_{kind}",
+                f"{label}, {'Y' if plane == 0 else 'U'} "
+                f"{tuple(areas[plane].shape)}",
+                lambda x=x, view=view, st=st, kind=kind: (
+                    TD.deblock_pass(kind, view(x), st, bd), [x])[1],
+                lambda y=y, view=view, st=st, kind=kind: (
+                    TD.deblock_pass_ref(kind, view(y), st, bd), [y])[1],
+                *deblock_work(kind, st)))
+        TD.deblock_pass(kind, areas[plane], st, bd)
+    cases.append(KernelCase(
+        "pad", f"{label}, luma {h}x{w} +{PAD_L}",
+        lambda: [TR.pad(areas[0], h, w, PAD_L)],
+        lambda: [TR.pad_ref(areas[0], h, w, PAD_L)],
+        2 * G * (h * w + (h + 2 * PAD_L) * (w + 2 * PAD_L)), 0))
+    out = DpbStep(dpb.refs, tuple(torch.zeros_like(o) for o in dpb.out))
+    # the step's own traffic: its payload and coefficients, the reference
+    # windows, the pictures written; the operations of its stages
+    win = mc_work(b.mc)[0] - 5 * int(
+        (b.mc[:, PK.MC_W] * b.mc[:, PK.MC_H]
+         * (1 + (b.mc[:, PK.MC_PLANE] > 0))).sum())
+    step_bytes = (pb.payload.nbytes + pb.coefs.nbytes + win
+                  + sum(o.numel() * 2 for o in dpb.out))
+    cases.append(KernelCase(
+        "gop_step", f"{label}, {G} x {h}x{w} pictures",
+        lambda: list(run_frames_device(b, tab, out)),
+        lambda: gop_step_plain(b, tab, dpb),
+        step_bytes, sum(c.ops for c in cases)))
+    return cases

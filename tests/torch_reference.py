@@ -1,14 +1,17 @@
 """Reference worker of chip_smoke.py, run as a program of its own:
 
-    python tests/torch_reference.py SPEC OUT_EVC OUT_YUV
+    python tests/torch_reference.py SPEC OUT_EVC [OUT_YUV]
 
 SPEC is a JSON list (w, h, frames, qp, seed, gop, density, bit depth,
 profile, tools, intra_frac) of `tools/evc_enc.encode_stream`.  The worker
 writes the stream to OUT_EVC (kept when it exists: the stream is a
 function of SPEC) and decodes it with `xevd_tpu`'s CLI on the numpy oracle
 backend (NumpyPixelBackend, golden-tested against the reference decoder)
-to 10-bit YUV in OUT_YUV.  Its last line of output is one JSON object
-{"frames", "gen_s", "numpy_s"}.
+to 10-bit YUV in OUT_YUV; without OUT_YUV it only writes the stream.  Its
+last line of output is one JSON object {"frames", "gen_s", "numpy_s"}
+(frames and numpy_s null without a decode).  Before the decode it points
+`xevd_tpu`'s native engine at the library the port builds for this host
+(`tests/torch_helpers.py` `use_port_native_library`).
 
 It runs as a separate program so that chip_smoke.py, the program under
 test, imports nothing of `xevd_tpu`: the oracle stays independent of the
@@ -25,7 +28,8 @@ REPO = Path(__file__).resolve().parent.parent
 
 
 def main(argv) -> int:
-    spec, evc, yuv = json.loads(argv[0]), Path(argv[1]), Path(argv[2])
+    spec, evc = json.loads(argv[0]), Path(argv[1])
+    yuv = Path(argv[2]) if len(argv) > 2 else None
     w, h, n, qp, seed, gop, density, bd, profile, tools, intra_frac = spec
     sys.path.insert(0, str(REPO))
     sys.path.insert(0, str(REPO / "tools"))
@@ -41,7 +45,12 @@ def main(argv) -> int:
         tmp.write_bytes(data)
         tmp.replace(evc)
     t_gen = time.perf_counter() - t0
+    if yuv is None:
+        print(json.dumps({"frames": None, "gen_s": t_gen, "numpy_s": None}))
+        return 0
+    from tests.torch_helpers import use_port_native_library
     from xevd_tpu.app import main as xevd_main
+    use_port_native_library()
     t0 = time.perf_counter()
     rc = xevd_main(["-i", str(evc), "-o", str(yuv), "--output-bit-depth",
                     "10", "-v", "0", "--backend", "numpy"])

@@ -27,6 +27,10 @@
 // that order (ops/pack.py `chroma_ver_edges`, a CSR table), and one
 // thread per chroma line and plane walks its row's list -- one launch a
 // frame, no waves.  Its dependency chain is the longest row's edge count.
+//
+// GOP batch (K15): the four Baseline passes filter the areas of the G
+// frames of one time step in one launch each, frame g in blockIdx.y, at g
+// times the batch strides of the areas and of the strength maps.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -81,7 +85,10 @@ __device__ __forceinline__ void chroma_edge(int16_t* p, long step, int st,
 // area [H, W] with row pitch `stride`; st [H/4, W/4]: strength of the
 // vertical edge left of each 4x4 (0 = none).  Thread per (row, edge).
 __global__ void luma_ver_kernel(int16_t* area, int stride, int H, int W,
-                                const int32_t* __restrict__ st, int maxv) {
+                                const int32_t* __restrict__ st, int maxv,
+                                long long area_bs, long long st_bs) {
+  area += blockIdx.y * area_bs;
+  st += blockIdx.y * st_bs;
   const int ws = W >> 2, ne = ws - 1;
   const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (ne <= 0 || idx >= (long)H * ne) return;
@@ -93,7 +100,10 @@ __global__ void luma_ver_kernel(int16_t* area, int stride, int H, int W,
 // st [H/4, W/4]: strength of the horizontal edge above each 4x4.
 // Thread per (edge, column).
 __global__ void luma_hor_kernel(int16_t* area, int stride, int H, int W,
-                                const int32_t* __restrict__ st, int maxv) {
+                                const int32_t* __restrict__ st, int maxv,
+                                long long area_bs, long long st_bs) {
+  area += blockIdx.y * area_bs;
+  st += blockIdx.y * st_bs;
   const int ws = W >> 2, ne = (H >> 2) - 1;
   const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (ne <= 0 || idx >= (long)ne * W) return;
@@ -105,7 +115,10 @@ __global__ void luma_hor_kernel(int16_t* area, int stride, int H, int W,
 // chroma area [H, W]; st [H/2, W/2] per SCU.  Thread per row, walking the
 // vertical edges at x = 2, 4, ... left to right.
 __global__ void chroma_ver_kernel(int16_t* area, int stride, int H, int W,
-                                  const int32_t* __restrict__ st, int maxv) {
+                                  const int32_t* __restrict__ st, int maxv,
+                                  long long area_bs, long long st_bs) {
+  area += blockIdx.y * area_bs;
+  st += blockIdx.y * st_bs;
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= H) return;
   const int ws = W >> 1;
@@ -120,7 +133,10 @@ __global__ void chroma_ver_kernel(int16_t* area, int stride, int H, int W,
 // Thread per column, walking the horizontal edges at y = 2, 4, ... top to
 // bottom.
 __global__ void chroma_hor_kernel(int16_t* area, int stride, int H, int W,
-                                  const int32_t* __restrict__ st, int maxv) {
+                                  const int32_t* __restrict__ st, int maxv,
+                                  long long area_bs, long long st_bs) {
+  area += blockIdx.y * area_bs;
+  st += blockIdx.y * st_bs;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= W) return;
   const int ws = W >> 1, ne = H >> 1;
@@ -154,37 +170,55 @@ inline int blocks(long n) { return (int)((n + DB_THREADS - 1) / DB_THREADS); }
 
 }  // namespace
 
+// G frames (blockIdx.y), the areas area_bs and the strength maps st_bs
+// elements apart; G 1 is one frame.
 extern "C" int xevd_deblock_luma_ver(void* area, int stride, int H, int W,
-                                     const void* st, int bd, void* stream) {
+                                     const void* st, int bd, int G,
+                                     long long area_bs, long long st_bs,
+                                     void* stream) {
   const long n = (long)H * ((W >> 2) - 1);
-  if (n > 0)
-    luma_ver_kernel<<<blocks(n), DB_THREADS, 0, (cudaStream_t)stream>>>(
-        (int16_t*)area, stride, H, W, (const int32_t*)st, (1 << bd) - 1);
+  if (n > 0 && G > 0)
+    luma_ver_kernel<<<dim3(blocks(n), G), DB_THREADS, 0,
+                      (cudaStream_t)stream>>>(
+        (int16_t*)area, stride, H, W, (const int32_t*)st, (1 << bd) - 1,
+        area_bs, st_bs);
   return (int)cudaGetLastError();
 }
 
 extern "C" int xevd_deblock_luma_hor(void* area, int stride, int H, int W,
-                                     const void* st, int bd, void* stream) {
+                                     const void* st, int bd, int G,
+                                     long long area_bs, long long st_bs,
+                                     void* stream) {
   const long n = (long)((H >> 2) - 1) * W;
-  if (n > 0)
-    luma_hor_kernel<<<blocks(n), DB_THREADS, 0, (cudaStream_t)stream>>>(
-        (int16_t*)area, stride, H, W, (const int32_t*)st, (1 << bd) - 1);
+  if (n > 0 && G > 0)
+    luma_hor_kernel<<<dim3(blocks(n), G), DB_THREADS, 0,
+                      (cudaStream_t)stream>>>(
+        (int16_t*)area, stride, H, W, (const int32_t*)st, (1 << bd) - 1,
+        area_bs, st_bs);
   return (int)cudaGetLastError();
 }
 
 extern "C" int xevd_deblock_chroma_ver(void* area, int stride, int H, int W,
-                                       const void* st, int bd, void* stream) {
-  if (H > 0)
-    chroma_ver_kernel<<<blocks(H), DB_THREADS, 0, (cudaStream_t)stream>>>(
-        (int16_t*)area, stride, H, W, (const int32_t*)st, (1 << bd) - 1);
+                                       const void* st, int bd, int G,
+                                       long long area_bs, long long st_bs,
+                                       void* stream) {
+  if (H > 0 && G > 0)
+    chroma_ver_kernel<<<dim3(blocks(H), G), DB_THREADS, 0,
+                        (cudaStream_t)stream>>>(
+        (int16_t*)area, stride, H, W, (const int32_t*)st, (1 << bd) - 1,
+        area_bs, st_bs);
   return (int)cudaGetLastError();
 }
 
 extern "C" int xevd_deblock_chroma_hor(void* area, int stride, int H, int W,
-                                       const void* st, int bd, void* stream) {
-  if (W > 0)
-    chroma_hor_kernel<<<blocks(W), DB_THREADS, 0, (cudaStream_t)stream>>>(
-        (int16_t*)area, stride, H, W, (const int32_t*)st, (1 << bd) - 1);
+                                       const void* st, int bd, int G,
+                                       long long area_bs, long long st_bs,
+                                       void* stream) {
+  if (W > 0 && G > 0)
+    chroma_hor_kernel<<<dim3(blocks(W), G), DB_THREADS, 0,
+                        (cudaStream_t)stream>>>(
+        (int16_t*)area, stride, H, W, (const int32_t*)st, (1 << bd) - 1,
+        area_bs, st_bs);
   return (int)cudaGetLastError();
 }
 

@@ -22,6 +22,11 @@
 // (global writes of a block are visible to the block after the barrier).
 // Running independent CUs concurrently (a wavefront, as K6 does for Main)
 // is later work.
+//
+// GOP batch (K15): the launch has one CTA per frame of the batch, <<<G,
+// INTRA_THREADS>>>; CTA g walks its own frame's CU rows icu_off[g] ..
+// icu_off[g + 1] - 1 on its own planes (g times the batch stride), so the
+// G frames of one time step scan side by side in one launch.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -85,9 +90,21 @@ intra_scan_kernel(int16_t* rec_y, int16_t* rec_u, int16_t* rec_v,
                   const int16_t* res_y, const int16_t* res_u,
                   const int16_t* res_v, int stride_y, int stride_c,
                   const int32_t* __restrict__ icu, int n_cu, int bd,
-                  int chroma) {
+                  int chroma, const int32_t* __restrict__ icu_off,
+                  long long bs_y, long long bs_c) {
   __shared__ int s_up[128], s_left[128], s_corner, s_sum;
-  for (int n = 0; n < n_cu; ++n) {
+  const long long g = blockIdx.x;
+  rec_y += g * bs_y;
+  res_y += g * bs_y;
+  if (chroma) {
+    rec_u += g * bs_c;
+    rec_v += g * bs_c;
+    res_u += g * bs_c;
+    res_v += g * bs_c;
+  }
+  const int n0 = icu_off ? icu_off[g] : 0;
+  const int n1 = icu_off ? icu_off[g + 1] : n_cu;
+  for (int n = n0; n < n1; ++n) {
     const int32_t* c = icu + (size_t)n * 8;
     if (c[7] != 1) continue;  // block-uniform: every thread reads the row
     const int x = c[0], y = c[1], log2 = c[2], ipm = c[3];
@@ -106,16 +123,20 @@ intra_scan_kernel(int16_t* rec_y, int16_t* rec_u, int16_t* rec_v,
 
 }  // namespace
 
+// icu_off: device int32 [G + 1], or NULL for one frame (G 1); bs_y, bs_c:
+// the batch strides of the luma and chroma planes, in elements.
 extern "C" int xevd_intra_scan(void* rec_y, void* rec_u, void* rec_v,
                                const void* res_y, const void* res_u,
                                const void* res_v, int stride_y, int stride_c,
                                const void* icu, int n_cu, int bd, int chroma,
-                               void* stream) {
-  if (n_cu > 0) {
-    intra_scan_kernel<<<1, INTRA_THREADS, 0, (cudaStream_t)stream>>>(
+                               const void* icu_off, int G, long long bs_y,
+                               long long bs_c, void* stream) {
+  if (n_cu > 0 && G > 0) {
+    intra_scan_kernel<<<G, INTRA_THREADS, 0, (cudaStream_t)stream>>>(
         (int16_t*)rec_y, (int16_t*)rec_u, (int16_t*)rec_v,
         (const int16_t*)res_y, (const int16_t*)res_u, (const int16_t*)res_v,
-        stride_y, stride_c, (const int32_t*)icu, n_cu, bd, chroma);
+        stride_y, stride_c, (const int32_t*)icu, n_cu, bd, chroma,
+        (const int32_t*)icu_off, bs_y, bs_c);
   }
   return (int)cudaGetLastError();
 }

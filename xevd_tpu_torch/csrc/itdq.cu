@@ -30,8 +30,15 @@
 // int32 (jax_itdq.py:76-77); the accumulators stay int64 for both paths.
 // Small TUs leave most threads idle; packing several small TUs per CTA is
 // later work.
+//
+// GOP batch (K15): the TU table holds the TUs of the G frames of one time
+// step, those of frame g at rows tu_off[g] .. tu_off[g + 1] - 1; a CTA finds
+// its row's g (batch.cuh) and reads and writes that frame's planes, at g
+// times each plane's batch stride.  Still one launch a step.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "batch.cuh"
 
 #define BORDER 72
 #define MIN_TX_VAL (-32768)
@@ -67,7 +74,9 @@ itdq_kernel(const int16_t* __restrict__ coef_y,
             int16_t* __restrict__ res_v, int rs_y, int rs_c,
             const int32_t* __restrict__ tus,
             const int32_t* __restrict__ tm64,
-            const int32_t* __restrict__ tr, int bd, int iqt) {
+            const int32_t* __restrict__ tr, int bd, int iqt,
+            const int32_t* __restrict__ tu_off, int G, long long cbs_y,
+            long long cbs_c, long long rbs_y, long long rbs_c) {
   __shared__ int16_t s_tmh[64 * 64];  // [v][y], v = frequency
   __shared__ int16_t s_tmw[64 * 64];  // [u][x]
   __shared__ int16_t s_dq[64 * 64];   // [v][u]
@@ -79,8 +88,11 @@ itdq_kernel(const int16_t* __restrict__ coef_y,
   const int ty = tu[4], tx = tu[5], trs = tu[6];
   const bool main_tx = iqt || trs;
   const int w = 1 << lw, h = 1 << lh, n = w * h;
-  const int16_t* coef = comp == 0 ? coef_y : (comp == 1 ? coef_u : coef_v);
-  int16_t* res = comp == 0 ? res_y : (comp == 1 ? res_u : res_v);
+  const long long g = batch_of(tu_off, G, blockIdx.x);
+  const int16_t* coef = comp == 0 ? coef_y + g * cbs_y
+                                  : (comp == 1 ? coef_u : coef_v) + g * cbs_c;
+  int16_t* res = comp == 0 ? res_y + g * rbs_y
+                           : (comp == 1 ? res_u : res_v) + g * rbs_c;
   const int cs = comp ? cs_c : cs_y;
   const int rs = comp ? rs_c : rs_y;
 
@@ -126,17 +138,22 @@ itdq_kernel(const int16_t* __restrict__ coef_y,
 
 }  // namespace
 
+// tu_off: device int32 [G + 1], or NULL for one frame (G 1); cbs / rbs: the
+// batch strides of the coefficient and residual planes, in elements.
 extern "C" int xevd_itdq(const void* coef_y, const void* coef_u,
                          const void* coef_v, int cs_y, int cs_c, void* res_y,
                          void* res_u, void* res_v, int rs_y, int rs_c,
                          const void* tus, int n_tus, const void* tm64,
-                         const void* tr, int bd, int iqt, void* stream) {
+                         const void* tr, int bd, int iqt, const void* tu_off,
+                         int G, long long cbs_y, long long cbs_c,
+                         long long rbs_y, long long rbs_c, void* stream) {
   if (n_tus > 0) {
     itdq_kernel<<<n_tus, ITDQ_THREADS, 0, (cudaStream_t)stream>>>(
         (const int16_t*)coef_y, (const int16_t*)coef_u,
         (const int16_t*)coef_v, cs_y, cs_c, (int16_t*)res_y, (int16_t*)res_u,
         (int16_t*)res_v, rs_y, rs_c, (const int32_t*)tus,
-        (const int32_t*)tm64, (const int32_t*)tr, bd, iqt);
+        (const int32_t*)tm64, (const int32_t*)tr, bd, iqt,
+        (const int32_t*)tu_off, G, cbs_y, cbs_c, rbs_y, rbs_c);
   }
   return (int)cudaGetLastError();
 }

@@ -27,8 +27,17 @@
 // read-modify-write of pred and cnt needs no atomics and is deterministic.
 // The reference planes come as a pointer table in the kernel's parameters
 // (one pitch per plane group), so no plane is stacked or copied.
+//
+// GOP batch (K15): the table of one list holds the blocks of the G frames
+// of one time step, those of frame g at rows row_off[g] .. row_off[g + 1] -
+// 1; a CTA adds into its frame's prediction and count planes (g times their
+// batch stride), and its slot indexes the step's pointer table of DPB
+// pictures (d, g) (xevd_tpu_torch/parallel/gop.py).  One launch a list and
+// step.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "batch.cuh"
 
 #define MC_THREADS 256
 #define MAX_SLOTS 32
@@ -115,12 +124,22 @@ mc_kernel(const int32_t* __restrict__ rows, RefPlanes ref_y,
           int32_t* pred_y, int32_t* pred_u, int32_t* pred_v, int8_t* cnt_y,
           int8_t* cnt_c, int ps_y, int ps_c,
           const int32_t* __restrict__ taps_l,
-          const int32_t* __restrict__ taps_c, int bd) {
+          const int32_t* __restrict__ taps_c, int bd,
+          const int32_t* __restrict__ row_off, int G, long long pbs_y,
+          long long pbs_c) {
   __shared__ int16_t s_win[MAX_WIN * MAX_WIN];
   __shared__ int32_t s_buf[MAX_WIN * 64];
   const int32_t* r = rows + (size_t)blockIdx.x * 10;
   const int plane = r[0], w = r[1], h = r[2], cs = r[3], slot = r[4];
   const int gx = r[5], gy = r[6], py = r[7], px = r[8];
+  const long long g = batch_of(row_off, G, blockIdx.x);
+  pred_y += g * pbs_y;
+  cnt_y += g * pbs_y;
+  if (plane) {
+    pred_u += g * pbs_c;
+    pred_v += g * pbs_c;
+    cnt_c += g * pbs_c;
+  }
   if (plane == 0) {
     mc_plane<8, 4>(ref_y.p[slot], pitch_y, pred_y, cnt_y, ps_y, taps_l, w,
                    h, cs, gx, gy, py, px, bd, s_win, s_buf);
@@ -136,12 +155,16 @@ mc_kernel(const int32_t* __restrict__ rows, RefPlanes ref_y,
 
 // ref_y / ref_u / ref_v: host arrays of n_slots device plane pointers
 // (ref_u, ref_v NULL for 4:0:0); pitches and plane strides in elements.
+// row_off: device int32 [G + 1] of the list's rows, or NULL for one frame
+// (G 1); pbs_y, pbs_c: the batch strides of the prediction (and count)
+// planes, in elements.
 extern "C" int xevd_mc(const void* rows, int n_rows, const void* const* ref_y,
                        const void* const* ref_u, const void* const* ref_v,
                        int n_slots, int pitch_y, int pitch_c, void* pred_y,
                        void* pred_u, void* pred_v, void* cnt_y, void* cnt_c,
                        int ps_y, int ps_c, const void* taps_l,
-                       const void* taps_c, int bd, void* stream) {
+                       const void* taps_c, int bd, const void* row_off, int G,
+                       long long pbs_y, long long pbs_c, void* stream) {
   if (n_slots < 1 || n_slots > MAX_SLOTS) return (int)cudaErrorInvalidValue;
   RefPlanes ry = {}, ru = {}, rv = {};
   for (int s = 0; s < n_slots; ++s) {
@@ -153,7 +176,8 @@ extern "C" int xevd_mc(const void* rows, int n_rows, const void* const* ref_y,
     mc_kernel<<<n_rows, MC_THREADS, 0, (cudaStream_t)stream>>>(
         (const int32_t*)rows, ry, ru, rv, pitch_y, pitch_c, (int32_t*)pred_y,
         (int32_t*)pred_u, (int32_t*)pred_v, (int8_t*)cnt_y, (int8_t*)cnt_c,
-        ps_y, ps_c, (const int32_t*)taps_l, (const int32_t*)taps_c, bd);
+        ps_y, ps_c, (const int32_t*)taps_l, (const int32_t*)taps_c, bd,
+        (const int32_t*)row_off, G, pbs_y, pbs_c);
   }
   return (int)cudaGetLastError();
 }

@@ -5,14 +5,24 @@ library hasn't been built.  Build: `make -C native` (or tests build it on
 demand).
 
 Copy of xevd_tpu/native.py in xevd_tpu_torch.host (the port's own host
-half).  Edited lines, one level deeper in the tree:
+half).  The library is this host's own build (xevd_tpu_torch/native_build.py):
+build/xevd_tpu_torch/native/<key>/libevc_entropy.so, keyed on the sources,
+the compiler command and the CPU, built at first use and moved into place
+whole, so that parallel processes may build at once.  The committed
+native/libevc_entropy.so (built -march=native on another host) is never
+loaded.  Edited lines, one level deeper in the tree and for that build:
+    from ..native_build import COMMAND, build_library, library_path
     _REPO = Path(__file__).resolve().parents[2]
+    _SO = library_path(_REPO / "native")
+    build_library(
+    [*COMMAND,
+    deps = [_REPO / "native" / s for s in _SRCS + ("evc_main_tables.h",)]
 """
 from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
+from ..native_build import COMMAND, build_library, library_path
 from pathlib import Path
 
 import numpy as np
@@ -21,7 +31,7 @@ from . import tables as T
 from .frame import FrameSyntax
 
 _REPO = Path(__file__).resolve().parents[2]
-_SO = _REPO / "native" / "libevc_entropy.so"
+_SO = library_path(_REPO / "native")
 _LIB = None
 
 CU_FIELDS = 29
@@ -33,8 +43,8 @@ _SRCS = ("evc_entropy.c", "evc_main.c", "evc_derive_main.c",
 
 def _build():
     srcs = [str(_REPO / "native" / s) for s in _SRCS]
-    subprocess.run(
-        ["cc", "-O3", "-march=native", "-shared", "-fPIC",
+    build_library(
+        [*COMMAND,
          "-o", str(_SO)] + srcs,
         check=True)
 
@@ -43,7 +53,7 @@ def _stale() -> bool:
     if not _SO.exists():
         return True
     mt = _SO.stat().st_mtime
-    deps = [_SO.parent / s for s in _SRCS] + [_SO.parent / "evc_main_tables.h"]
+    deps = [_REPO / "native" / s for s in _SRCS + ("evc_main_tables.h",)]
     return any(p.exists() and mt < p.stat().st_mtime for p in deps)
 
 

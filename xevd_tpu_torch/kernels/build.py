@@ -8,7 +8,9 @@ header is included, so the build takes seconds, not minutes.  A missing
 `nvcc`, a failed build or a failed launch raises; nothing falls back.
 
 Launch counts: every wrapper calls `count(name)` where it launches its
-kernel, and nowhere else, so a run can show which kernels its path used."""
+kernel, and nowhere else, so a run can show which kernels its path used;
+"gop_step" counts the batched steps of a GOP batch on the card (K15,
+ops/pipeline.py `run_frames_device`)."""
 from __future__ import annotations
 
 import ctypes
@@ -25,23 +27,30 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "xevd_tpu_torch"
 SOURCES = ("itdq.cu", "intra.cu", "deblock.cu", "mc.cu", "intra_main.cu",
            "addb.cu", "alf.cu")
+HEADERS = ("batch.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+# the GOP batch of a deblock pass: G, and the batch strides (in elements)
+# of the areas and of the strength maps
+_DB = (_I, _L, _L)
 # C entry points: name -> argument types (every pointer and the stream are
-# void*, every scalar int); each returns cudaGetLastError().
+# void*, every scalar int, every batch stride long long); each returns
+# cudaGetLastError().
 SIGNATURES = {
     "xevd_itdq": (_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _I, _P, _P,
-                  _I, _I, _P),
-    "xevd_intra_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _P),
-    "xevd_deblock_luma_ver": (_P, _I, _I, _I, _P, _I, _P),
-    "xevd_deblock_luma_hor": (_P, _I, _I, _I, _P, _I, _P),
-    "xevd_deblock_chroma_ver": (_P, _I, _I, _I, _P, _I, _P),
-    "xevd_deblock_chroma_hor": (_P, _I, _I, _I, _P, _I, _P),
+                  _I, _I, _P, _I, _L, _L, _L, _L, _P),
+    "xevd_intra_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _P,
+                        _I, _L, _L, _P),
+    "xevd_deblock_luma_ver": (_P, _I, _I, _I, _P, _I, *_DB, _P),
+    "xevd_deblock_luma_hor": (_P, _I, _I, _I, _P, _I, *_DB, _P),
+    "xevd_deblock_chroma_ver": (_P, _I, _I, _I, _P, _I, *_DB, _P),
+    "xevd_deblock_chroma_hor": (_P, _I, _I, _I, _P, _I, *_DB, _P),
     "xevd_mc": (_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I,
-                _P, _P, _I, _P),
+                _P, _P, _I, _P, _I, _L, _L, _P),
     "xevd_intra_scan_wave": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _I,
                              _P, _I, _I, _P),
     "xevd_chroma_ver_ordered": (_P, _P, _I, _I, _P, _P, _I, _P),
@@ -59,7 +68,7 @@ launch_counts = {"itdq": 0, "recon": 0, "pad": 0, "intra_scan": 0,
                  "intra_scan_wave": 0, "chroma_ver_ordered": 0,
                  "addb_luma_ver": 0, "addb_luma_hor": 0,
                  "addb_chroma_ver": 0, "addb_chroma_hor": 0, "alf_luma": 0,
-                 "alf_chroma": 0}
+                 "alf_chroma": 0, "gop_step": 0}
 
 _LIB = None
 build_seconds = None
@@ -132,7 +141,7 @@ def _stale(so: Path) -> bool:
     if not so.exists():
         return True
     mt = so.stat().st_mtime
-    return any(mt < (CSRC / s).stat().st_mtime for s in SOURCES)
+    return any(mt < (CSRC / s).stat().st_mtime for s in SOURCES + HEADERS)
 
 
 def lib() -> ctypes.CDLL:

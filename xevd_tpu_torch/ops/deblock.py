@@ -6,7 +6,9 @@ xevd_tpu/ops/pipeline.py:285, which sequences them).
 Every pass filters an SCU-cropped area in place (a strided view into the
 bordered picture plane).  `st` is the per-SCU strength map
 int32 [h_scu, w_scu] (0 = no edge).  CUDA tensors launch the kernels of
-csrc/deblock.cu; CPU tensors take the `*_ref` plain versions."""
+csrc/deblock.cu; CPU tensors take the `*_ref` plain versions.  The four
+Baseline passes also filter the areas [G, H, W] of a GOP batch (K15) with
+strengths [G, ...], in one launch each (plain: frame by frame)."""
 from __future__ import annotations
 
 import torch
@@ -99,23 +101,42 @@ _REFS = {"luma_ver": luma_ver_ref, "luma_hor": luma_hor_ref,
 _SCU = {"luma_ver": 4, "luma_hor": 4, "chroma_ver": 2, "chroma_hor": 2}
 
 
+def deblock_pass_ref(kind: str, area: torch.Tensor, st: torch.Tensor,
+                     bd: int):
+    """Plain version of `deblock_pass`: one area, or the areas of a GOP
+    batch frame by frame."""
+    if area.dim() == 2:
+        _REFS[kind](area, st, bd)
+    else:
+        for g in range(area.shape[0]):
+            _REFS[kind](area[g], st[g], bd)
+    return area
+
+
 def deblock_pass(kind: str, area: torch.Tensor, st: torch.Tensor, bd: int):
     """One pass ("luma_ver", "luma_hor", "chroma_ver", "chroma_hor") in
     place on `area` [H, W] int16 with strengths `st` [H/u, W/u] (u = 4
-    luma, 2 chroma)."""
+    luma, 2 chroma), or on the areas [G, H, W] of a GOP batch with
+    strengths [G, H/u, W/u] (each map's rows contiguous)."""
     u = _SCU[kind]
-    H, W = area.shape
-    if st.shape != (H // u, W // u) or H % u or W % u:
+    H, W = area.shape[-2:]
+    lead = tuple(area.shape[:-2])
+    if tuple(st.shape) != lead + (H // u, W // u) or H % u or W % u \
+            or len(lead) > 1:
         raise ValueError(f"deblock {kind}: area {tuple(area.shape)} does not "
                          f"match strength map {tuple(st.shape)}")
     if area.device.type == "cpu":
-        _REFS[kind](area, st, bd)
-        return area
-    K.require(area, torch.int16, 2, rows_contiguous=True)
-    K.require(st, torch.int32, 2, contiguous=True)
+        return deblock_pass_ref(kind, area, st, bd)
+    nd = area.dim()
+    K.require(area, torch.int16, nd, rows_contiguous=True)
+    K.require(st, torch.int32, nd)
+    if st.stride()[-2:] != (W // u, 1):
+        raise ValueError(f"deblock {kind}: strength map rows not contiguous")
+    G = lead[0] if lead else 1
     fn = getattr(K.lib(), f"xevd_deblock_{kind}")
     K.count(f"deblock_{kind}")
-    err = fn(area.data_ptr(), area.stride(0), H, W, st.data_ptr(), bd,
+    err = fn(area.data_ptr(), area.stride(-2), H, W, st.data_ptr(), bd, G,
+             area.stride(0) if lead else 0, st.stride(0) if lead else 0,
              K.stream_ptr(area.device))
     K.check(err, f"xevd_deblock_{kind}")
     return area
@@ -179,14 +200,18 @@ def deblock_frame(y_area, u_area, v_area, st, bd, suco=None):
     st: int32 [6, h_scu, w_scu] = ver_y, hor_y, ver_u, hor_u, ver_v, hor_v.
     suco: (row_off, edges) of a SUCO frame's chroma vertical edges, which
     then run in that order (K10) instead of the raster pass.  u_area /
-    v_area are None for 4:0:0."""
-    deblock_pass("luma_ver", y_area, st[0], bd)
+    v_area are None for 4:0:0.  A GOP batch: areas [G, H, W], st
+    [G, 6, h_scu, w_scu], no SUCO."""
+    if st.dim() == 4 and suco is not None:
+        raise ValueError("deblock_frame: no SUCO order in a GOP batch")
+    m = st.movedim(-3, 0)           # the six maps first, batch or not
+    deblock_pass("luma_ver", y_area, m[0], bd)
     if u_area is not None and suco is not None:
         chroma_ver_ordered(u_area, v_area, *suco, bd)
     elif u_area is not None:
-        deblock_pass("chroma_ver", u_area, st[2], bd)
-        deblock_pass("chroma_ver", v_area, st[4], bd)
-    deblock_pass("luma_hor", y_area, st[1], bd)
+        deblock_pass("chroma_ver", u_area, m[2], bd)
+        deblock_pass("chroma_ver", v_area, m[4], bd)
+    deblock_pass("luma_hor", y_area, m[1], bd)
     if u_area is not None:
-        deblock_pass("chroma_hor", u_area, st[3], bd)
-        deblock_pass("chroma_hor", v_area, st[5], bd)
+        deblock_pass("chroma_hor", u_area, m[3], bd)
+        deblock_pass("chroma_hor", v_area, m[5], bd)

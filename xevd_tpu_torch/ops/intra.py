@@ -4,7 +4,9 @@
 `intra_scan` updates the bordered picture planes in place: the CUDA kernel
 (csrc/intra.cu, one launch per frame) for CUDA planes, `intra_scan_ref`
 (a Python loop over CUs) for CPU planes.  With CUDA planes every operand,
-the CU table included, must be on the card."""
+the CU table included, must be on the card.  With `icu_off` it scans the G
+frames of one time step of a GOP batch (K15) in one launch, one CTA a
+frame (`intra_scan_batch_ref` on the CPU)."""
 from __future__ import annotations
 
 import torch
@@ -66,20 +68,44 @@ def intra_scan_ref(recs, resids, icu, bd, chroma):
     return recs
 
 
-def intra_scan(recs, resids, icu, bd, chroma):
+def intra_scan_batch_ref(recs, resids, icu, icu_off, bd, chroma):
+    """Plain version of the batched `intra_scan`: frame g (planes [g], rows
+    icu[icu_off[g]:icu_off[g + 1]]) through `intra_scan_ref`."""
+    off = icu_off.cpu().tolist()
+    for g in range(len(off) - 1):
+        intra_scan_ref([None if r is None else r[g] for r in recs],
+                       [None if r is None else r[g] for r in resids],
+                       icu[off[g]:off[g + 1]], bd, chroma)
+    return recs
+
+
+def intra_scan(recs, resids, icu, bd, chroma, icu_off=None):
     """recs / resids: (y, u, v) bordered int16 planes (u/v unused when not
     `chroma`); icu: int32 [N, 8] CU table in decode order (ops/pack.py).
-    Reconstructs every valid CU in place on `recs` and returns them."""
+    Reconstructs every valid CU in place on `recs` and returns them.  A GOP
+    batch of G frames: planes [G, H, W] and `icu_off` int32 [G + 1], frame
+    g's CUs at rows icu_off[g]:icu_off[g + 1]."""
     rec_y, rec_u, rec_v = recs
     res_y, res_u, res_v = resids
+    batched = icu_off is not None
     if rec_y.device.type == "cpu":
+        if batched:
+            return intra_scan_batch_ref(recs, resids, icu, icu_off, bd,
+                                        chroma)
         return intra_scan_ref(recs, resids, icu, bd, chroma)
     K.require(icu, torch.int32, 2, contiguous=True)
+    if batched:
+        K.require(icu_off, torch.int32, 1, contiguous=True)
+    nd = 3 if batched else 2
+    G = icu_off.shape[0] - 1 if batched else 1
     planes = [(rec_y, res_y)] + ([(rec_u, res_u), (rec_v, res_v)]
                                  if chroma else [])
     for rec, res in planes:
-        K.require(rec, torch.int16, 2, contiguous=True)
-        K.require(res, torch.int16, 2, contiguous=True)
+        K.require(rec, torch.int16, nd, contiguous=True)
+        K.require(res, torch.int16, nd, contiguous=True)
+        if batched and rec.shape[0] != G:
+            raise ValueError(f"intra_scan: {rec.shape[0]} planes for {G} "
+                             "frames")
         if rec.shape != res.shape:
             raise ValueError("intra_scan: picture and residual planes differ "
                              f"in shape: {rec.shape} vs {res.shape}")
@@ -97,7 +123,11 @@ def intra_scan(recs, resids, icu, bd, chroma):
         rec_v.data_ptr() if chroma else None, res_y.data_ptr(),
         res_u.data_ptr() if chroma else None,
         res_v.data_ptr() if chroma else None,
-        rec_y.stride(0), rec_u.stride(0) if chroma else 0,
-        icu.data_ptr(), n, bd, int(chroma), K.stream_ptr(icu.device))
+        rec_y.stride(-2), rec_u.stride(-2) if chroma else 0,
+        icu.data_ptr(), n, bd, int(chroma),
+        icu_off.data_ptr() if batched else None, G,
+        rec_y.stride(0) if batched else 0,
+        rec_u.stride(0) if batched and chroma else 0,
+        K.stream_ptr(icu.device))
     K.check(err, "xevd_intra_scan")
     return recs

@@ -8,7 +8,9 @@ coefficient planes and runs `itdq_ref`, the plain PyTorch version, for CPU
 ones.  Three variants, as in the JAX version: the Baseline DCT-2 with an
 exact wide second stage (ref: xevd_tpu/ops/ref_numpy.itdq_block); the Main
 DCT-2 (`iqt`) and the ATS DST-7/DCT-8 bases (a TU's `trs`), whose two
-stages each clip to 16 bits (xevd_tpu/ops/jax_itdq.py:75-95)."""
+stages each clip to 16 bits (xevd_tpu/ops/jax_itdq.py:75-95).  With
+`tu_off` it runs the G frames of one time step of a GOP batch (K15) in the
+same single launch (`itdq_batch_ref` on the CPU)."""
 from __future__ import annotations
 
 import torch
@@ -45,12 +47,12 @@ def basis(tables: dict, log2: int, kind: int = -1) -> torch.Tensor:
     return tables["tr"][kind, log2, :n, :n].to(torch.int64)
 
 
-def _new_planes(shp_y, shp_c, device):
-    res_y = torch.zeros(shp_y, dtype=torch.int16, device=device)
+def _new_planes(shp_y, shp_c, device, lead=()):
+    res_y = torch.zeros(lead + shp_y, dtype=torch.int16, device=device)
     if shp_c is None:
         return res_y, None, None
-    return (res_y, torch.zeros(shp_c, dtype=torch.int16, device=device),
-            torch.zeros(shp_c, dtype=torch.int16, device=device))
+    return (res_y, torch.zeros(lead + shp_c, dtype=torch.int16, device=device),
+            torch.zeros(lead + shp_c, dtype=torch.int16, device=device))
 
 
 def itdq_blocks_ref(coef: torch.Tensor, scale: torch.Tensor, log2_w: int,
@@ -116,44 +118,76 @@ def itdq_ref(coefs, tus, shp_y, shp_c, bd, tables, iqt=False):
     return planes
 
 
-def itdq(coefs, tus, shp_y, shp_c, bd, tables, iqt=False):
+def itdq_batch_ref(coefs, tus, tu_off, shp_y, shp_c, bd, tables,
+                   iqt=False):
+    """Plain version of the batched `itdq`: frame g of the batch (its
+    planes coefs[i][g], its rows tus[tu_off[g]:tu_off[g + 1]]) through
+    `itdq_ref`; returns [G, ...] residual planes."""
+    off = tu_off.cpu().tolist()
+    outs = [itdq_ref([None if c is None else c[g] for c in coefs],
+                     tus[off[g]:off[g + 1]], shp_y, shp_c, bd, tables, iqt)
+            for g in range(len(off) - 1)]
+    return tuple(None if outs[0][i] is None
+                 else torch.stack([o[i] for o in outs]) for i in range(3))
+
+
+def itdq(coefs, tus, shp_y, shp_c, bd, tables, iqt=False, tu_off=None):
     """coefs: (coef_y, coef_u, coef_v) int16 planes (u/v None for 4:0:0);
     tus: int32 [N, 7] TU table (ops/pack.py), whose trs column picks the
     ATS bases; `iqt`: the Main DCT-2 for every TU of the frame.  Returns
     bordered int16 residual planes of shapes shp_y / shp_c (zero where no
-    TU)."""
+    TU).  A GOP batch of G frames: coefficient planes [G, h, w], `tu_off`
+    int32 [G + 1] (frame g's TUs are rows tu_off[g]:tu_off[g + 1]), and
+    residual planes [G, ...]."""
     if coefs[0].device.type == "cpu":
+        if tu_off is not None:
+            return itdq_batch_ref(coefs, tus, tu_off, shp_y, shp_c, bd,
+                                  tables, iqt)
         return itdq_ref(coefs, tus, shp_y, shp_c, bd, tables, iqt)
-    return _itdq_cuda(coefs, tus, shp_y, shp_c, bd, tables, iqt)
+    return _itdq_cuda(coefs, tus, shp_y, shp_c, bd, tables, iqt, tu_off)
 
 
-def _itdq_cuda(coefs, tus, shp_y, shp_c, bd, tables, iqt):
+def _itdq_cuda(coefs, tus, shp_y, shp_c, bd, tables, iqt, tu_off):
     coef_y, coef_u, coef_v = coefs
     tm64, tr = tables["tm64"], tables["tr"]
+    batched = tu_off is not None
     K.require(tus, torch.int32, 2, contiguous=True)
     K.require(tm64, torch.int32, 2, contiguous=True)
     K.require(tr, torch.int32, 4, contiguous=True)
+    if batched:
+        K.require(tu_off, torch.int32, 1, contiguous=True)
     for c in coefs:
         if c is not None:
-            K.require(c, torch.int16, 2, rows_contiguous=True)
+            K.require(c, torch.int16, 3 if batched else 2,
+                      rows_contiguous=True)
     if tus.shape[1] != TU_COLS:
         raise ValueError(f"TU table wants {TU_COLS} columns, got "
                          f"{tuple(tus.shape)}")
-    res_y, res_u, res_v = _new_planes(shp_y, shp_c, coef_y.device)
+    G = tu_off.shape[0] - 1 if batched else 1
+    if batched and coef_y.shape[0] != G:
+        raise ValueError(f"itdq: {coef_y.shape[0]} coefficient planes for "
+                         f"{G} frames")
+    res_y, res_u, res_v = _new_planes(shp_y, shp_c, coef_y.device,
+                                      (G,) if batched else ())
     n = tus.shape[0]
     if n == 0:
         return res_y, res_u, res_v
     chroma = shp_c is not None
+
+    def bs(t):
+        return t.stride(0) if batched and t is not None else 0
     lib = K.lib()
     K.count("itdq")
     err = lib.xevd_itdq(
         coef_y.data_ptr(), coef_u.data_ptr() if chroma else None,
         coef_v.data_ptr() if chroma else None,
-        coef_y.stride(0), coef_u.stride(0) if chroma else 0,
+        coef_y.stride(-2), coef_u.stride(-2) if chroma else 0,
         res_y.data_ptr(), res_u.data_ptr() if chroma else None,
         res_v.data_ptr() if chroma else None,
-        res_y.stride(0), res_u.stride(0) if chroma else 0,
+        res_y.stride(-2), res_u.stride(-2) if chroma else 0,
         tus.data_ptr(), n, tm64.data_ptr(), tr.data_ptr(), bd, int(iqt),
-        K.stream_ptr(tus.device))
+        tu_off.data_ptr() if batched else None, G, bs(coef_y),
+        bs(coef_u if chroma else None), bs(res_y),
+        bs(res_u if chroma else None), K.stream_ptr(tus.device))
     K.check(err, "xevd_itdq")
     return res_y, res_u, res_v

@@ -9,7 +9,9 @@ planes, and runs `mc_all_ref`, the plain PyTorch version, for CPU ones.
 With CUDA planes every operand, the block table and the tap tables
 included, must be on the card.  `main_taps` (a Main stream with ADMVP)
 selects the Main tap tables; the arithmetic is the same
-(xevd_tpu/ops/jax_mc.py:61-66)."""
+(xevd_tpu/ops/jax_mc.py:61-66).  With `mc_off` the table holds the blocks
+of the G frames of one time step of a GOP batch (K15), still one launch
+per list (`mc_all_batch_ref` on the CPU)."""
 from __future__ import annotations
 
 import ctypes
@@ -69,26 +71,55 @@ def mc_blocks_ref(refs, slot, gx, gy, case, w, h, bd, is_luma, tables,
     return ((acc + (1 << (shift2 - 1))) >> shift2).clamp(0, maxv)
 
 
-def _new_planes(shp_y, shp_c, device):
+def _new_planes(shp_y, shp_c, device, lead=()):
     """Zero (pred_y, cnt_y, pred_u, pred_v, cnt_c); chroma None for 4:0:0.
     Intra CUs, and L1-only CUs in list 0, keep zero."""
     def z(shp, dt):
-        return torch.zeros(shp, dtype=dt, device=device)
+        return torch.zeros(lead + shp, dtype=dt, device=device)
     if shp_c is None:
         return z(shp_y, torch.int32), z(shp_y, torch.int8), None, None, None
     return (z(shp_y, torch.int32), z(shp_y, torch.int8),
             z(shp_c, torch.int32), z(shp_c, torch.int32), z(shp_c, torch.int8))
 
 
+def _ref_stacks(refs):
+    """The slots' planes stacked, [R, H, W] per plane (None for 4:0:0)."""
+    return [None if refs[0][i] is None else torch.stack([r[i] for r in refs])
+            for i in range(3)]
+
+
 def mc_all_ref(mc, refs, shp_y, shp_c, bd, tables, main_taps=False):
     """Plain version of `mc_all`: rows grouped by (plane, w, h, case), each
     group predicted by `mc_blocks_ref` and scatter-added into the planes,
     its count plane by one (ref: xevd_tpu/ops/pipeline.py:179-215)."""
-    dev = refs[0][0].device
-    pred_y, cnt_y, pred_u, pred_v, cnt_c = planes = _new_planes(
-        shp_y, shp_c, dev)
-    stacks = [None if refs[0][i] is None else torch.stack([r[i] for r in refs])
-              for i in range(3)]
+    planes = _new_planes(shp_y, shp_c, refs[0][0].device)
+    _mc_rows_ref(planes, mc, _ref_stacks(refs), bd, tables, main_taps)
+    return planes
+
+
+def mc_all_batch_ref(mc, mc_off, refs, shp_y, shp_c, bd, tables,
+                     main_taps=False):
+    """Plain version of the batched `mc_all`: frame g's rows of both lists
+    (mc_off, ops/pack.py `stack_frames`) through `mc_all_ref`'s loop into
+    the planes [g]; returns [G, ...] planes."""
+    off = mc_off.cpu().tolist()
+    G, n0 = len(off[0]) - 1, off[0][-1]
+    planes = _new_planes(shp_y, shp_c, refs[0][0].device, (G,))
+    stacks = _ref_stacks(refs)
+    for g in range(G):
+        rows = torch.cat([mc[off[0][g]:off[0][g + 1]],
+                          mc[n0 + off[1][g]:n0 + off[1][g + 1]]])
+        _mc_rows_ref([None if p is None else p[g] for p in planes], rows,
+                     stacks, bd, tables, main_taps)
+    return planes
+
+
+def _mc_rows_ref(planes, mc, stacks, bd, tables, main_taps):
+    """Add the predictions and counts of the block table `mc` into
+    `planes` (pred_y, cnt_y, pred_u, pred_v, cnt_c), from the stacked
+    reference planes."""
+    pred_y, cnt_y, pred_u, pred_v, cnt_c = planes
+    dev = pred_y.device
     rows = mc.cpu().to(torch.int64)
     keys = (rows[:, MC_PLANE] << 20 | rows[:, MC_W] << 12 | rows[:, MC_H] << 4
             | rows[:, MC_CASE])
@@ -114,21 +145,28 @@ def mc_all_ref(mc, refs, shp_y, shp_c, bd, tables, main_taps=False):
             cnt = cnt_c
         cnt.index_put_((yy, xx), torch.ones((), dtype=torch.int8, device=dev)
                        .expand(yy.shape[0], h, w), accumulate=True)
-    return planes
 
 
-def mc_all(mc, lists, refs, shp_y, shp_c, bd, tables, main_taps=False):
+def mc_all(mc, lists, refs, shp_y, shp_c, bd, tables, main_taps=False,
+           mc_off=None):
     """mc: int32 [N, 10] MC block table (ops/pack.py), `lists` = (rows of
     list 0, rows of list 1), list 0 first; refs: per slot a (y, u, v)
     tuple of padded int16 reference planes (u, v None for 4:0:0);
     `main_taps`: the Main (ADMVP) filters.  Returns (pred_y, cnt_y,
     pred_u, pred_v, cnt_c): int32 prediction sums and int8 counts over
-    bordered planes of shapes shp_y / shp_c."""
+    bordered planes of shapes shp_y / shp_c.  A GOP batch of G frames:
+    `mc_off` int32 [2, G + 1], frame g's rows of list l at
+    mc_off[l, g]:mc_off[l, g + 1] from the list's first row, and the
+    planes [G, ...]."""
     if not refs:
         raise ValueError("mc_all: no reference planes")
     if refs[0][0].device.type == "cpu":
+        if mc_off is not None:
+            return mc_all_batch_ref(mc, mc_off, refs, shp_y, shp_c, bd,
+                                    tables, main_taps)
         return mc_all_ref(mc, refs, shp_y, shp_c, bd, tables, main_taps)
-    return _mc_cuda(mc, lists, refs, shp_y, shp_c, bd, tables, main_taps)
+    return _mc_cuda(mc, lists, refs, shp_y, shp_c, bd, tables, main_taps,
+                    mc_off)
 
 
 def _ref_pointers(refs, i):
@@ -143,13 +181,16 @@ def _ref_pointers(refs, i):
     return arr, planes[0].stride(0)
 
 
-def _mc_cuda(mc, lists, refs, shp_y, shp_c, bd, tables, main_taps):
+def _mc_cuda(mc, lists, refs, shp_y, shp_c, bd, tables, main_taps, mc_off):
     chroma = shp_c is not None
+    batched = mc_off is not None
     taps_l = _taps(tables, True, main_taps)
     taps_c = _taps(tables, False, main_taps)
     K.require(mc, torch.int32, 2, contiguous=True)
     K.require(taps_l, torch.int32, 2, contiguous=True)
     K.require(taps_c, torch.int32, 2, contiguous=True)
+    if batched:
+        K.require(mc_off, torch.int32, 2, contiguous=True)
     if mc.shape[1] != 10:
         raise ValueError(f"MC table wants 10 columns, got {tuple(mc.shape)}")
     n0, n1 = lists
@@ -164,11 +205,12 @@ def _mc_cuda(mc, lists, refs, shp_y, shp_c, bd, tables, main_taps):
     ref_v, _ = _ref_pointers(refs, 2) if chroma else (None, 0)
     if chroma and refs[0][1].shape != refs[0][2].shape:
         raise ValueError("mc_all: u and v reference planes differ in shape")
+    G = mc_off.shape[1] - 1 if batched else 1
     pred_y, cnt_y, pred_u, pred_v, cnt_c = planes = _new_planes(
-        shp_y, shp_c, mc.device)
+        shp_y, shp_c, mc.device, (G,) if batched else ())
     lib = K.lib()
     stream = K.stream_ptr(mc.device)
-    for off, n in ((0, n0), (n0, n1)):
+    for lidx, (off, n) in enumerate(((0, n0), (n0, n1))):
         if n == 0:
             continue
         K.count("mc")
@@ -176,8 +218,11 @@ def _mc_cuda(mc, lists, refs, shp_y, shp_c, bd, tables, main_taps):
             mc[off:].data_ptr(), n, ref_y, ref_u, ref_v, len(refs), pitch_y,
             pitch_c, pred_y.data_ptr(), pred_u.data_ptr() if chroma else None,
             pred_v.data_ptr() if chroma else None, cnt_y.data_ptr(),
-            cnt_c.data_ptr() if chroma else None, pred_y.stride(0),
-            pred_u.stride(0) if chroma else 0, taps_l.data_ptr(),
-            taps_c.data_ptr(), bd, stream)
+            cnt_c.data_ptr() if chroma else None, pred_y.stride(-2),
+            pred_u.stride(-2) if chroma else 0, taps_l.data_ptr(),
+            taps_c.data_ptr(), bd,
+            mc_off[lidx].data_ptr() if batched else None, G,
+            pred_y.stride(0) if batched else 0,
+            pred_u.stride(0) if batched and chroma else 0, stream)
         K.check(err, "xevd_mc")
     return planes

@@ -11,6 +11,8 @@ which the ITDQ kernel walks in a single launch and the MC kernel in one
 launch per reference list; the EIPD scan table is one list sorted by
 wavefront level, with the level offsets beside it; the SUCO chroma edges
 are one list sorted by SCU row and rank, with row offsets (no waves).
+`stack_frames` stacks the G frames of one time step of a GOP batch (K15)
+into one such payload, with per-frame row offsets.
 
 Per frame there is one int32 payload and one int16 coefficient buffer, so
 two host->device copies.  Both are fresh host arrays: the native entropy
@@ -314,11 +316,24 @@ def _ref_tensor(plane) -> torch.Tensor:
     return plane.t
 
 
-def pack_mc(fs, job, refp, chroma):
+def ref_slots(fs, job):
+    """The reference slots of a frame's MC table, in slot order: the
+    (list, refi) pairs its inter CUs use."""
+    idx = np.nonzero(fs.cu_pred_mode != T.MODE_INTRA)[0]
+    if len(idx) == 0:
+        return []
+    refi = job.cu_refi[idx]
+    valid = refi >= 0
+    return sorted({(lidx, int(r)) for lidx in range(2)
+                   for r in np.unique(refi[valid[:, lidx], lidx])})
+
+
+def pack_mc(fs, job, refp, chroma, plane=None):
     """(table, lists, refs): the MC block table int32 [N, 10] (columns
     MC_*), the rows of list 0 first; lists = (rows of list 0, rows of list
-    1); the reference planes, one (y, u, v) tensor tuple per slot (u, v
-    None for 4:0:0).
+    1); the reference planes, one (y, u, v) tuple per slot (u, v None for
+    4:0:0): `plane(p)` of each picture plane p, by default its tensor on
+    the device (a DevicePlane's).
 
     Port of `_pack_mc` (xevd_tpu/ops/pipeline.py:678-799): MV clip, the
     identical-motion skip, the (list, refi) -> slot map.  The filter case
@@ -326,6 +341,7 @@ def pack_mc(fs, job, refp, chroma):
     (ref: src_base/xevd_mc.c:435-557).  Raises ValueError when a block or
     its filter window, taps included, would leave its plane: the kernel
     reads without clamping."""
+    plane = plane or _ref_tensor
     idx = np.nonzero(fs.cu_pred_mode != T.MODE_INTRA)[0]
     if len(idx) == 0:
         return np.zeros((0, 10), np.int32), (0, 0), ()
@@ -356,8 +372,7 @@ def pack_mc(fs, job, refp, chroma):
     # identical motion in both lists is predicted once
     # (ref: src_base/xevd_mc.c:512-519)
     valid = refi >= 0
-    used = sorted({(lidx, int(r)) for lidx in range(2)
-                   for r in np.unique(refi[valid[:, lidx], lidx])})
+    used = ref_slots(fs, job)
     if len(used) > MAX_REF_SLOTS:
         raise ValueError(f"{len(used)} reference slots > {MAX_REF_SLOTS}")
     n_ref = max(int(refi.max()) + 1, 1)
@@ -368,9 +383,8 @@ def pack_mc(fs, job, refp, chroma):
         poc[lidx, r] = refp[r][lidx].poc
         slot_of[lidx, r] = s
         pic = refp[r][lidx].pic
-        refs.append((_ref_tensor(pic.y),
-                     _ref_tensor(pic.u) if chroma else None,
-                     _ref_tensor(pic.v) if chroma else None))
+        refs.append((plane(pic.y), plane(pic.u) if chroma else None,
+                     plane(pic.v) if chroma else None))
     ri = np.maximum(refi, 0)
     pocs = np.stack([poc[0, ri[:, 0]], poc[1, ri[:, 1]]], 1)
     dup = (valid[:, 0] & valid[:, 1] & (pocs[:, 0] == pocs[:, 1])
@@ -445,6 +459,7 @@ class PackedFrame:
     shp_c: tuple | None
     mc_lists: tuple              # MC table rows of list 0, of list 1
     refs: tuple                  # per slot: (y, u, v) reference tensors
+    ref_pocs: tuple = ()         # per slot: the reference picture's POC
 
 
 @dataclass
@@ -468,10 +483,11 @@ class DeviceFrame:
     packed: PackedFrame
 
 
-def pack_frame(job, sps, refp) -> PackedFrame:
+def pack_frame(job, sps, refp, plane=None) -> PackedFrame:
     """Build the payload of one frame (intra, P or B, Baseline or Main,
     with SUCO, ADDB and ALF as the JAX backend packs them).
-    `refp[refi][list]` are the reference pictures (host/dpb.py)."""
+    `refp[refi][list]` are the reference pictures (host/dpb.py); `plane`
+    as in `pack_mc`."""
     fs = job.fs
     bd = sps.bit_depth_luma_minus8 + 8
     cfi = sps.chroma_format_idc
@@ -492,7 +508,8 @@ def pack_frame(job, sps, refp) -> PackedFrame:
     else:
         icu = pack_intra(fs, job)
     pk.add("icu", icu)
-    mc, mc_lists, refs = pack_mc(fs, job, refp, chroma)
+    mc, mc_lists, refs = pack_mc(fs, job, refp, chroma, plane)
+    ref_pocs = tuple(refp[r][lidx].poc for lidx, r in ref_slots(fs, job))
     pk.add("mc", mc)
     suco = False
     if addb:
@@ -534,7 +551,7 @@ def pack_frame(job, sps, refp) -> PackedFrame:
         alf=alf, iqt=iqt, eipd=eipd,
         main_taps=bool(is_main and sps.tool_admvp), level_off=level_off,
         geom=(fs.h, fs.w, fs.h_scu, fs.w_scu), shp_y=shp_y, shp_c=shp_c,
-        mc_lists=mc_lists, refs=refs)
+        mc_lists=mc_lists, refs=refs, ref_pocs=ref_pocs)
 
 
 def upload(pf: PackedFrame, device: torch.device) -> DeviceFrame:
@@ -563,3 +580,137 @@ def upload(pf: PackedFrame, device: torch.device) -> DeviceFrame:
                        alf_c=view("alf_c"), alf_on=view("alf_on"),
                        coef_y=coef_y, coef_u=coef_u, coef_v=coef_v,
                        packed=pf)
+
+
+@dataclass
+class PackedBatch:
+    """The G frames of one time step of a GOP batch (K15, the frames one
+    `jax.vmap` step of xevd_tpu/parallel/gop.py decodes) as one payload:
+    each table is the frames' tables one after another with row offsets
+    [G + 1] (frame g's rows are off[g]:off[g + 1]); the MC table holds list
+    0 of every frame, then list 1, with offsets [2, G + 1] from each
+    list's first row."""
+    payload: np.ndarray          # int32, see `layout`
+    layout: dict                 # tus, tu_off, icu, icu_off, mc, mc_off, dbst
+    coefs: np.ndarray            # int16 [G, L]: each frame's coefficients
+    coef_shapes: tuple
+    G: int
+    bd: int
+    chroma: bool
+    deblock_on: bool
+    iqt: bool
+    main_taps: bool
+    geom: tuple                  # (h, w, h_scu, w_scu)
+    shp_y: tuple
+    shp_c: tuple | None
+    mc_lists: tuple              # MC rows of list 0, of list 1 (all frames)
+
+
+@dataclass
+class DeviceBatch:
+    """A PackedBatch after its two host->device copies (views)."""
+    tus: torch.Tensor            # int32 [Nt, 7]
+    tu_off: torch.Tensor         # int32 [G + 1]
+    icu: torch.Tensor            # int32 [Nc, 8]
+    icu_off: torch.Tensor        # int32 [G + 1]
+    mc: torch.Tensor             # int32 [Nm, 10], list 0 rows first
+    mc_off: torch.Tensor         # int32 [2, G + 1]
+    dbst: torch.Tensor | None    # int32 [G, 6, h_scu, w_scu]
+    coef_y: torch.Tensor         # int16 [G, h_pad, w_pad]
+    coef_u: torch.Tensor | None
+    coef_v: torch.Tensor | None
+    packed: PackedBatch
+
+
+def _table(pf: PackedFrame, name: str, ncol: int) -> np.ndarray:
+    if name not in pf.layout:
+        return np.zeros((0, ncol), np.int32)
+    off, shape = pf.layout[name]
+    return pf.payload[off:off + int(np.prod(shape))].reshape(shape)
+
+
+def _offsets(counts) -> np.ndarray:
+    return np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+
+
+def stack_frames(frames, slots) -> PackedBatch:
+    """Stack the PackedFrames of one time step of a GOP batch.  slots[g]
+    maps frame g's reference slots to entries of the step's pointer table
+    of DPB pictures (xevd_tpu_torch/parallel/gop.py: entry (d - 1) * G_dev
+    + g is the picture d steps back of the device's GOP g); each MC row's
+    slot column is rewritten through it.
+
+    The frames must agree in size, bit depth, chroma format and the frame
+    flags that pick kernel variants (Main transforms and taps, deblocking)
+    -- JAX's step holds its statics equal (gop.py:138-141) -- and have
+    none of the Main stages the batch has no kernels for (EIPD scan, SUCO
+    order, ADDB, ALF); else UnsupportedStream."""
+    def key(f):
+        return (f.geom, f.bd, f.chroma, f.deblock_on, f.iqt, f.main_taps,
+                f.shp_y, f.shp_c, f.coef_shapes)
+    f0 = frames[0]
+    for f in frames:
+        if f.eipd or f.suco or f.addb or f.alf is not None:
+            raise UnsupportedStream("torch GOP batch: no batched EIPD scan, "
+                                    "SUCO-order deblock, ADDB or ALF")
+        if key(f) != key(f0):
+            raise UnsupportedStream("torch GOP batch: the frames of one step "
+                                    "differ in size, bit depth, chroma "
+                                    "format or frame flags")
+    tus = [_table(f, "tus", TU_COLS) for f in frames]
+    icu = [_table(f, "icu", 8) for f in frames]
+    mcs = []
+    for f, sl in zip(frames, slots):
+        m = _table(f, "mc", 10).copy()
+        if len(m):
+            m[:, MC_SLOT] = np.asarray(sl, np.int32)[m[:, MC_SLOT]]
+        mcs.append(m)
+    n0 = [f.mc_lists[0] for f in frames]
+    pk = Packer()
+    pk.add("tus", np.concatenate(tus))
+    pk.add("tu_off", _offsets([len(t) for t in tus]))
+    pk.add("icu", np.concatenate(icu))
+    pk.add("icu_off", _offsets([len(t) for t in icu]))
+    pk.add("mc", np.concatenate([m[:n] for m, n in zip(mcs, n0)]
+                                + [m[n:] for m, n in zip(mcs, n0)]))
+    pk.add("mc_off", np.stack([_offsets(n0), _offsets(
+        [len(m) - n for m, n in zip(mcs, n0)])]))
+    if f0.deblock_on:
+        pk.add("dbst", np.stack([_table(f, "dbst", 0) for f in frames]))
+    payload, layout = pk.finish()
+    return PackedBatch(
+        payload=payload, layout=layout,
+        coefs=np.stack([f.coefs for f in frames]),
+        coef_shapes=f0.coef_shapes, G=len(frames), bd=f0.bd,
+        chroma=f0.chroma, deblock_on=f0.deblock_on, iqt=f0.iqt,
+        main_taps=f0.main_taps, geom=f0.geom, shp_y=f0.shp_y,
+        shp_c=f0.shp_c,
+        mc_lists=(sum(n0), sum(len(m) for m in mcs) - sum(n0)))
+
+
+def upload_batch(pb: PackedBatch, device: torch.device) -> DeviceBatch:
+    """Two host->device copies; every table and plane is a view into
+    them."""
+    payload = torch.from_numpy(pb.payload).to(device)
+    coefs = torch.from_numpy(pb.coefs).to(device)
+
+    def view(name):
+        if name not in pb.layout:
+            return None
+        off, shape = pb.layout[name]
+        return payload[off:off + int(np.prod(shape))].view(shape)
+
+    G = pb.G
+    (hy, wy), shc = pb.coef_shapes
+    coef_y = coefs[:, :hy * wy].view(G, hy, wy)
+    coef_u = coef_v = None
+    if pb.chroma:
+        hc, wc = shc
+        n = hc * wc
+        coef_u = coefs[:, hy * wy:hy * wy + n].view(G, hc, wc)
+        coef_v = coefs[:, hy * wy + n:hy * wy + 2 * n].view(G, hc, wc)
+    return DeviceBatch(tus=view("tus"), tu_off=view("tu_off"),
+                       icu=view("icu"), icu_off=view("icu_off"),
+                       mc=view("mc"), mc_off=view("mc_off"),
+                       dbst=view("dbst"), coef_y=coef_y, coef_u=coef_u,
+                       coef_v=coef_v, packed=pb)

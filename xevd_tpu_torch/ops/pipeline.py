@@ -18,6 +18,11 @@ writer reads them.  All of a frame's work is issued on the current CUDA
 stream, so a frame's MC reads its references after the frames that wrote
 them.
 
+`run_frames_device` is the same pipeline over the G frames of one time
+step of a GOP batch (K15, the `jax.vmap` of xevd_tpu/parallel/gop.py:215-
+218): one launch per kernel per step, whatever G; the decode of whole GOPs
+around it is xevd_tpu_torch/parallel/gop.py.
+
 Scope: Baseline and Main profile, I, P and B frames (IPPP and RA), 4:2:0
 or 4:0:0, 8 to 10 bit; of the Main tools eipd, btt, suco, iqt, ats, admvp,
 hmvp, mmvd, amvr, adcc, cm_init, htdf, addb, alf, dquant, rpl, pocs and
@@ -26,11 +31,14 @@ HTDF without EIPD raise UnsupportedStream at the SPS, before any pixel is
 produced, as the JAX backend refuses them."""
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 
 from ..host.syntax import UnsupportedStream
 
 from ..device import resolve_device
+from ..kernels import build as K
 from ..plane import DevicePlane
 from . import pack as PK
 from .addb import addb_frame
@@ -145,6 +153,56 @@ def run_frame_device(df: PK.DeviceFrame, tables: dict, on_stage=None):
         pic_v = pad(v_area, h >> 1, w >> 1, PAD_C)
     mark("pad")
     return pic_y, pic_u, pic_v
+
+
+@dataclass
+class DpbStep:
+    """The device DPB as one step of a GOP batch sees it: `refs`, the
+    step's pointer table of reference pictures, one (y, u, v) plane tuple
+    per entry (the MC table's slots index it); `out`, the (y, u, v) planes
+    [G, h + 2 PAD, w + 2 PAD] that receive the step's padded pictures."""
+    refs: tuple
+    out: tuple
+
+
+def run_frames_device(batch: PK.DeviceBatch, tables: dict, dpb: DpbStep):
+    """Device half of the G frames of one time step of a GOP batch: ITDQ
+    -> MC (steps with inter blocks) -> recon -> Baseline intra scan ->
+    Baseline deblock -> pad-expand into `dpb.out`, each a single launch
+    over the batch (a launch per plane for recon, pad and the chroma
+    passes, as for one frame).  Frames of one step share size, bit depth
+    and frame flags (ops/pack.py `stack_frames`).  Returns dpb.out."""
+    pb = batch.packed
+    bd, chroma = pb.bd, pb.chroma
+    if batch.tus.is_cuda:
+        K.count("gop_step")         # K15: one batched step on the card
+    resids = itdq((batch.coef_y, batch.coef_u, batch.coef_v), batch.tus,
+                  pb.shp_y, pb.shp_c, bd, tables, pb.iqt, tu_off=batch.tu_off)
+    if batch.mc.shape[0]:
+        pred_y, cnt_y, pred_u, pred_v, cnt_c = mc_all(
+            batch.mc, pb.mc_lists, dpb.refs, pb.shp_y, pb.shp_c, bd, tables,
+            pb.main_taps, mc_off=batch.mc_off)
+        preds = ((pred_y, cnt_y), (pred_u, cnt_c), (pred_v, cnt_c))
+    else:
+        preds = ((None, None),) * 3
+    recs = tuple(None if r is None else recon(r, bd, *p)
+                 for r, p in zip(resids, preds))
+    intra_scan(recs, resids, batch.icu, bd, chroma, icu_off=batch.icu_off)
+    h, w, h_scu, w_scu = pb.geom
+    H4, W4 = h_scu * 4, w_scu * 4
+    areas = [recs[0][:, BORDER:BORDER + H4, BORDER:BORDER + W4]]
+    if chroma:
+        areas += [r[:, BORDER:BORDER + (H4 >> 1), BORDER:BORDER + (W4 >> 1)]
+                  for r in recs[1:]]
+    else:
+        areas += [None, None]
+    if pb.deblock_on:
+        deblock_frame(*areas, batch.dbst, bd)
+    pad(areas[0], h, w, PAD_L, out=dpb.out[0])
+    if chroma:
+        pad(areas[1], h >> 1, w >> 1, PAD_C, out=dpb.out[1])
+        pad(areas[2], h >> 1, w >> 1, PAD_C, out=dpb.out[2])
+    return dpb.out
 
 
 class TorchPixelBackend:

@@ -3,7 +3,9 @@
 xevd_tpu/ops/pipeline.py:241).
 
 CUDA tensors launch the Triton kernels of ops/recon_triton.py; CPU tensors
-take the `*_ref` plain versions."""
+take the `*_ref` plain versions.  Both take the planes of a GOP batch
+(K15) with a leading G, in one launch: recon is elementwise, pad has G in
+its grid."""
 from __future__ import annotations
 
 import torch
@@ -25,25 +27,28 @@ def recon_ref(resid, bd, pred=None, cnt=None):
 
 
 def pad_ref(area, h, w, pad):
-    """Edge-replicate area[:h, :w] by `pad` on every side."""
+    """Edge-replicate area[..., :h, :w] by `pad` on every side."""
     dev = area.device
     rows = (torch.arange(h + 2 * pad, device=dev) - pad).clamp(0, h - 1)
     cols = (torch.arange(w + 2 * pad, device=dev) - pad).clamp(0, w - 1)
-    return area[rows[:, None], cols[None, :]]
+    return area[..., rows[:, None], cols[None, :]]
 
 
 def recon(resid, bd, pred=None, cnt=None):
-    """resid int16 [H, W]; pred int32 and cnt int8 of the same shape (from
-    ops/mc.py `mc_all`), or both None for an intra frame; returns a new
-    int16 plane."""
+    """resid int16 [H, W], or [G, H, W] for a GOP batch; pred int32 and cnt
+    int8 of the same shape (from ops/mc.py `mc_all`), or both None for an
+    intra frame; returns a new int16 plane."""
     if (pred is None) != (cnt is None):
         raise ValueError("recon: pred and cnt come together")
     if resid.device.type == "cpu":
         return recon_ref(resid, bd, pred, cnt)
-    K.require(resid, torch.int16, 2, contiguous=True)
+    nd = resid.dim()
+    if nd not in (2, 3):
+        raise ValueError(f"recon: plane of shape {tuple(resid.shape)}")
+    K.require(resid, torch.int16, nd, contiguous=True)
     if pred is not None:
-        K.require(pred, torch.int32, 2, contiguous=True)
-        K.require(cnt, torch.int8, 2, contiguous=True)
+        K.require(pred, torch.int32, nd, contiguous=True)
+        K.require(cnt, torch.int8, nd, contiguous=True)
         if pred.shape != resid.shape or cnt.shape != resid.shape:
             raise ValueError("recon: pred, cnt and resid differ in shape")
     from . import recon_triton
@@ -53,17 +58,25 @@ def recon(resid, bd, pred=None, cnt=None):
     return out
 
 
-def pad(area, h, w, pad):
-    """area int16 [H, W] (a view with a row pitch is fine), h <= H,
-    w <= W; returns a new int16 [h + 2 pad, w + 2 pad] plane."""
-    if not (0 < h <= area.shape[0] and 0 < w <= area.shape[1]):
+def pad(area, h, w, pad, out=None):
+    """area int16 [H, W], or [G, H, W] for a GOP batch (a view with a row
+    pitch is fine), h <= H, w <= W; returns the int16 [h + 2 pad, w + 2
+    pad] plane(s): `out` (rows contiguous; e.g. DPB slots), or new ones."""
+    if not (0 < h <= area.shape[-2] and 0 < w <= area.shape[-1]) \
+            or area.dim() not in (2, 3):
         raise ValueError(f"pad: crop {h}x{w} outside area {tuple(area.shape)}")
+    shape = area.shape[:-2] + (h + 2 * pad, w + 2 * pad)
+    if out is not None and tuple(out.shape) != tuple(shape):
+        raise ValueError(f"pad: out {tuple(out.shape)} != {tuple(shape)}")
     if area.device.type == "cpu":
-        return pad_ref(area, h, w, pad)
-    K.require(area, torch.int16, 2, rows_contiguous=True)
+        if out is None:
+            return pad_ref(area, h, w, pad)
+        return out.copy_(pad_ref(area, h, w, pad))
+    K.require(area, torch.int16, area.dim(), rows_contiguous=True)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.int16, device=area.device)
+    K.require(out, torch.int16, area.dim(), rows_contiguous=True)
     from . import recon_triton
-    out = torch.empty((h + 2 * pad, w + 2 * pad), dtype=torch.int16,
-                      device=area.device)
     K.count("pad")
     recon_triton.launch_pad(area, out, h, w, pad)
     return out

@@ -12,7 +12,9 @@ as CUDA would, with less code:
          (one gather pass; the source rows are L2-resident neighbours)
 
 Bound on the H100: device-memory bandwidth.  Design: 1-D blocks of 2048
-samples for recon, 2-D tiles of 32 x 128 for pad.
+samples for recon, 2-D tiles of 32 x 128 for pad.  A GOP batch (K15): recon
+runs over the G planes as one flat array, pad has the plane g in the third
+grid axis (the batch strides of the area and of the output).
 
 `triton` is imported by `_jit()` at the first launch, never when the module
 is imported: the kernel bodies below are plain functions until then, and
@@ -40,8 +42,11 @@ def _recon_kernel(resid_ptr, pred_ptr, cnt_ptr, out_ptr, n, maxv,
     tl.store(out_ptr + offs, t.to(tl.int16), mask=m)
 
 
-def _pad_kernel(src_ptr, src_stride, out_ptr, out_stride, h, w, P,
-                BM: "tl.constexpr", BN: "tl.constexpr"):
+def _pad_kernel(src_ptr, src_stride, src_bs, out_ptr, out_stride, out_bs, h,
+                w, P, BM: "tl.constexpr", BN: "tl.constexpr"):
+    g = tl.program_id(2).to(tl.int64)
+    src_ptr += g * src_bs
+    out_ptr += g * out_bs
     i = tl.program_id(0) * BM + tl.arange(0, BM)
     j = tl.program_id(1) * BN + tl.arange(0, BN)
     si = tl.minimum(tl.maximum(i - P, 0), h - 1)
@@ -72,8 +77,11 @@ def launch_recon(resid, out, bd, pred=None, cnt=None):
 
 
 def launch_pad(area, out, h, w, pad):
+    """area, out: [H, W] or [G, H, W] (rows contiguous)."""
     _, pad_k = _jit()
-    H, W = out.shape
-    grid = ((H + PAD_BM - 1) // PAD_BM, (W + PAD_BN - 1) // PAD_BN)
-    pad_k[grid](area, area.stride(0), out, out.stride(0), h, w, pad,
+    H, W = out.shape[-2:]
+    G = out.shape[0] if out.dim() == 3 else 1
+    grid = ((H + PAD_BM - 1) // PAD_BM, (W + PAD_BN - 1) // PAD_BN, G)
+    pad_k[grid](area, area.stride(-2), area.stride(0) if G > 1 else 0, out,
+                out.stride(-2), out.stride(0) if G > 1 else 0, h, w, pad,
                 BM=PAD_BM, BN=PAD_BN, num_warps=4)
