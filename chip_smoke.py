@@ -16,10 +16,14 @@
    the Baseline and the Main taps at every (plane, case, bit depth) and on
    a synthetic 1080p frame; recon, pad, deblock, the SUCO-order chroma
    deblock, the four ADDB passes and ALF luma and chroma (CTU 64 and 128,
-   across tiles or not); the Baseline intra scan and the EIPD wavefront
-   scan with HTDF on CIF with random CU lists (step 4 holds the scans, MC,
-   the SUCO order, ADDB and ALF to their plain versions on the streams'
-   own frames).
+   across tiles or not); the Baseline intra scan on CIF with random causal
+   CU lists and on 4x4 CUs with every causal bit set, and the EIPD
+   wavefront scan with HTDF on CIF with random CU lists (step 4 holds the
+   scans, MC, the SUCO order, ADDB and ALF to their plain versions on the
+   streams' own frames).  The two scans are persistent dataflow kernels:
+   each of their cases, here and in steps 4 and 5, runs the plain version
+   once and the kernel 20 times from the same inputs, every launch equal
+   (a race shows as a difference between launches).
 4. Slice phase: nine streams are decoded with Decoder(backend=
    TorchPixelBackend("cuda")); each 10-bit YUV must equal the numpy
    oracle's: 1920x1080 Baseline all-intra (2 frames), 352x288 10-bit
@@ -33,7 +37,8 @@
    (4), once with ADDB and ALF and once without (the Baseline deblock at
    10 bit).  The
    Baseline intra scan kernel is held to its plain version on every 1080p
-   intra frame's own CU table and planes, the MC kernel on every 1080p P
+   intra frame's own CU table and planes and on the 1080p IPPP stream's P
+   frame with the most intra CUs, the MC kernel on every 1080p P
    frame's own block table and on the config-3 stream's B pictures (Main
    taps), the EIPD scan kernel on its I picture and one B picture, the
    SUCO order on the SUCO stream's pictures, ADDB and ALF on the config-3
@@ -60,12 +65,15 @@
    (counted: each batched kernel once a step, the intra scan once a step,
    not once a frame), twice, and every frame's MD5 must equal the numpy
    oracle's serial decode; the same 8 GOPs then decode serially through
-   Decoder + TorchPixelBackend("cuda"), equal too, for the record.
-6. Prints {"kernels": [...]} (launches from the config-3 path; the
-   Baseline intra scan's and deblock's from the IPPP path, the SUCO
-   order's from the SUCO path, the batched kernels' (gop_*) and K15's
-   from the GOP path; each kernel's bound from its main case's bytes and
-   operations) and, as the last line, {"ok": true, "device": {...}}.
+   Decoder + TorchPixelBackend("cuda"), equal too, for the record.  The
+   pad kernel (K14) is timed a second time once every worker has ended.
+6. Prints each scan case's time with the DAG depth (K5) or level count
+   (K6) of its frame and the persistent grids, then {"kernels": [...]}
+   (launches from the config-3 path; the Baseline intra scan's and
+   deblock's from the IPPP path, the SUCO order's from the SUCO path, the
+   batched kernels' (gop_*) and K15's from the GOP path; each kernel's
+   bound from its main case's bytes and operations) and, as the last
+   line, {"ok": true, "device": {...}}.
 
 Any failure raises and the exit code is non-zero.  Imports neither JAX
 nor `xevd_tpu`: the reference runs in its own processes.
@@ -207,14 +215,20 @@ def timed(torch, fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+SCAN_LAUNCHES = 20     # race check of each scan case (persistent kernels)
+SCANS = []             # (key, shape, kernel ms, plain ms) of each scan case
+
+
 def run_case(torch, case, results, reps, plain_reps, main=False, key=None):
     """Holds one kernel against its plain version (exact) and times both:
     `reps` kernel runs, `plain_reps` plain runs (0: the timed comparison
-    run itself, for a plain version too slow to run twice).  `main` marks
-    the case at the main path's shapes, whose times the summary reports;
-    `key` files the result under another name than the kernel's.  Returns
-    the kernel's ms."""
-    from tests.torch_helpers import max_abs_err
+    run itself, for a plain version too slow to run twice).  A scan (a
+    case with `reset`) is held SCAN_LAUNCHES times, each launch from the
+    same inputs against the plain version's one result.  `main` marks the
+    case at the main path's shapes, whose times the summary reports; `key`
+    files the result under another name than the kernel's.  Returns the
+    kernel's ms."""
+    from tests.torch_helpers import max_abs_err, repeat_equal
     got = case.kernel()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
@@ -224,9 +238,13 @@ def run_case(torch, case, results, reps, plain_reps, main=False, key=None):
     t1.record()
     torch.cuda.synchronize()
     err = max_abs_err(got, want)
+    launches = 1
+    if case.reset is not None and err == 0:
+        err = repeat_equal(case, want, SCAN_LAUNCHES - 1)
+        launches = SCAN_LAUNCHES
     if err != 0:
         raise AssertionError(f"{case.name} {case.shape}: kernel != plain "
-                             f"(max abs err {err})")
+                             f"(max abs err {err}, {launches} launches)")
     ms = timed(torch, case.kernel, reps) if reps else None
     plain_ms = (timed(torch, case.plain, plain_reps) if plain_reps
                 else t0.elapsed_time(t1))
@@ -237,8 +255,11 @@ def run_case(torch, case, results, reps, plain_reps, main=False, key=None):
                  bytes=case.bytes, ops=case.ops)
     timing = (f"kernel {ms:9.4f} ms  plain {plain_ms:10.4f} ms" if reps
               else "")
-    log(f"  {case.name:20s} {case.shape:34s} equal  {timing}"
+    log(f"  {case.name:20s} {case.shape:34s} equal"
+        f"{f' in {launches} launches' if launches > 1 else ''}  {timing}"
         f"{'  (main path)' if main else ''}")
+    if case.reset is not None:
+        SCANS.append((key or case.name, case.shape, ms, plain_ms))
     return ms
 
 
@@ -253,7 +274,8 @@ def kernel_phases(torch, dev, results):
     scans and MC to their plain versions on the 1080p streams' own
     frames)."""
     from tests.torch_helpers import (addb_case, alf_case, deblock_case,
-                                     intra_case, intra_wave_case, itdq_case,
+                                     intra_case, intra_chain_case,
+                                     intra_wave_case, itdq_case,
                                      itdq_size_case, mc_case, mc_size_case,
                                      pad_case, recon_case, recon_pred_case,
                                      suco_case)
@@ -296,11 +318,13 @@ def kernel_phases(torch, dev, results):
         run_case(torch, pad_case(dev, bd, 540, 960, PAD_C, seed=220),
                  results, 50, 50)
 
-    log("phase intra_scan (CIF, random CU lists)")
+    log("phase intra_scan (CIF, random causal CU lists; 4x4 CUs)")
     for bd in (8, 10):
         for chroma in (True, False):
             run_case(torch, intra_case(dev, 288, 352, bd, chroma,
                                        seed=300 + bd), results, 10, 1)
+    run_case(torch, intra_chain_case(dev, 192, 256, 8, seed=310), results, 10,
+             0)
 
     log("phase intra_scan_wave (CIF, random EIPD CU lists, levels, HTDF)")
     for bd in (8, 10):
@@ -360,15 +384,21 @@ def mc_main_path(torch, dev, packed, results, label, main):
 
 def intra_main_path(torch, dev, packed, results):
     """The intra scan kernel against its plain version on the 1080p
-    stream's own frames: the CU tables, residual and picture planes that
-    the main path hands the kernel."""
+    streams' own frames: every all-intra frame and the IPPP stream's P
+    frame with the most intra CUs, with the CU tables, residual and
+    picture planes that the main path hands the kernel."""
     from tests.torch_helpers import intra_planes_case, planes_before_intra
+    from xevd_tpu_torch.ops.intra import intra_dag_depth
 
     log("phase intra_scan (1080p stream frames)")
-    for i, pf in enumerate(packed):
+    p = max((pf for pf in packed["1080p_p"] if pf.refs),
+            key=lambda pf: pf.layout["icu"][1][0])
+    frames = [(f"intra frame {i}", pf)
+              for i, pf in enumerate(packed["1080p_i"])] + [("P frame", p)]
+    for i, (label, pf) in enumerate(frames):
         recs, resids, df = planes_before_intra(pf, dev)
-        shape = (f"1080p frame {i}, {df.icu.shape[0]} CUs, "
-                 f"{pf.shp_y[0]}x{pf.shp_y[1]}")
+        shape = (f"1080p {label}, {df.icu.shape[0]} CUs, depth "
+                 f"{intra_dag_depth(df.icu, *pf.geom[2:])}")
         run_case(torch, intra_planes_case(dev, recs, resids, df.icu, pf.bd,
                                           pf.chroma, shape),
                  results, 5, 0, main=i == 0)
@@ -390,10 +420,10 @@ def intra_wave_main_path(torch, dev, packed, results):
     for i, (kind, pf) in enumerate((("I", intra[0]), ("B", b))):
         recs, resids, df = planes_before_intra(pf, dev)
         shape = (f"1080p Main {kind} picture, {df.icu.shape[0]} CUs, "
-                 f"{len(pf.level_off) - 1} levels")
+                 f"{df.level_off.shape[0] - 1} levels")
         run_case(torch, intra_wave_planes_case(
-            dev, recs, resids, df.icu, pf.level_off, pf.bd, pf.chroma, shape),
-            results, 5, 0, main=i == 0)
+            dev, recs, resids, df.icu, df.level_off, pf.bd, pf.chroma,
+            shape), results, 5, 0, main=i == 0)
 
 
 SUCO_KERNELS = ("chroma_ver_ordered",)
@@ -614,7 +644,7 @@ def slice_phase(torch, dev, K, results, prepared):
         log(f"  {name}: {nfr} frames, 10-bit YUV equal to NumpyPixelBackend "
             f"({len(a)} B); stream {t_gen:.2f} s, numpy {t_np:.2f} s, torch "
             f"first run {t_t:.2f} s")
-    intra_main_path(torch, dev, packed["1080p_i"], results)
+    intra_main_path(torch, dev, packed, results)
     mc_main_path(torch, dev, packed["1080p_p"], results, "1080p P", False)
     mc_main_path(torch, dev, packed[MAIN_PATH], results, "1080p Main B",
                  True)
@@ -723,6 +753,13 @@ def gop_phase(torch, dev, K, results, workers):
                                  f"{GOP_SPECS[g][2]} encoded")
         log(f"  GOP {g}: {len(caps[-1])} frames; stream {ref['gen_s']:.1f} "
             f"s, capture (numpy oracle) {cap['seconds']:.1f} s")
+
+    # every worker has ended: the pad kernel again, on a quiet host
+    from tests.torch_helpers import pad_case
+    from xevd_tpu_torch.ops.tables import PAD_L
+    log("phase pad again (no worker running)")
+    results["pad"]["ms_after_workers"] = run_case(
+        torch, pad_case(dev, 8, 1080, 1920, PAD_L, seed=210), {}, 50, 50)
 
     log("phase gop kernels (each batched kernel and the batched step on "
         "step 1, G = 8 and G = 1)")
@@ -851,7 +888,7 @@ def main() -> int:
         t_ops = r["ops"] / SCALAR_OPS_PER_S
         counter = name[4:] if name in (f"gop_{k}" for k in GOP_KERNELS) \
             else name
-        extra = {"ms_g1": r["ms_g1"]} if "ms_g1" in r else {}
+        extra = {k: r[k] for k in ("ms_g1", "ms_after_workers") if k in r}
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces,
                         "launches": runs[PATH_OF.get(name, MAIN_PATH)][0][
@@ -865,6 +902,13 @@ def main() -> int:
                         # integer pipelines (PERF.md)
                         "library_ms": None,
                         "shape": r["shape"], **extra})
+    for key, shape, ms, plain_ms in SCANS:
+        log(f"scan {key}: {shape}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.2f} ms, each of {SCAN_LAUNCHES} launches equal")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"persistent grids on {sms} SMs: intra_scan "
+        f"{K.persistent_grid('xevd_intra_scan')} CTAs, intra_scan_wave "
+        f"{K.persistent_grid('xevd_intra_scan_wave')} CTAs")
     for name, (_, fps, stage_ms) in runs.items():
         log(f"slice {name}: frames/s {[round(f, 3) for f in fps]}; "
             f"{'record' if name == 'gop' else 'stage ms/frame'} "

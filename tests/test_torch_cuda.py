@@ -28,10 +28,11 @@ from xevd_tpu_torch.ops import recon as TR
 from xevd_tpu_torch.ops.tables import PAD_C, PAD_L, device_tables
 
 from .torch_helpers import (addb_case, alf_case, compare, deblock_case,
-                            eipd_scene, gop_step_cases, intra_case,
-                            intra_wave_case, itdq_case, itdq_size_case,
-                            mc_case, mc_frame, mc_shapes, mc_size_case,
-                            pad_case, recon_case, recon_pred_case, suco_case)
+                            eipd_scene, gop_step_cases, intra_batch_case,
+                            intra_case, intra_chain_case, intra_wave_case,
+                            itdq_case, itdq_size_case, mc_case, mc_frame,
+                            mc_shapes, mc_size_case, pad_case, recon_case,
+                            recon_pred_case, repeat_equal, suco_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -114,18 +115,40 @@ def test_mc_kernel_matches_plain_on_frame(dev, bd, chroma):
     _check(mc_case(dev, 288, 352, bd, chroma, seed=bd), launches=2)
 
 
+def _check_repeated(case, launches=10):
+    """A persistent scan: each of `launches` runs from the same inputs
+    equals the plain version's one result (a race between CTAs shows as a
+    difference between runs), one launch a run."""
+    n = K.launch_counts[case.name]
+    assert repeat_equal(case, case.plain(), launches) == 0, case.shape
+    assert K.launch_counts[case.name] == n + launches
+
+
 @pytest.mark.parametrize("bd", [8, 10])
 @pytest.mark.parametrize("chroma", [True, False])
 def test_intra_kernel_matches_plain(dev, bd, chroma):
-    _check(intra_case(dev, 288, 352, bd, chroma, seed=bd))
+    """Causal random masks over CIF, ten launches."""
+    _check_repeated(intra_case(dev, 288, 352, bd, chroma, seed=bd))
+
+
+@pytest.mark.parametrize("G", [1, 3])
+def test_intra_kernel_batched_matches_plain(dev, G):
+    """The GOP batch's launch (icu_off) over G causal CIF scenes."""
+    _check_repeated(intra_batch_case(dev, G, 288, 352, 8, seed=40))
+
+
+def test_intra_kernel_4x4_chain_matches_plain(dev):
+    """The longest chains: 4x4 CUs, every causal bit set."""
+    _check_repeated(intra_chain_case(dev, 128, 192, 10, seed=2))
 
 
 @pytest.mark.parametrize("bd", [8, 10])
 @pytest.mark.parametrize("chroma,htdf", [(True, True), (False, True),
                                          (True, False)])
 def test_intra_wave_kernel_matches_plain(dev, bd, chroma, htdf):
-    """One call of the wrapper: its C entry point walks every level."""
-    _check(intra_wave_case(dev, 288, 352, bd, chroma, seed=bd, htdf=htdf))
+    """One launch a call walks every level, ten calls."""
+    _check_repeated(intra_wave_case(dev, 288, 352, bd, chroma, seed=bd,
+                                    htdf=htdf))
 
 
 @pytest.mark.parametrize("kind", ["luma_ver", "luma_hor", "chroma_ver",
@@ -181,6 +204,14 @@ def test_gop_batched_kernels_match_plain(dev, gop_captures, G):
         _check(case)
 
 
+@pytest.mark.parametrize("G", [1, 3])
+def test_gop_intra_scan_repeated(dev, gop_captures, G):
+    """The batched intra scan on step 1 of the GOP batch, ten launches."""
+    case, = (c for c in gop_step_cases(dev, gop_captures[:G])
+             if c.name == "intra_scan")
+    _check_repeated(case)
+
+
 def test_wrappers_refuse_cpu_operands_mixed_with_cuda(dev):
     """A CUDA launch checks every operand: a CPU table beside CUDA planes
     raises instead of running the plain version or reading host memory."""
@@ -210,16 +241,22 @@ def test_wrappers_refuse_cpu_operands_mixed_with_cuda(dev):
     recs, res, icu, level_off, _, _ = eipd_scene(64, 64, 8, 1)
     cu_planes = [torch.from_numpy(p).to(dev) for p in recs]
     cu_res = [torch.from_numpy(p).to(dev) for p in res]
+    offs = torch.from_numpy(level_off).to(dev)
     with pytest.raises(ValueError):       # the CU table on the CPU
-        TIM.intra_scan_wave(cu_planes, cu_res, torch.from_numpy(icu),
-                            level_off, 8, True, device_tables(dev))
+        TIM.intra_scan_wave(cu_planes, cu_res, torch.from_numpy(icu), offs,
+                            8, True, device_tables(dev))
     with pytest.raises(ValueError):       # a residual plane on the CPU
         TIM.intra_scan_wave(cu_planes, cu_res[:2] + [torch.from_numpy(res[2])],
-                            torch.from_numpy(icu).to(dev), level_off, 8, True,
+                            torch.from_numpy(icu).to(dev), offs, 8, True,
                             device_tables(dev))
     with pytest.raises(ValueError):       # the EIPD tables on the CPU
         TIM.intra_scan_wave(cu_planes, cu_res, torch.from_numpy(icu).to(dev),
-                            level_off, 8, True, device_tables("cpu"))
+                            offs, 8, True, device_tables("cpu"))
+    for host in (level_off, torch.from_numpy(level_off)):
+        with pytest.raises(ValueError):   # the level offsets on the host
+            TIM.intra_scan_wave(cu_planes, cu_res,
+                                torch.from_numpy(icu).to(dev), host, 8, True,
+                                device_tables(dev))
     with pytest.raises(ValueError):       # the TU table on the CPU (Main)
         TQ.itdq([coef, None, None], torch.zeros(1, 7, dtype=torch.int32),
                 (216, 216), None, 8, device_tables(dev), True)

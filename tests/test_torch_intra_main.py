@@ -1,7 +1,9 @@
 """The EIPD wavefront intra scan with HTDF of the PyTorch port (K6, K7)
 against the JAX package (`intra_scan_wave`, `_htdf_tile`, `_predict_main`,
-`_nbr_main`, `_fill_dir`; exact: integer).  The CUDA kernels are held to
-the plain versions in test_torch_cuda.py."""
+`_nbr_main`, `_fill_dir`; exact: integer), and the order of its CUDA scan
+(each CU's HTDF right after its own prediction, a level's CUs in any
+order) against JAX's level scan.  The CUDA kernel is held to the plain
+version in test_torch_cuda.py."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -150,7 +152,7 @@ def test_intra_scan_wave_ref_matches_jax_on_stream_frame(
     recs, resids, df = planes_before_intra(pf, CPU)
     groups = PL.JaxPixelBackend().pack_frame(job, sps, refp)["icu"]
     want = _jax_scan(recs, resids, groups, bd, pf.chroma)
-    got = TIM.intra_scan_wave(recs, resids, df.icu, pf.level_off, bd,
+    got = TIM.intra_scan_wave(recs, resids, df.icu, df.level_off, bd,
                               pf.chroma, None)
     _assert_scan_equal(got, want, pf.chroma)
 
@@ -211,9 +213,109 @@ def test_intra_scan_wave_plain_path_launches_nothing():
                         [torch.from_numpy(p) for p in res],
                         torch.from_numpy(icu), level_off, 8, True, None)
     assert K.launch_counts == before
-    with pytest.raises(ValueError, match="host"):
+    with pytest.raises(ValueError, match="1-D"):
         TIM.intra_scan_wave([torch.from_numpy(p) for p in recs],
                             [torch.from_numpy(p) for p in res],
                             torch.from_numpy(icu),
                             torch.from_numpy(level_off)[None], 8, True, None)
 
+
+def _fused_order(icu, level_off, seed):
+    """The rows level by level, each level's rows in a seeded random
+    order: an order the CTAs of the CUDA scan may take them in."""
+    rng = np.random.default_rng(seed)
+    offs = [int(v) for v in level_off]
+    return [r for lo, hi in zip(offs[:-1], offs[1:])
+            for r in lo + rng.permutation(hi - lo)]
+
+
+def _assert_fused_orders_match(recs, resids, icu, level_off, bd, chroma,
+                               want, orders=2):
+    """The level rule holds (`wave_level_check_ref`), and the plain
+    level-by-level scan and each CU's prediction followed at once by its
+    own HTDF, in `orders` random orders within the levels, all give `want`
+    (JAX's scan)."""
+    TIM.wave_level_check_ref(icu, level_off, chroma)
+    rows = torch.as_tensor(icu)
+    ref = [None if r is None else torch.as_tensor(r).clone() for r in recs]
+    TIM.intra_scan_wave_ref(ref, resids, rows, level_off, bd, chroma)
+    _assert_scan_equal(ref, want, chroma)
+    for seed in range(orders):
+        got = [None if r is None else torch.as_tensor(r).clone()
+               for r in recs]
+        order = _fused_order(icu, level_off, seed)
+        assert order != list(range(len(order)))
+        for r in order:
+            TIM.eipd_cu_fused_ref(got, resids, rows[r], bd, chroma,
+                                  rows.shape[1] > 13)
+        _assert_scan_equal(got, want, chroma)
+
+
+@pytest.mark.parametrize("chroma", [True, False])
+def test_fused_htdf_order_matches_jax_on_synthetic_frame(chroma):
+    """The CUDA scan's order on `eipd_scene` with HTDF (HTDF-only inter
+    CUs, rectangles, trees): each CU's HTDF right after its prediction,
+    the CUs of a level in random order, equals JAX's level scan."""
+    bd = 10 if chroma else 8
+    recs, res, icu, level_off, rows, levels = eipd_scene(128, 128, bd, 11,
+                                                         chroma, True)
+    groups = {S: jnp.asarray(a) for S, a in group_wavefront(
+        rows, levels, rows[:, 2], rows[:, 3],
+        lambda name, v: 1 << (v - 1).bit_length()).items()}
+    tr = [torch.from_numpy(p) for p in recs]
+    rs = [torch.from_numpy(p) for p in res]
+    want = _jax_scan(tr if chroma else [tr[0], None, None], rs, groups, bd,
+                     chroma)
+    _assert_fused_orders_match(tr if chroma else [tr[0], None, None], rs, icu,
+                               level_off, bd, chroma, want)
+
+
+def test_fused_htdf_order_matches_jax_on_stream_frame(fixtures_dir):
+    """The same on the HTDF P picture of a Main gate stream (the m_htdf_p
+    case above), from the planes after ITDQ, MC and recon, with the level
+    offsets from its device payload."""
+    stream = make_stream(fixtures_dir / "torch_wave_m_htdf_p.evc", 176, 144,
+                         4, 27, 602, "IPPP", profile=1,
+                         tools=("htdf", "eipd", "cm_init", "admvp", "hmvp"))
+    job, sps, refp, pf = max(
+        captured_frames(stream),
+        key=lambda f: (int(((f[0].fs.cu_pred_mode != 0)
+                            & (f[0].cu_htdf_idx >= 0)).sum())
+                       if f[3].refs else -1))
+    recs, resids, df = planes_before_intra(pf, CPU)
+    assert df.icu.shape[1] == 16 and df.level_off is not None
+    groups = PL.JaxPixelBackend().pack_frame(job, sps, refp)["icu"]
+    want = _jax_scan(recs, resids, groups, pf.bd, pf.chroma)
+    _assert_fused_orders_match(recs, resids, df.icu, df.level_off, pf.bd,
+                               pf.chroma, want)
+
+
+
+@pytest.mark.parametrize("fault", ["one level", "HTDF on TREE_C"])
+def test_level_rule_refuses_shared_cells(fault):
+    """`wave_level_check_ref` refuses a schedule under which the fused
+    order is not exact: every CU in one level, or HTDF on TREE_C CUs (a
+    luma write the level rule does not order; the decoder never sets it).
+    With the HTDF on TREE_C, the fused order indeed differs from the level
+    scan."""
+    bd = 8
+    recs, res, icu, level_off, _, _ = eipd_scene(128, 128, bd, 15, False,
+                                                 True)
+    TIM.wave_level_check_ref(icu, level_off, False)
+    if fault == "one level":
+        level_off = np.array([0, len(icu)], np.int32)
+    else:
+        icu = icu.copy()
+        icu[(icu[:, PK.ICM_TREE] == 2) & (icu[:, PK.ICM_VALID] == 1),
+            PK.ICM_HTDF_IDX] = 0
+    with pytest.raises(ValueError, match="level"):
+        TIM.wave_level_check_ref(icu, level_off, False)
+    if fault == "HTDF on TREE_C":
+        rows = torch.from_numpy(icu)
+        rs = [torch.from_numpy(p) for p in res]
+        ref = [torch.from_numpy(recs[0]).clone(), None, None]
+        TIM.intra_scan_wave_ref(ref, rs, rows, level_off, bd, False)
+        got = [torch.from_numpy(recs[0]).clone(), None, None]
+        for r in _fused_order(icu, level_off, 0):
+            TIM.eipd_cu_fused_ref(got, rs, rows[r], bd, False, True)
+        assert (got[0] != ref[0]).any()

@@ -111,23 +111,81 @@ def recon_planes(bd, H=96, W=160, seed=0):
             for h, w in ((H, W), (H // 2, W // 2), (H // 2, W // 2))]
 
 
-def intra_scene(H, W, bd, seed):
-    """Random bordered planes, residuals and a z-order CU table (x, y,
-    log2, ipm, up_mask, left_mask, corner, valid) covering the picture."""
-    rng = np.random.default_rng(seed)
+def _scene_planes(rng, H, W, bd):
+    """Random bordered picture planes and residuals (y, u, v) of an H x W
+    picture; one residual wraps pred + resid through int16."""
     maxv = (1 << bd) - 1
     recs = [bordered(rng, H, W, 0, maxv + 1)]
     recs += [bordered(rng, H // 2, W // 2, 0, maxv + 1) for _ in range(2)]
     res = [bordered(rng, H, W, -600, 600)]
     res += [bordered(rng, H // 2, W // 2, -600, 600) for _ in range(2)]
     res[0][BORDER, BORDER] = 32767     # int16 wrap of pred + resid
+    return recs, res
+
+
+def _i32(v):
+    """A uint32 bitfield as the int32 the CU table carries."""
+    return v - (1 << 32) if v >= 1 << 31 else v
+
+
+def _causal(rows, H, W):
+    """The CU rows with every up/left mask bit and corner flag cleared
+    whose 4x4 cell no earlier row covers, as a decoder sets them: the rows
+    a scan that follows dependencies must give in decode order."""
+    hs, ws = H >> 2, W >> 2
+    done = np.zeros((hs, ws), bool)
+
+    def cell(cy, cx):
+        return 0 <= cy < hs and 0 <= cx < ws and bool(done[cy, cx])
+
+    out = []
+    for x, y, lg, ipm, up, left, cor, valid in rows:
+        xs, ys, s = x >> 2, y >> 2, 1 << (lg - 2)
+        up_c = sum(1 << u for u in range(2 * s) if cell(ys - 1, xs + u))
+        le_c = sum(1 << u for u in range(2 * s) if cell(ys + u, xs - 1))
+        out.append((x, y, lg, ipm, _i32(up & up_c), _i32(left & le_c),
+                    cor & int(cell(ys - 1, xs - 1)), valid))
+        done[ys:ys + s, xs:xs + s] = True
+    return out
+
+
+def intra_scene(H, W, bd, seed, causal=False):
+    """Random bordered planes, residuals and a z-order CU table (x, y,
+    log2, ipm, up_mask, left_mask, corner, valid) covering the picture.
+    The masks are random bits; `causal` keeps only those whose cell an
+    earlier CU covers, as a decoder's are (`_causal`)."""
+    rng = np.random.default_rng(seed)
+    recs, res = _scene_planes(rng, H, W, bd)
     rows = []
     for y, x, lg in quadtree(rng, H, W, 6, 3):
         rows.append((x, y, lg, int(rng.integers(0, 5)),
                      int(rng.integers(-2 ** 31, 2 ** 31)),
                      int(rng.integers(-2 ** 31, 2 ** 31)),
                      int(rng.integers(0, 2)), int(rng.random() > 0.05)))
+    if causal:
+        rows = _causal(rows, H, W)
     return recs, res, np.array(rows, np.int32)
+
+
+def intra_chain_scene(H, W, bd, seed):
+    """The worst case of a dependency-driven intra scan: an H x W picture
+    (multiples of 64) of 4x4 CUs in z-order, every mask bit and corner
+    flag set where an earlier CU covers the cell."""
+    rng = np.random.default_rng(seed)
+    recs, res = _scene_planes(rng, H, W, bd)
+    rows = []
+
+    def zorder(y, x, log2):
+        if log2 == 2:
+            rows.append((x, y, 2, int(rng.integers(0, 5)), -1, -1, 1, 1))
+            return
+        h = 1 << (log2 - 1)
+        for dy, dx in ((0, 0), (0, h), (h, 0), (h, h)):
+            zorder(y + dy, x + dx, log2 - 1)
+    for y in range(0, H, 64):
+        for x in range(0, W, 64):
+            zorder(y, x, 6)
+    return recs, res, np.array(_causal(rows, H, W), np.int32)
 
 
 def _btt(rng, cus, p=0.3):
@@ -152,7 +210,8 @@ def eipd_scene(H, W, bd, seed, chroma=True, htdf=True):
     random bordered planes and residuals, and a z-order CU list (4..64,
     square and binary-split rectangles) with random modes, chroma modes and
     trees (mostly 0, some TREE_L / TREE_C), and, with `htdf`, some
-    HTDF-only inter CUs and HTDF on a share of the CUs.  Neighbour masks,
+    HTDF-only inter CUs and HTDF on a share of the CUs that are not
+    TREE_C.  Neighbour masks,
     left/right availability and the HTDF ring bits are set where the cell
     was written by an earlier CU, as a decoder sets them; the levels come
     from `xevd_tpu_torch.host.ops.wavefront.level_scan_cus`.  Returns (recs, res,
@@ -162,12 +221,7 @@ def eipd_scene(H, W, bd, seed, chroma=True, htdf=True):
     from xevd_tpu_torch.host.ops.wavefront import level_scan_cus
 
     rng = np.random.default_rng(seed)
-    maxv = (1 << bd) - 1
-    recs = [bordered(rng, H, W, 0, maxv + 1)]
-    recs += [bordered(rng, H // 2, W // 2, 0, maxv + 1) for _ in range(2)]
-    res = [bordered(rng, H, W, -600, 600)]
-    res += [bordered(rng, H // 2, W // 2, -600, 600) for _ in range(2)]
-    res[0][BORDER, BORDER] = 32767     # int16 wrap of pred + resid
+    recs, res = _scene_planes(rng, H, W, bd)
     cus = _btt(rng, quadtree(rng, H, W, 6, 2))
     hs, ws = H >> 2, W >> 2
     done = np.zeros((hs, ws), bool)
@@ -191,6 +245,8 @@ def eipd_scene(H, W, bd, seed, chroma=True, htdf=True):
         tree = int(rng.choice([0, 1, 2], p=[0.8, 0.1, 0.1])) if intra else 0
         hidx = int(rng.integers(0, 5)) if htdf and (
             not intra or rng.random() < 0.4) else -1
+        if tree == 2:       # luma-only filter: never on a TREE_C CU
+            hidx = -1       # (host/derive.py:396), nor in the level rule
         ring = (cell(ys, xs - 1), cell(ys, xs + sw), cell(ys - 1, xs),
                 corner, cell(ys - 1, xs + sw), cell(ys + sh, xs - 1),
                 cell(ys + sh, xs + sw))
@@ -408,6 +464,7 @@ class KernelCase:
     plain: Callable
     bytes: int = 0            # each input read once, each output written once
     ops: int = 0              # integer operations these inputs need
+    reset: Callable | None = None   # in-place kernels: restore the inputs
 
 
 def max_abs_err(got, want) -> int:
@@ -432,6 +489,34 @@ def compare(case: KernelCase) -> int:
     want = case.plain()
     torch.cuda.synchronize()
     return max_abs_err(got, want)
+
+
+def repeat_equal(case: KernelCase, want, launches: int) -> int:
+    """Race check of an in-place kernel: `launches` runs, each from the
+    case's inputs (`case.reset` before it) and each compared with `want`,
+    the plain version's one result; the largest error over them.  A race
+    between CTAs shows as a difference between runs, not as a constant
+    error."""
+    err = 0
+    for _ in range(launches):
+        case.reset()
+        err = max(err, max_abs_err(case.kernel(), want))
+    return err
+
+
+def _copies(planes):
+    """(a, b, reset): two copies of the device planes (None kept) for a
+    kernel and its plain version to update in place, and a function that
+    restores the kernel's copy."""
+    a = [None if r is None else r.clone() for r in planes]
+    b = [None if r is None else r.clone() for r in planes]
+    src = [None if r is None else r.clone() for r in planes]
+
+    def reset():
+        for x, r in zip(a, src):
+            if x is not None:
+                x.copy_(r)
+    return a, b, reset
 
 
 def _dev(a, dev):
@@ -544,42 +629,72 @@ def pad_case(dev, bd, h, w, pad, seed=0):
                       2 * (h * w + (h + 2 * pad) * (w + 2 * pad)), 0)
 
 
-def intra_planes_case(dev, recs, res, icu, bd, chroma, shape):
+def intra_planes_case(dev, recs, res, icu, bd, chroma, shape, icu_off=None):
     """The intra scan on device planes `recs` (left untouched: each side
-    scans a copy of its own) with residuals `res` and CU table `icu`."""
-    a = [None if r is None else r.clone() for r in recs]
-    b = [None if r is None else r.clone() for r in recs]
+    scans a copy of its own) with residuals `res` and CU table `icu`; a
+    GOP batch with `icu_off`."""
+    a, b, reset = _copies(recs)
+
+    def plain():
+        if icu_off is None:
+            return list(TI.intra_scan_ref(b, res, icu, bd, chroma))
+        return list(TI.intra_scan_batch_ref(b, res, icu, icu_off, bd, chroma))
     return KernelCase(
         "intra_scan", shape,
-        lambda: list(TI.intra_scan(a, res, icu, bd, chroma)),
-        lambda: list(TI.intra_scan_ref(b, res, icu, bd, chroma)),
-        *intra_work(icu, PK.CU_LOG2, PK.CU_LOG2, chroma))
+        lambda: list(TI.intra_scan(a, res, icu, bd, chroma, icu_off=icu_off)),
+        plain, *intra_work(icu, PK.CU_LOG2, PK.CU_LOG2, chroma), reset=reset)
 
 
 def intra_case(dev, H, W, bd, chroma=True, seed=0):
-    """A random z-order CU list with random neighbour masks over H x W."""
-    recs, res, icu = intra_scene(H, W, bd, seed)
+    """A random z-order CU list with random causal neighbour masks over
+    H x W."""
+    recs, res, icu = intra_scene(H, W, bd, seed, causal=True)
     return intra_planes_case(
         dev, [_dev(p, dev) for p in recs], [_dev(p, dev) for p in res],
         _dev(icu, dev), bd, chroma,
         f"{H}x{W} bd{bd}{'' if chroma else ' luma'}, {len(icu)} CUs")
 
 
+def intra_chain_case(dev, H, W, bd, seed=0):
+    """4x4 CUs with every causal bit set (`intra_chain_scene`)."""
+    recs, res, icu = intra_chain_scene(H, W, bd, seed)
+    return intra_planes_case(
+        dev, [_dev(p, dev) for p in recs], [_dev(p, dev) for p in res],
+        _dev(icu, dev), bd, True,
+        f"{H}x{W} bd{bd} 4x4 chain, {len(icu)} CUs, depth "
+        f"{TI.intra_dag_depth(icu, H >> 2, W >> 2)}")
+
+
+def intra_batch_case(dev, G, H, W, bd, seed=0):
+    """The batched scan over G causal scenes (`intra_scene`) of H x W:
+    planes [G, ...], the tables one after another with row offsets."""
+    scenes = [intra_scene(H, W, bd, seed + g, causal=True) for g in range(G)]
+    recs = [_dev(np.stack([sc[0][i] for sc in scenes]), dev)
+            for i in range(3)]
+    res = [_dev(np.stack([sc[1][i] for sc in scenes]), dev)
+           for i in range(3)]
+    icu = np.concatenate([sc[2] for sc in scenes])
+    off = np.concatenate([[0], np.cumsum([len(sc[2]) for sc in scenes])])
+    return intra_planes_case(
+        dev, recs, res, _dev(icu, dev), bd, True,
+        f"G {G} x {H}x{W} bd{bd}, {len(icu)} CUs",
+        icu_off=_dev(off.astype(np.int32), dev))
+
+
 def intra_wave_planes_case(dev, recs, res, icu, level_off, bd, chroma,
                            shape):
     """The EIPD wavefront scan on device planes `recs` (left untouched:
     each side scans a copy of its own) with residuals `res`, CU table
-    `icu` and host level offsets `level_off`."""
+    `icu` and level offsets `level_off` on the device."""
     tab = device_tables(dev)
-    a = [None if r is None else r.clone() for r in recs]
-    b = [None if r is None else r.clone() for r in recs]
+    a, b, reset = _copies(recs)
     return KernelCase(
         "intra_scan_wave", shape,
         lambda: list(TIM.intra_scan_wave(a, res, icu, level_off, bd, chroma,
                                          tab)),
         lambda: list(TIM.intra_scan_wave_ref(b, res, icu, level_off, bd,
                                              chroma)),
-        *intra_work(icu, PK.ICM_LOG2W, PK.ICM_LOG2H, chroma))
+        *intra_work(icu, PK.ICM_LOG2W, PK.ICM_LOG2H, chroma), reset=reset)
 
 
 def intra_wave_case(dev, H, W, bd, chroma=True, seed=0, htdf=True):
@@ -588,7 +703,7 @@ def intra_wave_case(dev, H, W, bd, chroma=True, seed=0, htdf=True):
                                                   htdf)
     return intra_wave_planes_case(
         dev, [_dev(p, dev) for p in recs], [_dev(p, dev) for p in res],
-        _dev(icu, dev), torch.from_numpy(level_off), bd, chroma,
+        _dev(icu, dev), _dev(level_off, dev), bd, chroma,
         f"{H}x{W} bd{bd}{'' if chroma else ' luma'}"
         f"{' htdf' if htdf else ''}, {len(icu)} CUs, "
         f"{len(level_off) - 1} levels")
@@ -940,15 +1055,10 @@ def gop_step_cases(dev, caps, t=1):
         lambda: [TR.recon_ref(resids[0], bd, *preds[0])], n * 9, n * 6))
     recs = [None if r is None else TR.recon(r, bd, *pr)
             for r, pr in zip(resids, preds)]
-    ka = [None if r is None else r.clone() for r in recs]
-    kb = [None if r is None else r.clone() for r in recs]
-    cases.append(KernelCase(
-        "intra_scan", f"{label}, {b.icu.shape[0]} CUs",
-        lambda: list(TI.intra_scan(ka, resids, b.icu, bd, chroma,
-                                   icu_off=b.icu_off)),
-        lambda: list(TI.intra_scan_batch_ref(kb, resids, b.icu, b.icu_off,
-                                             bd, chroma)),
-        *intra_work(b.icu, PK.CU_LOG2, PK.CU_LOG2, chroma)))
+    depth = TI.intra_dag_depth(b.icu, *pb.geom[2:], icu_off=b.icu_off)
+    cases.append(intra_planes_case(
+        dev, recs, resids, b.icu, bd, chroma,
+        f"{label}, {b.icu.shape[0]} CUs, depth {depth}", icu_off=b.icu_off))
     TI.intra_scan(recs, resids, b.icu, bd, chroma, icu_off=b.icu_off)
     # each pass on the areas it filters on the path, then run on them
     areas = _batch_areas(recs, *pb.geom[2:])

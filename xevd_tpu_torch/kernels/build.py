@@ -27,7 +27,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "xevd_tpu_torch"
 SOURCES = ("itdq.cu", "intra.cu", "deblock.cu", "mc.cu", "intra_main.cu",
            "addb.cu", "alf.cu")
-HEADERS = ("batch.cuh",)
+HEADERS = ("batch.cuh", "scan.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -44,15 +44,17 @@ SIGNATURES = {
     "xevd_itdq": (_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _I, _P, _P,
                   _I, _I, _P, _I, _L, _L, _L, _L, _P),
     "xevd_intra_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _P,
-                        _I, _L, _L, _P),
+                        _I, _L, _L, _P, _I, _I, _P),
+    "xevd_intra_scan_grid": (_P,),
     "xevd_deblock_luma_ver": (_P, _I, _I, _I, _P, _I, *_DB, _P),
     "xevd_deblock_luma_hor": (_P, _I, _I, _I, _P, _I, *_DB, _P),
     "xevd_deblock_chroma_ver": (_P, _I, _I, _I, _P, _I, *_DB, _P),
     "xevd_deblock_chroma_hor": (_P, _I, _I, _I, _P, _I, *_DB, _P),
     "xevd_mc": (_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I,
                 _P, _P, _I, _P, _I, _L, _L, _P),
-    "xevd_intra_scan_wave": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _I,
-                             _P, _I, _I, _P),
+    "xevd_intra_scan_wave": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P,
+                             _I, _P, _I, _I, _P, _P),
+    "xevd_intra_scan_wave_grid": (_P,),
     "xevd_chroma_ver_ordered": (_P, _P, _I, _I, _P, _P, _I, _P),
     "xevd_addb_luma_ver": (_P, _I, _I, _I, _P, _I, _I, _I, _P),
     "xevd_addb_luma_hor": (_P, _I, _I, _I, _P, _I, _I, _I, _P),
@@ -159,6 +161,15 @@ def lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _LIB = cdll
     return _LIB
+
+
+def persistent_grid(entry: str) -> int:
+    """The grid of the persistent scan behind C entry point `entry`
+    (xevd_intra_scan, xevd_intra_scan_wave) on the current CUDA device: the
+    CTAs that fit on it at once; a launch takes min(this, its rows)."""
+    n = ctypes.c_int(0)
+    check(getattr(lib(), f"{entry}_grid")(ctypes.byref(n)), f"{entry}_grid")
+    return n.value
 
 
 def check(err: int, name: str):

@@ -1,14 +1,21 @@
-"""Baseline intra reconstruction in decode order (the port of K5
-`intra_scan`, xevd_tpu/ops/jax_intra.py:113).
+"""Baseline intra reconstruction (the port of K5 `intra_scan`,
+xevd_tpu/ops/jax_intra.py:113).
 
 `intra_scan` updates the bordered picture planes in place: the CUDA kernel
-(csrc/intra.cu, one launch per frame) for CUDA planes, `intra_scan_ref`
-(a Python loop over CUs) for CPU planes.  With CUDA planes every operand,
-the CU table included, must be on the card.  With `icu_off` it scans the G
-frames of one time step of a GOP batch (K15) in one launch, one CTA a
-frame (`intra_scan_batch_ref` on the CPU)."""
+(csrc/intra.cu, a persistent scan that follows each CU's dependencies,
+one launch per frame or per GOP batch step) for CUDA planes,
+`intra_scan_ref` (a Python loop over CUs in decode order) for CPU planes.
+With CUDA planes every operand, the CU table included, must be on the
+card.  With `icu_off` it scans the G frames of one time step of a GOP
+batch (K15) in the same launch (`intra_scan_batch_ref` on the CPU).
+
+`intra_deps_ref` is the kernel's dependency rule written in torch: a CU
+waits for the CUs that wrote the 4x4 cells its masks name.  It equals
+decode order only for a causal table, where every such cell was written
+by an earlier CU or before the scan; the rule refuses any other."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..host import tables as T
@@ -53,18 +60,24 @@ def _cu_plane_ref(rec, res, x, y, log2, ipm, up_mask, left_mask, corner_f,
     rec[by:by + cuw, bx:bx + cuw] = t.clamp(0, (1 << bd) - 1)
 
 
+def intra_cu_ref(recs, resids, row, bd, chroma):
+    """One CU row (x, y, log2, ipm, up_mask, left_mask, corner, valid) of
+    the scan, in place on `recs`: luma, then u and v."""
+    x, y, log2, ipm, upm, lem, cor, valid = (int(v) for v in row)
+    if valid != 1:
+        return
+    _cu_plane_ref(recs[0], resids[0], x, y, log2, ipm, upm, lem, cor, 4, bd)
+    if chroma:
+        for rec, res in ((recs[1], resids[1]), (recs[2], resids[2])):
+            _cu_plane_ref(rec, res, x >> 1, y >> 1, log2 - 1, ipm, upm, lem,
+                          cor, 2, bd)
+
+
 def intra_scan_ref(recs, resids, icu, bd, chroma):
-    """Plain version of `intra_scan` (in place on `recs`)."""
-    rec_y, rec_u, rec_v = recs
-    res_y, res_u, res_v = resids
-    for x, y, log2, ipm, upm, lem, cor, valid in icu.cpu().tolist():
-        if valid != 1:
-            continue
-        _cu_plane_ref(rec_y, res_y, x, y, log2, ipm, upm, lem, cor, 4, bd)
-        if chroma:
-            for rec, res in ((rec_u, res_u), (rec_v, res_v)):
-                _cu_plane_ref(rec, res, x >> 1, y >> 1, log2 - 1, ipm, upm,
-                              lem, cor, 2, bd)
+    """Plain version of `intra_scan` (in place on `recs`): every CU in
+    decode order."""
+    for row in icu.cpu().tolist():
+        intra_cu_ref(recs, resids, row, bd, chroma)
     return recs
 
 
@@ -77,6 +90,75 @@ def intra_scan_batch_ref(recs, resids, icu, icu_off, bd, chroma):
                        [None if r is None else r[g] for r in resids],
                        icu[off[g]:off[g + 1]], bd, chroma)
     return recs
+
+
+def intra_deps_ref(icu, h_scu, w_scu) -> torch.Tensor:
+    """The rows each CU row of one frame waits for in the CUDA scan: int64
+    [N, 65], the writer of each cell its up mask (units 0..31), left
+    mask (0..31) and corner flag name, -1 where the bit is clear or no row
+    writes the cell (MC and recon wrote it before the scan; an invalid row
+    writes nothing and waits on nothing).  The cells are the 4x4 cells of
+    an h_scu x w_scu grid; luma's 4-px and 4:2:0 chroma's 2-px units are
+    the same cells.  Raises ValueError where the CUDA scan would not equal
+    decode order: a cell a row's masks name written by that row or a later
+    one (a non-causal table), CUs that overlap or leave the grid."""
+    t = torch.as_tensor(icu).to(torch.int64).cpu()
+    n = t.shape[0]
+    valid = t[:, 7] == 1
+    xs, ys = t[:, 0] >> 2, t[:, 1] >> 2
+    sw = 1 << (t[:, 2] - 2).clamp(min=0)
+    rows = torch.nonzero(valid).flatten()
+    cells = sw[rows] ** 2
+    owner = torch.repeat_interleave(rows, cells)
+    k = torch.arange(owner.numel()) - torch.repeat_interleave(
+        torch.cumsum(cells, 0) - cells, cells)
+    cy = ys[owner] + k // sw[owner]
+    cx = xs[owner] + k % sw[owner]
+    if ((cy < 0) | (cy >= h_scu) | (cx < 0) | (cx >= w_scu)).any():
+        raise ValueError("intra CU outside the cell grid")
+    flat = cy * w_scu + cx
+    if flat.unique().numel() != flat.numel():
+        raise ValueError("intra CUs overlap")
+    wmap = torch.full((h_scu * w_scu,), -1, dtype=torch.int64)
+    wmap[flat] = owner
+
+    u = torch.arange(32)
+    nu = (2 * sw)[:, None]
+    up_on = ((t[:, 4:5] & 0xFFFFFFFF) >> u) & 1 == 1
+    left_on = ((t[:, 5:6] & 0xFFFFFFFF) >> u) & 1 == 1
+    cy = torch.cat([(ys - 1)[:, None].expand(n, 32), ys[:, None] + u,
+                    (ys - 1)[:, None]], 1)
+    cx = torch.cat([xs[:, None] + u, (xs - 1)[:, None].expand(n, 32),
+                    (xs - 1)[:, None]], 1)
+    on = torch.cat([up_on & (u < nu), left_on & (u < nu),
+                    (t[:, 6:7] == 1)], 1) & valid[:, None]
+    on &= (cy >= 0) & (cy < h_scu) & (cx >= 0) & (cx < w_scu)
+    deps = torch.where(on, wmap[(cy * w_scu + cx).clamp(0, h_scu * w_scu - 1)],
+                       -1)
+    bad = deps >= torch.arange(n)[:, None]
+    if bad.any():
+        r = int(torch.nonzero(bad.any(1))[0, 0])
+        raise ValueError(f"non-causal CU table: row {r} names a cell that "
+                         f"row {int(deps[r].max())} writes")
+    return deps
+
+
+def intra_dag_depth(icu, h_scu, w_scu, icu_off=None) -> int:
+    """The longest chain of dependent CU rows under `intra_deps_ref` (the
+    steps the CUDA scan takes one after another); with `icu_off`, the
+    longest over the G frames of a batch."""
+    t = torch.as_tensor(icu).cpu()
+    off = ([0, t.shape[0]] if icu_off is None
+           else torch.as_tensor(icu_off).cpu().tolist())
+    best = 0
+    for lo, hi in zip(off[:-1], off[1:]):
+        deps = intra_deps_ref(t[lo:hi], h_scu, w_scu).numpy()
+        valid = t[lo:hi, 7].numpy() == 1
+        depth = np.zeros(hi - lo + 1, np.int64)    # [-1] = no writer: 0
+        for r in np.nonzero(valid)[0]:
+            depth[r] = 1 + depth[deps[r]].max()
+        best = max(best, int(depth.max()))
+    return best
 
 
 def intra_scan(recs, resids, icu, bd, chroma, icu_off=None):
@@ -116,6 +198,12 @@ def intra_scan(recs, resids, icu, bd, chroma, icu_off=None):
     n = icu.shape[0]
     if n == 0:
         return recs
+    # the writer map's 4x4 cells: the bordered plane below and right of
+    # the border, every cell a CU inside the plane can write
+    hs, ws = (rec_y.shape[-2] - BORDER) >> 2, (rec_y.shape[-1] - BORDER) >> 2
+    # the ticket counter, the rows' done flags, the frames' writer maps
+    scratch = torch.zeros(1 + n + G * hs * ws, dtype=torch.int32,
+                          device=icu.device)
     lib = K.lib()
     K.count("intra_scan")
     err = lib.xevd_intra_scan(
@@ -128,6 +216,6 @@ def intra_scan(recs, resids, icu, bd, chroma, icu_off=None):
         icu_off.data_ptr() if batched else None, G,
         rec_y.stride(0) if batched else 0,
         rec_u.stride(0) if batched and chroma else 0,
-        K.stream_ptr(icu.device))
+        scratch.data_ptr(), hs, ws, K.stream_ptr(icu.device))
     K.check(err, "xevd_intra_scan")
     return recs

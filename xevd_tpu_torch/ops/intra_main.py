@@ -3,8 +3,9 @@ with HTDF (the port of K6 `intra_scan_wave`,
 xevd_tpu/ops/jax_intra_main.py:572, with K7 `_htdf_tile`, :447).
 
 `intra_scan_wave` updates the bordered picture planes in place: the CUDA
-kernels (csrc/intra_main.cu, a level loop in the C entry point) for CUDA
-planes, `intra_scan_wave_ref` for CPU planes.  The plain versions below are
+kernel (csrc/intra_main.cu, one persistent launch that walks the levels on
+the card, each CU's HTDF in its own CTA) for CUDA planes,
+`intra_scan_wave_ref` for CPU planes.  The plain versions below are
 written from the JAX functions of the same names; they compute a CU's own
 width and height and its one mode, where the JAX version evaluates every
 mode on a fixed S x S tile and selects.
@@ -14,7 +15,10 @@ planes as the previous levels left them (its up, left and right neighbour
 arrays with last-available fill, `fill_dir_ref` / `nbr_main_ref`), adds its
 residual (int16 wrap, clip) and writes luma where its tree is not TREE_C
 and chroma where it is not TREE_L; then HTDF filters the level's HTDF CUs
-(luma only) from the planes after those writes."""
+(luma only) from the planes after those writes.  The kernel runs each CU's
+HTDF right after the CU's own prediction (`eipd_cu_fused_ref` is that
+step): the same planes, because no CU of a level writes a sample another
+CU of the level reads (host/ops/wavefront.py:94-101)."""
 from __future__ import annotations
 
 import torch
@@ -26,7 +30,8 @@ from .pack import (ICM_CORNER, ICM_DO_INTRA, ICM_HTDF_AVAIL, ICM_HTDF_IDX,
                    ICM_IPM, ICM_IPM_C, ICM_LEFT, ICM_LOG2H, ICM_LOG2W,
                    ICM_LR, ICM_RIGHT, ICM_TREE, ICM_UP, ICM_VALID, ICM_X,
                    ICM_Y)
-from .tables import (BORDER, EIPD_IBM, EIPD_IBS, EIPD_LUTP1, EIPD_WC)
+from .tables import (BORDER, EIPD_IBM, EIPD_IBS, EIPD_LUTP1, EIPD_WC,
+                     INTRA_MAIN_LEN)
 
 LR_01, LR_11 = 2, 3      # left/right availability: right only, both
 _I32 = torch.int32
@@ -304,43 +309,128 @@ def htdf_tile_ref(rec, x, y, lw, lh, avail, tbl_idx, bd) -> torch.Tensor:
     return _clip((acc + 2) >> 2, (1 << bd) - 1)[1:h + 1, 1:w + 1]
 
 
+def _eipd_writes(recs, resids, c, bd, chroma, has_htdf):
+    """The (plane, x, y, tile) writes of one CU row's EIPD prediction,
+    computed from the planes as they are."""
+    rec_y, rec_u, rec_v = recs
+    res_y, res_u, res_v = resids
+    x, y, lw, lh, ipm = (c[ICM_X], c[ICM_Y], c[ICM_LOG2W], c[ICM_LOG2H],
+                         c[ICM_IPM])
+    masks = (c[ICM_UP], c[ICM_LEFT], c[ICM_RIGHT], c[ICM_CORNER], c[ICM_LR])
+    ok = c[ICM_VALID] == 1 and (c[ICM_DO_INTRA] if has_htdf else 1) == 1
+    writes = []
+    if ok and c[ICM_TREE] != 2:
+        writes.append((rec_y, x, y, pred_tile_ref(
+            rec_y, res_y, x, y, lw, lh, ipm, *masks, 2, bd)))
+    if ok and chroma and c[ICM_TREE] != 1:
+        ipm_c = chroma_ipm_eff(ipm, c[ICM_IPM_C])
+        for rec, res in ((rec_u, res_u), (rec_v, res_v)):
+            writes.append((rec, x >> 1, y >> 1, pred_tile_ref(
+                rec, res, x >> 1, y >> 1, lw - 1, lh - 1, ipm_c, *masks, 1,
+                bd)))
+    return writes
+
+
+def _htdf_writes(rec_y, c, bd, has_htdf):
+    """The write of one CU row's HTDF (luma), from the planes as they are;
+    none where the row has no HTDF."""
+    if not has_htdf or c[ICM_VALID] != 1 or c[ICM_HTDF_IDX] < 0:
+        return []
+    return [(rec_y, c[ICM_X], c[ICM_Y], htdf_tile_ref(
+        rec_y, c[ICM_X], c[ICM_Y], c[ICM_LOG2W], c[ICM_LOG2H],
+        c[ICM_HTDF_AVAIL], c[ICM_HTDF_IDX], bd))]
+
+
+def eipd_cu_fused_ref(recs, resids, row, bd, chroma, has_htdf):
+    """One CU row as a CTA of the CUDA scan runs it, in place on `recs`:
+    its EIPD prediction, then its own HTDF from the planes after those
+    writes."""
+    c = [int(v) for v in row]
+    _write(_eipd_writes(recs, resids, c, bd, chroma, has_htdf))
+    _write(_htdf_writes(recs[0], c, bd, has_htdf))
+
+
+def _cells_of_row(c, chroma, has_htdf):
+    """(reads, writes): the 4x4 cells of one CU row's EIPD prediction and
+    HTDF, as sets of (plane, cy, cx), plane 0 luma and 1 chroma (4:2:0
+    chroma's 2-px units are the same cells).  Reads: the cells its masks
+    and corner flag name, the HTDF ring's cells under its availability
+    bits; writes: its own cells on each plane it writes."""
+    reads, writes = set(), set()
+    if c[ICM_VALID] != 1:
+        return reads, writes
+    xs, ys = c[ICM_X] >> 2, c[ICM_Y] >> 2
+    sw, sh = 1 << (c[ICM_LOG2W] - 2), 1 << (c[ICM_LOG2H] - 2)
+    own = [(ys + i, xs + j) for i in range(sh) for j in range(sw)]
+    planes = []
+    if not has_htdf or c[ICM_DO_INTRA] == 1:
+        planes = ([0] if c[ICM_TREE] != 2 else []) + (
+            [1] if chroma and c[ICM_TREE] != 1 else [])
+    nbr = [(ys - 1, xs - 1)] if c[ICM_CORNER] == 1 else []
+    for u in range(sw + sh):    # a CU reads w + h samples a direction
+        for m, cell in ((ICM_UP, (ys - 1, xs + u)),
+                        (ICM_LEFT, (ys + u, xs - 1)),
+                        (ICM_RIGHT, (ys + u, xs + sw))):
+            if (c[m] >> u) & 1:
+                nbr.append(cell)
+    for p in planes:
+        reads.update((p, cy, cx) for cy, cx in nbr)
+        writes.update((p, cy, cx) for cy, cx in own)
+    if has_htdf and c[ICM_HTDF_IDX] >= 0:
+        av = c[ICM_HTDF_AVAIL]
+        ring = {1: [(ys + i, xs - 1) for i in range(sh)],
+                2: [(ys + i, xs + sw) for i in range(sh)],
+                4: [(ys - 1, xs + j) for j in range(sw)],
+                8: [(ys - 1, xs - 1)], 16: [(ys - 1, xs + sw)],
+                32: [(ys + sh, xs - 1)], 64: [(ys + sh, xs + sw)]}
+        for bit, cells in ring.items():
+            if av & bit:
+                reads.update((0, cy, cx) for cy, cx in cells)
+        writes.update((0, cy, cx) for cy, cx in own)
+    return reads, writes
+
+
+def wave_level_check_ref(icu, level_off, chroma):
+    """The rule that makes the CUDA scan's order exact (each CU's HTDF
+    right after its own prediction, the CUs of a level in any order): no
+    CU of a level writes a 4x4 cell that another CU of the level writes or
+    reads (its EIPD neighbours, its HTDF ring).  Raises ValueError naming
+    the first level that breaks it; a schedule from the host's
+    `level_scan_cus` keeps it."""
+    rows = torch.as_tensor(icu).tolist()
+    offs = torch.as_tensor(level_off).tolist()
+    has_htdf = len(rows[0]) > 13 if rows else False
+    for lv, (lo, hi) in enumerate(zip(offs[:-1], offs[1:])):
+        sets = [_cells_of_row(c, chroma, has_htdf) for c in rows[lo:hi]]
+        owner = {}
+        for r, (_, writes) in enumerate(sets):
+            for cell in writes:
+                if owner.setdefault(cell, r) != r:
+                    raise ValueError(f"level {lv}: rows {lo + owner[cell]} "
+                                     f"and {lo + r} write cell {cell}")
+        for r, (reads, _) in enumerate(sets):
+            for cell in reads:
+                if owner.get(cell, r) != r:
+                    raise ValueError(f"level {lv}: row {lo + r} reads cell "
+                                     f"{cell}, which row {lo + owner[cell]} "
+                                     f"writes")
+
+
 def intra_scan_wave_ref(recs, resids, icu, level_off, bd, chroma):
     """Plain version of `intra_scan_wave` (in place on `recs`): levels in
     order; within a level, every CU's tiles from the planes as they were
     before the level, then the writes; then the level's HTDF tiles from
     the planes after those writes, then their writes
     (jax_intra_main.py:596-660)."""
-    rec_y, rec_u, rec_v = recs
-    res_y, res_u, res_v = resids
     rows = icu.cpu().tolist()
-    offs = [int(v) for v in level_off]
+    offs = torch.as_tensor(level_off).tolist()
     has_htdf = icu.shape[1] > 13
     for lo, hi in zip(offs[:-1], offs[1:]):
         level = rows[lo:hi]
-        writes = []
-        for c in level:
-            x, y, lw, lh, ipm = (c[ICM_X], c[ICM_Y], c[ICM_LOG2W],
-                                 c[ICM_LOG2H], c[ICM_IPM])
-            masks = (c[ICM_UP], c[ICM_LEFT], c[ICM_RIGHT], c[ICM_CORNER],
-                     c[ICM_LR])
-            ok = c[ICM_VALID] == 1 and (
-                c[ICM_DO_INTRA] if has_htdf else 1) == 1
-            if ok and c[ICM_TREE] != 2:
-                writes.append((rec_y, x, y, pred_tile_ref(
-                    rec_y, res_y, x, y, lw, lh, ipm, *masks, 2, bd)))
-            if ok and chroma and c[ICM_TREE] != 1:
-                ipm_c = chroma_ipm_eff(ipm, c[ICM_IPM_C])
-                for rec, res in ((rec_u, res_u), (rec_v, res_v)):
-                    writes.append((rec, x >> 1, y >> 1, pred_tile_ref(
-                        rec, res, x >> 1, y >> 1, lw - 1, lh - 1, ipm_c,
-                        *masks, 1, bd)))
-        _write(writes)
-        if has_htdf:
-            _write([(rec_y, c[ICM_X], c[ICM_Y], htdf_tile_ref(
-                rec_y, c[ICM_X], c[ICM_Y], c[ICM_LOG2W], c[ICM_LOG2H],
-                c[ICM_HTDF_AVAIL], c[ICM_HTDF_IDX], bd))
-                for c in level
-                if c[ICM_VALID] == 1 and c[ICM_HTDF_IDX] >= 0])
+        _write([w for c in level
+                for w in _eipd_writes(recs, resids, c, bd, chroma, has_htdf)])
+        _write([w for c in level
+                for w in _htdf_writes(recs[0], c, bd, has_htdf)])
     return recs
 
 
@@ -354,20 +444,25 @@ def intra_scan_wave(recs, resids, icu, level_off, bd, chroma, tables):
     """recs / resids: (y, u, v) bordered int16 planes (u/v unused when not
     `chroma`); icu: int32 [N, 13 or 16] EIPD scan table sorted by level
     (ops/pack.py `pack_intra_main`); level_off: int32 [L + 1] level
-    offsets, a host array or CPU tensor (the launch schedule, read by the
-    host loop); tables: `device_tables` of the planes' device.
-    Reconstructs the CUs in place on `recs` and returns them."""
+    offsets (rows of level l are icu[level_off[l]:level_off[l + 1]]), on
+    the planes' device (the frame's payload); tables: `device_tables` of
+    the planes' device.  Reconstructs the CUs in place on `recs` and
+    returns them."""
     rec_y, rec_u, rec_v = recs
     res_y, res_u, res_v = resids
-    offs = torch.as_tensor(level_off)
-    if offs.device.type != "cpu" or offs.dim() != 1:
-        raise ValueError("level_off is the host launch schedule: a 1-D "
-                         "host array")
+    if torch.as_tensor(level_off).dim() != 1:
+        raise ValueError("level_off: the level offsets, a 1-D array")
     if rec_y.device.type == "cpu":
-        return intra_scan_wave_ref(recs, resids, icu, offs, bd, chroma)
-    offs = offs.to(torch.int32).contiguous()
+        return intra_scan_wave_ref(recs, resids, icu, level_off, bd, chroma)
+    if not isinstance(level_off, torch.Tensor):
+        raise ValueError("level_off: a tensor on the planes' device, not a "
+                         "host array")
     tab = tables["intra_main"]
     K.require(icu, torch.int32, 2, contiguous=True)
+    if tab.shape[0] != INTRA_MAIN_LEN:   # the kernel stages all of it
+        raise ValueError(f"intra_main tables: {INTRA_MAIN_LEN} int32 wanted, "
+                         f"got {tuple(tab.shape)}")
+    K.require(level_off, torch.int32, 1, contiguous=True)
     K.require(tab, torch.int32, 1, contiguous=True)
     planes = [(rec_y, res_y)] + ([(rec_u, res_u), (rec_v, res_v)]
                                  if chroma else [])
@@ -382,13 +477,13 @@ def intra_scan_wave(recs, resids, icu, level_off, bd, chroma, tables):
     if icu.shape[1] not in (13, 16):
         raise ValueError(f"EIPD CU table wants 13 or 16 columns, got "
                          f"{tuple(icu.shape)}")
-    n_levels = offs.shape[0] - 1
-    if n_levels < 0 or (n_levels and (int(offs[0]) != 0 or int(offs[-1])
-                                      != icu.shape[0]
-                                      or bool((offs[1:] < offs[:-1]).any()))):
-        raise ValueError("level_off does not cover the CU table in order")
+    n_levels = level_off.shape[0] - 1
     if icu.shape[0] == 0:
         return recs
+    if n_levels < 1:
+        raise ValueError("level_off: no level for the CU table's rows")
+    # the ticket counter, the rows finished
+    sync = torch.zeros(2, dtype=torch.int32, device=icu.device)
     lib = K.lib()
     K.count("intra_scan_wave")
     err = lib.xevd_intra_scan_wave(
@@ -397,7 +492,8 @@ def intra_scan_wave(recs, resids, icu, level_off, bd, chroma, tables):
         res_u.data_ptr() if chroma else None,
         res_v.data_ptr() if chroma else None,
         rec_y.stride(0), rec_u.stride(0) if chroma else 0,
-        icu.data_ptr(), icu.shape[1], offs.data_ptr(), n_levels,
-        tab.data_ptr(), bd, int(chroma), K.stream_ptr(icu.device))
+        icu.data_ptr(), icu.shape[1], icu.shape[0], level_off.data_ptr(),
+        n_levels, tab.data_ptr(), bd, int(chroma), sync.data_ptr(),
+        K.stream_ptr(icu.device))
     K.check(err, "xevd_intra_scan_wave")
     return recs

@@ -9,7 +9,8 @@ jit signatures stable is gone: no pow2 bucket padding, no pad rows at
 wavefront slots.  The TU table and the MC block table are one list each,
 which the ITDQ kernel walks in a single launch and the MC kernel in one
 launch per reference list; the EIPD scan table is one list sorted by
-wavefront level, with the level offsets beside it; the SUCO chroma edges
+wavefront level, with the level offsets beside it in the payload (the
+scan kernel walks the levels on the card); the SUCO chroma edges
 are one list sorted by SCU row and rank, with row offsets (no waves).
 `stack_frames` stacks the G frames of one time step of a GOP batch (K15)
 into one such payload, with per-frame row offsets.
@@ -453,7 +454,6 @@ class PackedFrame:
     iqt: bool                    # Main per-stage-clipped transforms
     eipd: bool                   # icu is the EIPD scan table (K6/K7)
     main_taps: bool              # Main (ADMVP) MC taps
-    level_off: np.ndarray | None  # EIPD level offsets [L + 1], host
     geom: tuple                  # (h, w, h_scu, w_scu)
     shp_y: tuple                 # bordered working plane shapes
     shp_c: tuple | None
@@ -468,6 +468,7 @@ class DeviceFrame:
     device buffers)."""
     tus: torch.Tensor            # int32 [Nt, 7]
     icu: torch.Tensor            # int32 [Nc, 8], EIPD: [Nc, 13 or 16]
+    level_off: torch.Tensor | None   # EIPD: int32 [L + 1] level offsets
     mc: torch.Tensor             # int32 [Nm, 10], list 0 rows first
     dbst: torch.Tensor | None    # int32 [6, h_scu, w_scu]
     addb_l: torch.Tensor | None  # int32 [2, hs2, ws2, 4]
@@ -502,12 +503,12 @@ def pack_frame(job, sps, refp, plane=None) -> PackedFrame:
 
     pk = Packer()
     pk.add("tus", pack_itdq(fs, bd, chroma, iqt, main=is_main))
-    level_off = None
     if eipd:
         icu, level_off = pack_intra_main(fs, job, chroma)
+        pk.add("icu", icu)
+        pk.add("level_off", level_off)
     else:
-        icu = pack_intra(fs, job)
-    pk.add("icu", icu)
+        pk.add("icu", pack_intra(fs, job))
     mc, mc_lists, refs = pack_mc(fs, job, refp, chroma, plane)
     ref_pocs = tuple(refp[r][lidx].poc for lidx, r in ref_slots(fs, job))
     pk.add("mc", mc)
@@ -549,7 +550,7 @@ def pack_frame(job, sps, refp, plane=None) -> PackedFrame:
                      fs.coef_u.shape if chroma else None),
         bd=bd, chroma=chroma, deblock_on=deblock_on, addb=addb, suco=suco,
         alf=alf, iqt=iqt, eipd=eipd,
-        main_taps=bool(is_main and sps.tool_admvp), level_off=level_off,
+        main_taps=bool(is_main and sps.tool_admvp),
         geom=(fs.h, fs.w, fs.h_scu, fs.w_scu), shp_y=shp_y, shp_c=shp_c,
         mc_lists=mc_lists, refs=refs, ref_pocs=ref_pocs)
 
@@ -573,7 +574,8 @@ def upload(pf: PackedFrame, device: torch.device) -> DeviceFrame:
         n = hc * wc
         coef_u = coefs[hy * wy:hy * wy + n].view(hc, wc)
         coef_v = coefs[hy * wy + n:hy * wy + 2 * n].view(hc, wc)
-    return DeviceFrame(tus=view("tus"), icu=view("icu"), mc=view("mc"),
+    return DeviceFrame(tus=view("tus"), icu=view("icu"),
+                       level_off=view("level_off"), mc=view("mc"),
                        dbst=view("dbst"), addb_l=view("addb_l"),
                        addb_c=view("addb_c"), suco_off=view("suco_off"),
                        suco_edges=view("suco_edges"), alf_l=view("alf_l"),

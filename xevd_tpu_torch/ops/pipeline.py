@@ -8,9 +8,9 @@ host->device copies, then `run_frame_device`:
   ITDQ (kernel: csrc/itdq.cu; Main iqt and ATS bases) -> MC of the inter
   CUs (csrc/mc.cu; Main ADMVP taps) -> recon with the prediction (Triton)
   -> intra: the Baseline scan (csrc/intra.cu), or with EIPD the wavefront
-  scan with HTDF (csrc/intra_main.cu) -> deblock (csrc/deblock.cu, with
-  SUCO its ordered chroma pass; with ADDB csrc/addb.cu) -> ALF
-  (csrc/alf.cu) -> pad-expand (Triton)
+  scan with HTDF (csrc/intra_main.cu), each one persistent launch ->
+  deblock (csrc/deblock.cu, with SUCO its ordered chroma pass; with ADDB
+  csrc/addb.cu) -> ALF (csrc/alf.cu) -> pad-expand (Triton)
 
 The decoded picture planes stay on the device as DPB references
 (DevicePlane); MC reads them there, and they reach the host only when the
@@ -84,7 +84,7 @@ def intra_stage(df: PK.DeviceFrame, recs, resids, tables: dict):
     when the frame has EIPD, else the Baseline scan."""
     pf = df.packed
     if pf.eipd:
-        intra_scan_wave(recs, resids, df.icu, pf.level_off, pf.bd,
+        intra_scan_wave(recs, resids, df.icu, df.level_off, pf.bd,
                         pf.chroma, tables)
     else:
         intra_scan(recs, resids, df.icu, pf.bd, pf.chroma)

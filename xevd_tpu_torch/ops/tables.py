@@ -37,6 +37,8 @@ INTRA_MAIN_PARTS = (("ipred_dxdy", T.IPRED_DXDY), ("ipred_adi", T.IPRED_ADI),
                     ("eipd_ibs", EIPD_IBS), ("eipd_wc", EIPD_WC),
                     ("htdf_tbl", T.HTDF_TBL),
                     ("htdf_thr_log2", T.HTDF_THR_LOG2))
+# their flattened length (csrc/intra_main.cu TAB_N)
+INTRA_MAIN_LEN = sum(np.asarray(a).size for _, a in INTRA_MAIN_PARTS)
 
 
 def _ats_bases() -> np.ndarray:
