@@ -16,7 +16,12 @@
    the Baseline and the Main taps at every (plane, case, bit depth) and on
    a synthetic 1080p frame; recon, pad, deblock, the SUCO-order chroma
    deblock, the four ADDB passes and ALF luma and chroma (CTU 64 and 128,
-   across tiles or not); the Baseline intra scan on CIF with random causal
+   across tiles or not); ITDQ on a frame of every size class (2x2 to
+   64x64, square and rectangular, Baseline beside ATS and all Main, and at
+   the largest scale with coefficients over the whole int16 range), 10
+   launches a case; K9 (the Baseline chroma deblock cascade) on random
+   maps, maps with every edge on and an empty one at 8 and 10 bit, 20
+   launches a case; the Baseline intra scan on CIF with random causal
    CU lists and on 4x4 CUs with every causal bit set, and the EIPD
    wavefront scan with HTDF on CIF with random CU lists (step 4 holds the
    scans, MC, the SUCO order, ADDB and ALF to their plain versions on the
@@ -38,7 +43,11 @@
    10 bit).  The
    Baseline intra scan kernel is held to its plain version on every 1080p
    intra frame's own CU table and planes and on the 1080p IPPP stream's P
-   frame with the most intra CUs, the MC kernel on every 1080p P
+   frame with the most intra CUs, K9 on every IPPP frame's own chroma
+   areas and maps (20 launches each; the run lengths of each map
+   printed), ITDQ on every config-3 and IPPP frame's own TU table (10
+   launches; the TUs of each size class and the host time of the class
+   grouping printed), the MC kernel on every 1080p P
    frame's own block table and on the config-3 stream's B pictures (Main
    taps), the EIPD scan kernel on its I picture and one B picture, the
    SUCO order on the SUCO stream's pictures, ADDB and ALF on the config-3
@@ -67,13 +76,21 @@
    oracle's serial decode; the same 8 GOPs then decode serially through
    Decoder + TorchPixelBackend("cuda"), equal too, for the record.  The
    pad kernel (K14) is timed a second time once every worker has ended.
+   Then forty 64x64 two-frame IPPP GOPs (one reference worker writes the
+   streams; captured here) decode as one batch on the card, 40 DPB ring
+   pictures (more than a frame's 32 MC slots): every batched kernel held
+   to its plain version on step 1 (MC in 10 launches), every frame's MD5
+   equal to the oracle's.
 6. Prints each scan case's time with the DAG depth (K5) or level count
    (K6) of its frame and the persistent grids, then {"kernels": [...]}
    (launches from the config-3 path; the Baseline intra scan's and
    deblock's from the IPPP path, the SUCO order's from the SUCO path, the
    batched kernels' (gop_*) and K15's from the GOP path; each kernel's
-   bound from its main case's bytes and operations) and, as the last
-   line, {"ok": true, "device": {...}}.
+   bound from its main case's bytes and operations; ITDQ, K9 and MC also
+   with `ms_device`, their time from CUDA-graph replays without the
+   wrappers' host work, and K9 with `ms_all` / `ms_zero` for the maps
+   with every edge on and none) and, as the last line, {"ok": true,
+   "device": {...}}.
 
 Any failure raises and the exit code is non-zero.  Imports neither JAX
 nor `xevd_tpu`: the reference runs in its own processes.
@@ -127,6 +144,10 @@ FRAMES = {"1080p_main_c3": 5, "1080p_main_suco": 5, "1080p_main_ra": 5}
 GOP_SPECS = [(1920, 1080, 2 + g % 3, 30, 1000 + 7 * g, "IPPP", 0.5, 8, 0,
               (), 0.35) for g in range(8)]
 TIMED_RUNS_GOP = 2
+# the GOP batch past 32 DPB ring pictures: forty two-frame 64x64 IPPP GOPs
+# on one card (D x G_dev = 40), generated by one reference worker
+BIG_GOP_SPECS = [(64, 64, 2, 30, 3000 + 7 * g, "IPPP", 0.5, 8, 0, (), 0.35)
+                 for g in range(40)]
 # the card's peaks for a kernel's bound (H100 SXM datasheet figures):
 # HBM bytes/s; integer operations/s taken at the scalar (non-tensor)
 # float32 FMA rate counted as two operations, a deliberate upper peak: the
@@ -215,19 +236,51 @@ def timed(torch, fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+def graph_ms(torch, fn, reps):
+    """Mean device milliseconds of fn() over `reps` replays of a CUDA graph
+    that captured one call: the wrapper's host work (argument checks,
+    ctypes) is left out, which back-to-back calls (`timed`) include where
+    a kernel takes less time than its launch."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                        # allocations outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+# kernels whose time is below their wrapper's host work (ITDQ, the K9
+# passes, MC): also timed as CUDA-graph replays (`graph_ms`), device time
+GRAPH_TIMED = ("itdq", "deblock_chroma_ver", "deblock_chroma_hor", "mc")
 SCAN_LAUNCHES = 20     # race check of each scan case (persistent kernels)
+SCAN_NAMES = ("intra_scan", "intra_scan_wave")
 SCANS = []             # (key, shape, kernel ms, plain ms) of each scan case
+K9_LAUNCHES = 20       # each K9 case: launches equal to the plain version
+ITDQ_LAUNCHES = 10     # each ITDQ class case
 
 
-def run_case(torch, case, results, reps, plain_reps, main=False, key=None):
+def run_case(torch, case, results, reps, plain_reps, main=False, key=None,
+             launches=None):
     """Holds one kernel against its plain version (exact) and times both:
     `reps` kernel runs, `plain_reps` plain runs (0: the timed comparison
-    run itself, for a plain version too slow to run twice).  A scan (a
-    case with `reset`) is held SCAN_LAUNCHES times, each launch from the
-    same inputs against the plain version's one result.  `main` marks the
-    case at the main path's shapes, whose times the summary reports; `key`
-    files the result under another name than the kernel's.  Returns the
-    kernel's ms."""
+    run itself, for a plain version too slow to run twice).  The kernel
+    is held `launches` times (a scan: SCAN_LAUNCHES; else 1), each launch
+    from the same inputs (`case.reset`) against the plain version's one
+    result.  `main` marks the case at the main path's shapes, whose times
+    the summary reports; `key` files the result under another name than
+    the kernel's.  Returns the kernel's ms."""
     from tests.torch_helpers import max_abs_err, repeat_equal
     got = case.kernel()
     torch.cuda.synchronize()
@@ -238,27 +291,34 @@ def run_case(torch, case, results, reps, plain_reps, main=False, key=None):
     t1.record()
     torch.cuda.synchronize()
     err = max_abs_err(got, want)
-    launches = 1
-    if case.reset is not None and err == 0:
-        err = repeat_equal(case, want, SCAN_LAUNCHES - 1)
-        launches = SCAN_LAUNCHES
+    if launches is None:
+        launches = SCAN_LAUNCHES if case.name in SCAN_NAMES else 1
+    if launches > 1 and err == 0:
+        err = repeat_equal(case, want, launches - 1)
     if err != 0:
         raise AssertionError(f"{case.name} {case.shape}: kernel != plain "
                              f"(max abs err {err}, {launches} launches)")
     ms = timed(torch, case.kernel, reps) if reps else None
+    dms = (graph_ms(torch, case.kernel, 2 * reps)
+           if reps and case.name in GRAPH_TIMED else None)
     plain_ms = (timed(torch, case.plain, plain_reps) if plain_reps
                 else t0.elapsed_time(t1))
     r = results.setdefault(key or case.name, {"max_abs_err": 0})
     r["max_abs_err"] = max(r["max_abs_err"], err)
+    r["last_device_ms"] = dms
     if main:
         r.update(ms=ms, plain_ms=plain_ms, shape=case.shape,
                  bytes=case.bytes, ops=case.ops)
+        if dms is not None:
+            r["ms_device"] = dms
     timing = (f"kernel {ms:9.4f} ms  plain {plain_ms:10.4f} ms" if reps
               else "")
+    if dms is not None:
+        timing += f"  graph {dms:8.4f} ms"
     log(f"  {case.name:20s} {case.shape:34s} equal"
         f"{f' in {launches} launches' if launches > 1 else ''}  {timing}"
         f"{'  (main path)' if main else ''}")
-    if case.reset is not None:
+    if case.name in SCAN_NAMES and reps:
         SCANS.append((key or case.name, case.shape, ms, plain_ms))
     return ms
 
@@ -273,9 +333,11 @@ def kernel_phases(torch, dev, results):
     tables of every (taps, plane, case, bit depth) (slice_phase holds the
     scans and MC to their plain versions on the 1080p streams' own
     frames)."""
-    from tests.torch_helpers import (addb_case, alf_case, deblock_case,
-                                     intra_case, intra_chain_case,
-                                     intra_wave_case, itdq_case,
+    import numpy as np
+    from tests.torch_helpers import (CHROMA_MAPS, addb_case, alf_case,
+                                     chroma_map, deblock_case, intra_case,
+                                     intra_chain_case, intra_wave_case,
+                                     itdq_case, itdq_class_case,
                                      itdq_size_case, mc_case, mc_size_case,
                                      pad_case, recon_case, recon_pred_case,
                                      suco_case)
@@ -292,6 +354,14 @@ def kernel_phases(torch, dev, results):
         run_case(torch, itdq_case(dev, bd, H, W, seed=100), results, 10, 1)
         run_case(torch, itdq_case(dev, bd, H, W, seed=110, iqt=True),
                  results, 10, 1, main=bd == 8)
+    log(f"phase itdq classes (every size class in one launch, "
+        f"{ITDQ_LAUNCHES} launches a case)")
+    for bd in (8, 10):
+        for iqt in (False, True):
+            for extreme in (False, True):
+                run_case(torch, itdq_class_case(dev, bd, iqt, seed=120,
+                                                extreme=extreme),
+                         results, 10, 1, launches=ITDQ_LAUNCHES)
 
     log("phase mc (Baseline and Main taps)")
     for bd in (8, 10):
@@ -336,8 +406,27 @@ def kernel_phases(torch, dev, results):
     log("phase deblock")
     for bd in (8, 10):
         for kind in ("luma_ver", "luma_hor", "chroma_ver", "chroma_hor"):
-            run_case(torch, deblock_case(dev, kind, bd, 270, 480, seed=400),
-                     results, 20, 3, main=bd == 8)
+            chroma = kind.startswith("chroma")
+            ms = run_case(torch, deblock_case(dev, kind, bd, 270, 480,
+                                              seed=400),
+                          results, 20, 3, main=bd == 8,
+                          launches=K9_LAUNCHES if chroma else None)
+            if chroma and bd == 8:
+                results[f"deblock_{kind}"]["ms_pr6_case"] = ms
+    log(f"phase K9 map kinds (1080p chroma; random, every edge on, no "
+        f"edge; {K9_LAUNCHES} launches a case)")
+    for bd in (8, 10):
+        for kind in ("chroma_ver", "chroma_hor"):
+            for maps in CHROMA_MAPS:
+                rng = np.random.default_rng(410 + bd)
+                ms = run_case(torch, deblock_case(
+                    dev, kind, bd, 270, 480, seed=410,
+                    st=chroma_map(rng, maps, 270, 480), label=f" {maps} map"),
+                    results, 20, 1, launches=K9_LAUNCHES)
+                if bd == 8:
+                    r = results[f"deblock_{kind}"]
+                    r[f"ms_{maps}"] = ms
+                    r[f"ms_device_{maps}"] = r["last_device_ms"]
 
     log("phase chroma_ver_ordered (SUCO order; 1080p chroma, random edges)")
     for bd in (8, 10):
@@ -402,6 +491,88 @@ def intra_main_path(torch, dev, packed, results):
         run_case(torch, intra_planes_case(dev, recs, resids, df.icu, pf.bd,
                                           pf.chroma, shape),
                  results, 5, 0, main=i == 0)
+
+
+def deblock_main_path(torch, dev, packed, results):
+    """K9 against its plain version on the 1080p IPPP stream's own frames:
+    the chroma areas before deblock and the strength maps the path hands
+    the two passes, K9_LAUNCHES launches each (the I frame's U plane is
+    the summary's case); the I frame's maps also on 10-bit planes.  Prints
+    each map's run lengths (consecutive edges with a strength)."""
+    import numpy as np
+    from tests.torch_helpers import (deblock_area_case, deblock_case,
+                                     frame_areas_before, run_lengths)
+
+    log("phase K9 (1080p IPPP frames' own chroma areas and maps)")
+    for i, pf in enumerate(packed):
+        areas, df = frame_areas_before(pf, dev, "deblock")
+        ftype = "P" if pf.refs else "I"
+        for kind, k in (("chroma_ver", 2), ("chroma_hor", 3)):
+            for plane in (1, 2):
+                st = df.dbst[k + 2 * (plane - 1)]
+                runs = run_lengths(st.cpu().numpy(), kind)
+                hist = np.bincount(runs) if len(runs) else np.zeros(1, int)
+                hist = {n: int(c) for n, c in enumerate(hist) if c}
+                log(f"  run lengths {kind} frame {i} ({ftype}) "
+                    f"{'UV'[plane - 1]}: {len(runs)} runs, "
+                    f"{int(runs.sum()) if len(runs) else 0} edges; length: "
+                    f"count {hist}")
+                shape = (f"1080p IPPP frame {i} ({ftype}) {'UV'[plane - 1]} "
+                         f"{tuple(areas[plane].shape)}, {len(runs)} runs")
+                run_case(torch, deblock_area_case(dev, kind, areas[plane], st,
+                                                  pf.bd, shape),
+                         results, 20, 1, main=i == 0 and plane == 1,
+                         launches=K9_LAUNCHES)
+            if i == 0:
+                run_case(torch, deblock_case(
+                    dev, kind, 10, *df.dbst.shape[1:], seed=420,
+                    st=df.dbst[k].cpu().numpy(), label=" IPPP I-frame map"),
+                    results, 20, 1, launches=K9_LAUNCHES)
+
+
+def itdq_main_path(torch, dev, packed, results):
+    """ITDQ against its plain version on the config-3 stream's pictures
+    and the 1080p IPPP stream's frames: their own TU tables, coefficients
+    and class orders, ITDQ_LAUNCHES launches each.  Prints each frame's TU
+    count by size class and the host time of the grouping
+    (ops/pack.py `itdq_order`)."""
+    import numpy as np
+    from tests.torch_helpers import KernelCase, itdq_work
+    from xevd_tpu_torch.ops import itdq as TQ
+    from xevd_tpu_torch.ops import pack as PK
+    from xevd_tpu_torch.ops.tables import device_tables
+
+    log("phase itdq (the streams' own TU tables)")
+    tab = device_tables(dev)
+    for name, label in ((MAIN_PATH, "config-3"), ("1080p_p", "1080p IPPP")):
+        for i, pf in enumerate(packed[name]):
+            df = PK.upload(pf, dev)
+            tus = df.tus.cpu().numpy()
+            t = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                o = PK.itdq_order(tus, pf.iqt)
+                t.append(time.perf_counter() - t0)
+            hist = {f"{1 << ((c >> 4) & 15)}x{1 << (c & 15)}"
+                    f"{'m' if c >> 16 else 'b'}": int(n)
+                    for n, c in zip(o.classes[:, 2], o.classes[:, 3])}
+            ftype = "P/B" if pf.refs else "I"
+            log(f"  {label} frame {i} ({ftype}): {len(tus)} TUs in "
+                f"{len(o.classes)} classes, {o.n_cta} CTAs, {o.smem} B "
+                f"shared; itdq_order {min(t) * 1e3:.3f} ms (min of 20, "
+                f"median {np.median(t) * 1e3:.3f}); TUs a class (w x h, "
+                f"m Main, b Baseline): {hist}")
+            args = ((df.coef_y, df.coef_u, df.coef_v), df.tus, pf.shp_y,
+                    pf.shp_c, pf.bd, tab, pf.iqt)
+            ms = run_case(torch, KernelCase(
+                "itdq", f"{label} frame {i} ({ftype}), {len(tus)} TUs",
+                lambda: TQ.itdq(*args, order=df.tu_order),
+                lambda: TQ.itdq_ref(*args), *itdq_work(tus),
+                reset=lambda: None), results, 10, 1, launches=ITDQ_LAUNCHES)
+            if i == 0:
+                results["itdq"][f"ms_{name}_frame0"] = ms
+                results["itdq"][f"ms_device_{name}_frame0"] = \
+                    results["itdq"]["last_device_ms"]
 
 
 def intra_wave_main_path(torch, dev, packed, results):
@@ -519,6 +690,15 @@ def start_gop_worker(g):
         ["sh", "-c", script, sys.executable, json.dumps(GOP_SPECS[g]),
          str(STREAM_DIR / f"torch_smoke_gop{g}.evc"),
          str(WORK / f"gop{g}.pkl")],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def start_big_gop_worker():
+    """Start the reference worker that writes the BIG_GOP_SPECS streams
+    to WORK/biggop/<g>.evc, all in one process (they are small)."""
+    return subprocess.Popen(
+        [sys.executable, str(REPO / "tests" / "torch_reference.py"),
+         "--streams", json.dumps(BIG_GOP_SPECS), str(WORK / "biggop")],
         cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
@@ -645,6 +825,8 @@ def slice_phase(torch, dev, K, results, prepared):
             f"({len(a)} B); stream {t_gen:.2f} s, numpy {t_np:.2f} s, torch "
             f"first run {t_t:.2f} s")
     intra_main_path(torch, dev, packed, results)
+    deblock_main_path(torch, dev, packed["1080p_p"], results)
+    itdq_main_path(torch, dev, packed, results)
     mc_main_path(torch, dev, packed["1080p_p"], results, "1080p P", False)
     mc_main_path(torch, dev, packed[MAIN_PATH], results, "1080p Main B",
                  True)
@@ -726,6 +908,46 @@ def device_ms(marks):
     return sum(marks[i - 1][1].elapsed_time(ev)
                for i, (stage, ev, _) in enumerate(marks)
                if stage not in ("start", "pack"))
+
+
+def big_gop_phase(torch, dev, K, results, worker):
+    """The GOP batch past 32 ring pictures: the BIG_GOP_SPECS GOPs,
+    captured here (the numpy oracle's serial decode, through the port's
+    host decoder), on one card: every batched kernel on step 1 against its
+    batched plain version, MC in 10 launches; then the whole batch, every
+    frame's MD5 equal to the oracle's.  Returns its stats."""
+    from tests.torch_helpers import gop_step_cases
+    from xevd_tpu_torch.parallel import gop as TG
+
+    out, err = worker.communicate()
+    if worker.returncode != 0:
+        raise AssertionError(f"big GOP stream worker failed (rc "
+                             f"{worker.returncode}):\n{err[-4000:]}")
+    t0 = time.perf_counter()
+    caps = [TG._capture_gop((WORK / "biggop" / f"{g}.evc").read_bytes())
+            for g in range(len(BIG_GOP_SPECS))]
+    log(f"phase gop past 32 ring pictures: {len(caps)} 64x64 two-frame "
+        f"IPPP GOPs on one card; streams {json.loads(out)['gen_s']:.1f} s, "
+        f"captures {time.perf_counter() - t0:.1f} s")
+    for case in gop_step_cases(dev, caps):
+        key = case.name if case.name == "gop_step" else f"gop_{case.name}"
+        run_case(torch, case, results, 0, 0, key=key,
+                 launches=10 if case.name == "mc" else None)
+    stats = {}
+    dmd5, smd5 = TG.decode_gops_sharded(None, mesh=[dev], captures=caps,
+                                        stats=stats)
+    ring = stats["depth"] * len(caps)
+    if ring <= 32 or dmd5 != smd5 or \
+            stats["checksum"] != stats["serial_checksum"]:
+        raise AssertionError(f"GOP batch of {len(caps)} GOPs ({ring} ring "
+                             "pictures): a frame's MD5 differs from the "
+                             "numpy oracle's, or the ring holds <= 32")
+    log(f"  {stats['frames']} frames in {stats['steps']} steps (batches "
+        f"{stats['batches'][0]}, DPB depth {stats['depth']}: {ring} ring "
+        f"pictures) in {stats['seconds'] * 1e3:.3f} ms; every MD5 equal to "
+        "the numpy oracle's")
+    return {"gops": len(caps), "ring_pictures": ring,
+            "frames": stats["frames"], "ms": stats["seconds"] * 1e3}
 
 
 def gop_phase(torch, dev, K, results, workers):
@@ -864,6 +1086,7 @@ def main() -> int:
     # reference workers run while the kernels build and are compared
     # the GOP workers first: theirs is the longest host work
     gop_workers = [start_gop_worker(g) for g in range(len(GOP_SPECS))]
+    big_gop_worker = start_big_gop_worker()
     prepared = {name: start_reference(name) for name in STREAMS}
     try:
         K.build(verbose=True)      # always from this checkout's sources
@@ -875,8 +1098,9 @@ def main() -> int:
         kernel_phases(torch, dev, results)
         runs = slice_phase(torch, dev, K, results, prepared)
         runs["gop"] = gop_phase(torch, dev, K, results, gop_workers)
+        big_gop = big_gop_phase(torch, dev, K, results, big_gop_worker)
     finally:
-        for p in list(prepared.values()) + gop_workers:
+        for p in list(prepared.values()) + gop_workers + [big_gop_worker]:
             if p.poll() is None:
                 p.kill()
             p.communicate()
@@ -888,7 +1112,7 @@ def main() -> int:
         t_ops = r["ops"] / SCALAR_OPS_PER_S
         counter = name[4:] if name in (f"gop_{k}" for k in GOP_KERNELS) \
             else name
-        extra = {k: r[k] for k in ("ms_g1", "ms_after_workers") if k in r}
+        extra = {k: r[k] for k in r if k.startswith("ms_")}
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces,
                         "launches": runs[PATH_OF.get(name, MAIN_PATH)][0][
@@ -913,6 +1137,7 @@ def main() -> int:
         log(f"slice {name}: frames/s {[round(f, 3) for f in fps]}; "
             f"{'record' if name == 'gop' else 'stage ms/frame'} "
             f"{json.dumps(stage_ms, default=str)}")
+    log(f"GOP batch past 32 ring pictures: {json.dumps(big_gop)}")
     log(f"total smoke time {time.perf_counter() - t_start:.1f} s")
     log(gpu_line())
     print(json.dumps({"kernels": kernels}))

@@ -12,6 +12,7 @@ no JAX, so it also runs on a GPU machine without JAX, where conftest.py
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -27,12 +28,14 @@ from xevd_tpu_torch.ops import pack as PK
 from xevd_tpu_torch.ops import recon as TR
 from xevd_tpu_torch.ops.tables import PAD_C, PAD_L, device_tables
 
-from .torch_helpers import (addb_case, alf_case, compare, deblock_case,
-                            eipd_scene, gop_step_cases, intra_batch_case,
-                            intra_case, intra_chain_case, intra_wave_case,
-                            itdq_case, itdq_size_case, mc_case, mc_frame,
-                            mc_shapes, mc_size_case, pad_case, recon_case,
-                            recon_pred_case, repeat_equal, suco_case)
+from .torch_helpers import (CHROMA_MAPS, addb_case, alf_case, chroma_map,
+                            compare, deblock_case, eipd_scene,
+                            gop_step_cases, intra_batch_case, intra_case,
+                            intra_chain_case, intra_wave_case,
+                            itdq_case, itdq_class_case, itdq_size_case,
+                            mc_case, mc_frame, mc_shapes, mc_size_case,
+                            pad_case, recon_case, recon_pred_case,
+                            repeat_equal, suco_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -80,6 +83,17 @@ def test_itdq_kernel_matches_plain_main_full_range(dev, bd, trs, log2):
     """iqt (trs 0) and every ATS basis pair, coefficients over the whole
     int16 range."""
     _check(itdq_size_case(dev, bd, log2, iqt=True, trs=trs))
+
+
+@pytest.mark.parametrize("extreme", [False, True])
+@pytest.mark.parametrize("iqt", [False, True])
+@pytest.mark.parametrize("bd", [8, 10])
+def test_itdq_kernel_class_mix(dev, bd, iqt, extreme):
+    """Every size class of the kernel in one launch (2x2 to 64x64, square
+    and rectangular; Baseline beside ATS, or all Main), ten launches;
+    `extreme`: the largest scale, coefficients over the whole int16 range,
+    stage 0 at its int32 bound."""
+    _check_repeated(itdq_class_case(dev, bd, iqt, seed=bd, extreme=extreme))
 
 
 @pytest.mark.parametrize("bd", [8, 10])
@@ -159,6 +173,19 @@ def test_deblock_kernel_matches_plain(dev, kind, bd):
     _check(deblock_case(dev, kind, bd, 270, 480))
 
 
+@pytest.mark.parametrize("maps", CHROMA_MAPS)
+@pytest.mark.parametrize("kind", ["chroma_ver", "chroma_hor"])
+@pytest.mark.parametrize("bd", [8, 10])
+def test_deblock_chroma_kernel_map_kinds(dev, kind, bd, maps):
+    """K9 on the 1080p chroma SCU grid: random maps (short runs), every
+    edge with a strength (each line one run: the longest chains) and no
+    edge at all; ten launches from the same inputs."""
+    rng = np.random.default_rng(bd + len(maps))
+    _check_repeated(deblock_case(dev, kind, bd, 270, 480, seed=bd,
+                                 st=chroma_map(rng, maps, 270, 480),
+                                 label=f" {maps}"))
+
+
 @pytest.mark.parametrize("bd", [8, 10])
 def test_chroma_ver_ordered_kernel_matches_plain(dev, bd):
     """The SUCO-order chroma edges on the 1080p chroma SCU grid."""
@@ -212,6 +239,36 @@ def test_gop_intra_scan_repeated(dev, gop_captures, G):
     _check_repeated(case)
 
 
+@pytest.fixture(scope="module")
+def forty_gop_captures():
+    """Forty two-frame 64x64 IPPP GOPs (D x G_dev = 40 DPB pictures on one
+    card), captured by the port's host decoder."""
+    from xevd_tpu_torch.parallel.gop import _capture_gop
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
+    import evc_enc
+    return [_capture_gop(evc_enc.encode_stream(
+        64, 64, 2, 30, 2000 + 7 * g, "IPPP", 0.5)) for g in range(40)]
+
+
+def test_gop_batch_beyond_32_ring_slots(dev, forty_gop_captures):
+    """Batched MC reads the DPB ring by its strides: with 40 ring pictures
+    (more than a frame's 32-slot pointer table) every batched kernel and
+    the step equal their plain versions, MC in ten launches, and the whole
+    batch equals the serial oracle frame by frame."""
+    from xevd_tpu_torch.parallel import gop as TG
+    cases = gop_step_cases(dev, forty_gop_captures)
+    for case in cases:
+        _check(case)
+    mc, = (c for c in cases if c.name == "mc")
+    _check_repeated(mc, launches=10)
+    stats = {}
+    dmd5, smd5 = TG.decode_gops_sharded(None, mesh=[dev], stats=stats,
+                                        captures=forty_gop_captures)
+    assert stats["depth"] * 40 > PK.MAX_REF_SLOTS
+    assert dmd5 == smd5
+    assert stats["checksum"] == stats["serial_checksum"]
+
+
 def test_wrappers_refuse_cpu_operands_mixed_with_cuda(dev):
     """A CUDA launch checks every operand: a CPU table beside CUDA planes
     raises instead of running the plain version or reading host memory."""
@@ -257,6 +314,9 @@ def test_wrappers_refuse_cpu_operands_mixed_with_cuda(dev):
             TIM.intra_scan_wave(cu_planes, cu_res,
                                 torch.from_numpy(icu).to(dev), host, 8, True,
                                 device_tables(dev))
+    with pytest.raises(ValueError):       # no class order (ops/pack.py)
+        TQ.itdq([coef, None, None], tus.to(dev), (216, 216), None, 8,
+                device_tables(dev))
     with pytest.raises(ValueError):       # the TU table on the CPU (Main)
         TQ.itdq([coef, None, None], torch.zeros(1, 7, dtype=torch.int32),
                 (216, 216), None, 8, device_tables(dev), True)

@@ -13,7 +13,8 @@ from xevd_tpu_torch.ops import deblock as TD
 from xevd_tpu_torch.ops import recon as TR
 from xevd_tpu_torch.ops.tables import BORDER, PAD_C, PAD_L
 
-from .torch_helpers import bordered, strengths
+from .torch_helpers import (CHROMA_MAPS, bordered, chroma_map, run_lengths,
+                            strengths)
 
 
 # pass name -> (JAX pass, SCU size, axis the JAX strength map repeats on)
@@ -69,6 +70,35 @@ def test_deblock_finish_matches_jax(chroma, bd):
     assert len([x for x in want if x is not None]) == len(got)
     for g, wnt in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(wnt))
+
+
+@pytest.mark.parametrize("maps", CHROMA_MAPS)
+@pytest.mark.parametrize("kind", ["chroma_ver", "chroma_hor"])
+@pytest.mark.parametrize("bd", [8, 10])
+def test_chroma_runs_in_any_order_match_jax(kind, bd, maps):
+    """K9's run decomposition (csrc/deblock.cu): each run of consecutive
+    edges with a strength filtered as one chain carrying A, the runs in
+    three random orders, equals the plain pass and JAX's -- on random maps
+    (short runs), maps with every edge on (one run a line) and no edge."""
+    fn, u, axis = PASSES[kind]
+    rng = np.random.default_rng(50 + bd + len(kind) + len(maps))
+    H, W = 20 * u, 28 * u
+    plane = rng.integers(0, 1 << bd, size=(H, W)).astype(np.int16)
+    st = chroma_map(rng, maps, H // u, W // u)
+    runs = run_lengths(st, kind)
+    if maps == "all":
+        assert (runs == (W if kind == "chroma_ver" else H) // 2 - 1).all()
+    assert (len(runs) == 0) == (maps == "zero")
+    want = np.asarray(fn(jnp.asarray(plane),
+                         jnp.asarray(np.repeat(st, u, axis=axis)), bd))
+    ref = torch.from_numpy(plane.copy())
+    TD.deblock_pass(kind, ref, torch.from_numpy(st), bd)
+    np.testing.assert_array_equal(ref.numpy(), want)
+    for seed in range(3):
+        got = torch.from_numpy(plane.copy())
+        TD.chroma_runs_ref(kind, got, torch.from_numpy(st), bd,
+                           np.random.default_rng(seed))
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_pass_rejects_mismatched_strengths():

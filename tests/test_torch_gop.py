@@ -75,6 +75,25 @@ def test_gop_batch_equals_serial_and_jax(case, streams, jax_md5s):
         assert one["checksum"] == stats["checksum"]
 
 
+def test_gop_batch_beyond_32_ring_slots():
+    """33 two-frame IPPP GOPs on one device: D x G_dev = 33 DPB pictures,
+    more than a frame's 32-entry MC pointer table; batched MC addresses
+    the DPB ring by its strides, so the batch takes them, as JAX's step
+    does.  Every frame's MD5 equals the serial oracle and JAX's
+    decode_gops_sharded on one device."""
+    use_port_native_library()
+    streams = JG.gen_gop_streams(33, w=64, h=64, frames=2)
+    stats = {}
+    dev, ser = TG.decode_gops_sharded(streams, mesh=TG.make_mesh(["cpu"]),
+                                      stats=stats)
+    assert stats["depth"] * 33 > PK.MAX_REF_SLOTS
+    assert stats["batches"] == [[33, 33]]
+    jdev, jser = JG.decode_gops_sharded(streams, mesh=JG.make_mesh(1))
+    assert dev == ser
+    assert dev == jdev == jser
+    assert stats["checksum"] == stats["serial_checksum"] > 0
+
+
 def _pad(p, pad):
     return np.pad(p, pad, mode="edge")
 
@@ -139,10 +158,18 @@ def test_batched_plain_stages_equal_jax_vmap(G, step_frames):
         [_pad(jcaps[g][t - d]["rec"][c][:h >> bool(c), :w >> bool(c)],
               pads[c]) for g in range(G)]) for d in union]))
         for c in range(3))
-    # the port: pointer table entry (d - 1) * G + g
-    prefs = [tuple(torch.from_numpy(_pad(pcaps[g][t - d]["rec"][c][
-        :h >> bool(c), :w >> bool(c)], pads[c])) for c in range(3))
-        for d in range(1, D + 1) for g in range(G)]
+    # the port: the DPB ring [D, G, ...] a plane, GOP g's picture d steps
+    # back in entry (t - d) % D
+    ring = [torch.zeros((D, G) + _pad(pcaps[0][0]["rec"][c][
+        :h >> bool(c), :w >> bool(c)], pads[c]).shape, dtype=torch.int16)
+        for c in range(3)]
+    for d in range(1, D + 1):
+        for g in range(G):
+            for c in range(3):
+                ring[c][(t - d) % D, g] = torch.from_numpy(_pad(
+                    pcaps[g][t - d]["rec"][c][:h >> bool(c), :w >> bool(c)],
+                    pads[c]))
+    prefs = TM.DpbRing(tuple(ring), t)
     shp_y, shp_c = st["shp_y"], st["shp_c"]
     assert (shp_y, shp_c) == (pb.shp_y, pb.shp_c)
 

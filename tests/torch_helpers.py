@@ -389,6 +389,34 @@ def strengths(rng, h_scu, w_scu, n=1):
     return (st * (rng.random((n, h_scu, w_scu)) < 0.6)).astype(np.int32)
 
 
+CHROMA_MAPS = ("random", "all", "zero")
+
+
+def chroma_map(rng, kind, h_scu, w_scu):
+    """A strength map [h_scu, w_scu] of one kind: "random" (`strengths`:
+    short runs), "all" (every edge a strength in 1..12: each line one run,
+    the longest chains of K9) or "zero" (no edge)."""
+    if kind == "random":
+        return strengths(rng, h_scu, w_scu)[0]
+    if kind == "all":
+        return rng.integers(1, 13, size=(h_scu, w_scu)).astype(np.int32)
+    if kind == "zero":
+        return np.zeros((h_scu, w_scu), np.int32)
+    raise ValueError(kind)
+
+
+def run_lengths(st, kind):
+    """The lengths of K9's runs in a chroma strength map (int [h_scu,
+    w_scu]): consecutive edges with a strength along an SCU row
+    ("chroma_ver") or column ("chroma_hor"); edge 0 is the area's side."""
+    on = np.asarray(st) > 0
+    on = (on if kind == "chroma_ver" else on.T)[:, 1:]
+    pad = np.zeros((on.shape[0], 1), bool)
+    d = np.diff(np.concatenate([pad, on, pad], 1).astype(np.int8), axis=1)
+    starts, ends = np.nonzero(d == 1), np.nonzero(d == -1)
+    return ends[1] - starts[1]
+
+
 def suco_edges(rng, h_scu, w_scu, max_edges=5):
     """A SUCO chroma edge table as ops/pack.py `chroma_ver_edges` returns it
     (row_off int32 [h_scu + 1], edges int32 [E, 3] = (x, st_u, st_v)): up
@@ -464,7 +492,8 @@ class KernelCase:
     plain: Callable
     bytes: int = 0            # each input read once, each output written once
     ops: int = 0              # integer operations these inputs need
-    reset: Callable | None = None   # in-place kernels: restore the inputs
+    reset: Callable | None = None   # restore the inputs (no-op if none
+    #                                 change): repeated launches compare
 
 
 def max_abs_err(got, want) -> int:
@@ -492,10 +521,10 @@ def compare(case: KernelCase) -> int:
 
 
 def repeat_equal(case: KernelCase, want, launches: int) -> int:
-    """Race check of an in-place kernel: `launches` runs, each from the
-    case's inputs (`case.reset` before it) and each compared with `want`,
-    the plain version's one result; the largest error over them.  A race
-    between CTAs shows as a difference between runs, not as a constant
+    """Race check: `launches` runs, each from the case's inputs
+    (`case.reset` before it) and each compared with `want`, the plain
+    version's one result; the largest error over them.  A race between
+    CTAs or threads shows as a difference between runs, not as a constant
     error."""
     err = 0
     for _ in range(launches):
@@ -577,6 +606,17 @@ def deblock_work(kind, st):
     return int(on * (16 if luma else 12) + s.size * 4), int(on * 20)
 
 
+def itdq_order_on(dev, tus, iqt, tu_off=None):
+    """The ITDQ kernel's class order (ops/pack.py `itdq_order`) of a host
+    TU table, its tables on `dev`, as the pack uploads it."""
+    frame = None
+    if tu_off is not None:
+        frame = np.repeat(np.arange(len(tu_off) - 1), np.diff(tu_off))
+    o = PK.itdq_order(np.asarray(tus), iqt, frame)
+    return PK.ItdqOrder(_dev(o.order, dev), _dev(o.classes, dev), o.n_cta,
+                        o.smem)
+
+
 def itdq_case(dev, bd, h, w, chroma=True, seed=0, coef_max=3000, iqt=False):
     """A frame's TU table over h x w coefficient planes; `iqt`: the Main
     transforms, with ATS bases on some luma TUs."""
@@ -584,11 +624,13 @@ def itdq_case(dev, bd, h, w, chroma=True, seed=0, coef_max=3000, iqt=False):
                                           main=iqt)
     tc = [_dev(c, dev) for c in coefs] + [None] * (3 - len(coefs))
     args = (tc, _dev(tus, dev), shp_y, shp_c, bd, device_tables(dev), iqt)
+    order = itdq_order_on(dev, tus, iqt)
     nbytes, ops = itdq_work(tus)
     return KernelCase("itdq", f"{h}x{w} bd{bd}{' iqt+ATS' if iqt else ''}, "
                       f"{len(tus)} TUs",
-                      lambda: TQ.itdq(*args), lambda: TQ.itdq_ref(*args),
-                      nbytes, ops)
+                      lambda: TQ.itdq(*args, order=order),
+                      lambda: TQ.itdq_ref(*args), nbytes, ops,
+                      reset=lambda: None)
 
 
 def itdq_size_case(dev, bd, log2, n=64, seed=0, iqt=False, trs=0):
@@ -605,9 +647,101 @@ def itdq_size_case(dev, bd, log2, n=64, seed=0, iqt=False, trs=0):
     shp = (BORDER + s * 8 + PAD_R, BORDER + s * (n // 8) + PAD_R)
     args = ([_dev(coef.astype(np.int16), dev), None, None], _dev(tus, dev),
             shp, None, bd, device_tables(dev), iqt)
+    order = itdq_order_on(dev, tus, iqt)
     kind = f" trs {trs}" if trs else (" iqt" if iqt else "")
     return KernelCase("itdq", f"{s}x{s} bd{bd}{kind}, {n} TUs",
-                      lambda: TQ.itdq(*args), lambda: TQ.itdq_ref(*args))
+                      lambda: TQ.itdq(*args, order=order),
+                      lambda: TQ.itdq_ref(*args), reset=lambda: None)
+
+
+def _shelves(sizes, width):
+    """(y, x) of each (h, w) block packed left to right in rows of
+    `width`, a new row below the tallest of the last; and the height."""
+    pos, x, y, row_h = [], 0, 0, 0
+    for h, w in sizes:
+        if x + w > width:
+            x, y, row_h = 0, y + row_h, 0
+        pos.append((y, x))
+        x += w
+        row_h = max(row_h, h)
+    return pos, y + row_h
+
+
+def _worst_block(tables, lw, lh, trs):
+    """Coefficients whose dequantized block at full scale is +-32767 with
+    the signs of the height basis' column of largest absolute sum: stage 0
+    reaches the int32 bound the kernel's widths rest on (one column y0
+    sums |TMh[v][y0]| x 32767 in every column u)."""
+    kind = (trs & 3) - 1 if trs else -1
+    tm = TQ.basis(tables, lh, kind).numpy()       # [v, y]
+    y0 = int(np.abs(tm).sum(0).argmax())
+    sign = np.where(tm[:, y0] < 0, -1, 1)[:, None]
+    return np.broadcast_to(sign * 32767, (1 << lh, 1 << lw))
+
+
+# trs codes whose two fields each name a basis (0 DCT-2, 1 DST-7, 2 DCT-8);
+# a stream carries 5, 6, 9 and 10 (ops/pack.py `_ats_trs`)
+TRS_CODES = (1, 2, 4, 5, 6, 8, 9, 10)
+
+
+def itdq_class_frame(bd, iqt, seed=0, extreme=False, n=3,
+                     trs_codes=TRS_CODES):
+    """A luma coefficient plane (int16) and TU table with every size class
+    of the ITDQ kernel: n TUs of each (log2 w, log2 h) in 1..6 (2x2 to
+    64x64, square and rectangular); and the bordered plane shape.  `iqt`
+    False: Baseline TUs, and the `trs_codes` (Main classes) on TUs up to
+    32 a side; `iqt` True: every TU Main (iqt DCT-2, and the trs codes up
+    to 32).  `extreme`: every TU at the largest scale of the bit depth,
+    coefficients over the whole int16 range, half the TUs built to reach
+    stage 0's int32 bound."""
+    rng = np.random.default_rng(seed + bd + 2 * iqt + 4 * extreme)
+    qp_max = 51 + 6 * (bd - 8)
+    scale_max = max(qp_scale(q, iqt) for q in range(qp_max + 1))
+    tab = device_tables("cpu")
+    specs = []
+    for lw in range(1, 7):
+        for lh in range(1, 7):
+            for k in range(n):
+                trs = (trs_codes[(k + lw + lh) % len(trs_codes)]
+                       if max(lw, lh) <= 5 and (iqt or k % 2) else 0)
+                specs.append((lw, lh, trs))
+    order = sorted(range(len(specs)), key=lambda i: -specs[i][1])
+    pos, height = _shelves([(1 << specs[i][1], 1 << specs[i][0])
+                            for i in order], 512)
+    coef = np.zeros((height, 512), np.int64)
+    rows = []
+    for (y, x), i in zip(pos, order):
+        lw, lh, trs = specs[i]
+        h, w = 1 << lh, 1 << lw
+        if extreme:
+            scale = scale_max
+            blk = (_worst_block(tab, lw, lh, trs) if i % 2
+                   else rng.integers(-32768, 32768, size=(h, w)))
+        else:
+            scale = qp_scale(int(rng.integers(0, qp_max + 1)), bool(
+                iqt or trs))
+            blk = rng.integers(-3000, 3000, size=(h, w))
+        coef[y:y + h, x:x + w] = blk
+        rows.append((0, lw, lh, scale, y, x, trs))
+    shp = (BORDER + height + PAD_R, BORDER + 512 + PAD_R)
+    return coef.astype(np.int16), np.array(rows, np.int32), shp
+
+
+def itdq_class_case(dev, bd, iqt, seed=0, extreme=False, n=3):
+    """The kernel against its plain version on `itdq_class_frame`, every
+    size class in one launch (`reset` a no-op: each launch writes new
+    planes)."""
+    coef, tus, shp = itdq_class_frame(bd, iqt, seed, extreme, n)
+    args = ([_dev(coef, dev), None, None], _dev(tus, dev), shp, None, bd,
+            device_tables(dev), iqt)
+    order = itdq_order_on(dev, tus, iqt)
+    nbytes, ops = itdq_work(tus)
+    return KernelCase(
+        "itdq", f"{len(tus)} TUs of 36 sizes bd{bd} "
+        f"{'iqt' if iqt else 'Baseline+ATS'}"
+        f"{', full range at the largest scale' if extreme else ''}",
+        lambda: TQ.itdq(*args, order=order), lambda: TQ.itdq_ref(*args),
+        nbytes, ops, reset=lambda: None)
 
 
 def recon_case(dev, bd, H, W, seed=0):
@@ -709,14 +843,16 @@ def intra_wave_case(dev, H, W, bd, chroma=True, seed=0, htdf=True):
         f"{len(level_off) - 1} levels")
 
 
-def deblock_case(dev, kind, bd, h_scu, w_scu, seed=0):
+def deblock_case(dev, kind, bd, h_scu, w_scu, seed=0, st=None, label=""):
     """One pass in place on the SCU-area view of a bordered plane (as the
-    pipeline calls it); each side filters a plane of its own."""
+    pipeline calls it); each side filters a plane of its own, and `reset`
+    restores the kernel's.  `st`: the strength map (numpy [h_scu, w_scu];
+    random, `strengths`, by default)."""
     rng = np.random.default_rng(seed + bd + len(kind))
     u = 4 if kind.startswith("luma") else 2
     base = bordered(rng, h_scu * u, w_scu * u, 0, 1 << bd)
-    st = _dev(strengths(rng, h_scu, w_scu)[0], dev)
-    a, b = _dev(base, dev), _dev(base, dev)
+    st = _dev(strengths(rng, h_scu, w_scu)[0] if st is None else st, dev)
+    a, b, src = _dev(base, dev), _dev(base, dev), _dev(base, dev)
     sl = (slice(BORDER, BORDER + h_scu * u), slice(BORDER, BORDER + w_scu * u))
 
     def kernel():
@@ -726,8 +862,25 @@ def deblock_case(dev, kind, bd, h_scu, w_scu, seed=0):
     def plain():
         TD._REFS[kind](b[sl], st, bd)
         return [b]
-    return KernelCase(f"deblock_{kind}", f"{h_scu * u}x{w_scu * u} bd{bd}",
-                      kernel, plain, *deblock_work(kind, st))
+    return KernelCase(f"deblock_{kind}",
+                      f"{h_scu * u}x{w_scu * u} bd{bd}{label}", kernel, plain,
+                      *deblock_work(kind, st), reset=lambda: a.copy_(src))
+
+
+def deblock_area_case(dev, kind, area, st, bd, shape):
+    """One pass on a copy of a frame's own area (SCU-cropped view of its
+    plane, as the path hands it) with its own strength map."""
+    a, b, src = area.clone(), area.clone(), area.clone()
+
+    def kernel():
+        TD.deblock_pass(kind, a, st, bd)
+        return [a]
+
+    def plain():
+        TD._REFS[kind](b, st, bd)
+        return [b]
+    return KernelCase(f"deblock_{kind}", shape, kernel, plain,
+                      *deblock_work(kind, st), reset=lambda: a.copy_(src))
 
 
 def mc_case(dev, H, W, bd, chroma=True, seed=0):
@@ -1035,17 +1188,17 @@ def gop_step_cases(dev, caps, t=1):
          pb.iqt)
     cases.append(KernelCase(
         "itdq", f"{label}, {b.tus.shape[0]} TUs",
-        lambda: list(TQ.itdq(*q, tu_off=b.tu_off)),
+        lambda: list(TQ.itdq(*q, tu_off=b.tu_off, order=b.tu_order)),
         lambda: list(TQ.itdq_batch_ref(*q[:2], b.tu_off, *q[2:])),
-        *itdq_work(b.tus)))
-    resids = TQ.itdq(*q, tu_off=b.tu_off)
+        *itdq_work(b.tus), reset=lambda: None))
+    resids = TQ.itdq(*q, tu_off=b.tu_off, order=b.tu_order)
     m = (pb.shp_y, pb.shp_c, bd, tab, pb.main_taps)
     cases.append(KernelCase(
         "mc", f"{label}, {b.mc.shape[0]} blocks",
         lambda: list(TM.mc_all(b.mc, pb.mc_lists, dpb.refs, *m,
                                mc_off=b.mc_off)),
         lambda: list(TM.mc_all_batch_ref(b.mc, b.mc_off, dpb.refs, *m)),
-        *mc_work(b.mc)))
+        *mc_work(b.mc), reset=lambda: None))
     p = TM.mc_all(b.mc, pb.mc_lists, dpb.refs, *m, mc_off=b.mc_off)
     preds = ((p[0], p[1]), (p[2], p[4]), (p[3], p[4]))
     n = p[0].numel()

@@ -1,6 +1,7 @@
 """Reference worker of chip_smoke.py, run as a program of its own:
 
     python tests/torch_reference.py SPEC OUT_EVC [OUT_YUV]
+    python tests/torch_reference.py --streams SPECS OUT_DIR
 
 SPEC is a JSON list (w, h, frames, qp, seed, gop, density, bit depth,
 profile, tools, intra_frac) of `tools/evc_enc.encode_stream`.  The worker
@@ -16,7 +17,11 @@ last line of output is one JSON object {"frames", "gen_s", "numpy_s"}
 It runs as a separate program so that chip_smoke.py, the program under
 test, imports nothing of `xevd_tpu`: the oracle stays independent of the
 port's copy of the host code and serves as a reference decoder binary
-would.  It needs no JAX."""
+would.  It needs no JAX.
+
+With --streams, SPECS is a JSON list of SPECs: the worker writes stream i
+to OUT_DIR/<i>.evc (kept when it exists), all in one process, and prints
+{"streams", "gen_s"}."""
 from __future__ import annotations
 
 import json
@@ -27,23 +32,37 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 
 
-def main(argv) -> int:
-    spec, evc = json.loads(argv[0]), Path(argv[1])
-    yuv = Path(argv[2]) if len(argv) > 2 else None
+def write_stream(spec, evc: Path):
+    """Encode SPEC into `evc` unless it exists."""
+    if evc.exists():
+        return
     w, h, n, qp, seed, gop, density, bd, profile, tools, intra_frac = spec
+    import evc_enc
+    data = evc_enc.encode_stream(
+        w, h, n, qp, seed, gop, density, bd=bd, profile=profile,
+        tools=evc_enc.Tools(**{k: 1 for k in tools}), intra_frac=intra_frac)
+    evc.parent.mkdir(parents=True, exist_ok=True)
+    tmp = evc.with_suffix(".tmp")
+    tmp.write_bytes(data)
+    tmp.replace(evc)
+
+
+def main(argv) -> int:
     sys.path.insert(0, str(REPO))
     sys.path.insert(0, str(REPO / "tools"))
+    if argv[0] == "--streams":
+        specs, out = json.loads(argv[1]), Path(argv[2])
+        t0 = time.perf_counter()
+        for i, spec in enumerate(specs):
+            write_stream(spec, out / f"{i}.evc")
+        print(json.dumps({"streams": len(specs),
+                          "gen_s": time.perf_counter() - t0}))
+        return 0
+    spec, evc = json.loads(argv[0]), Path(argv[1])
+    yuv = Path(argv[2]) if len(argv) > 2 else None
+    w, h = spec[:2]
     t0 = time.perf_counter()
-    if not evc.exists():
-        import evc_enc
-        data = evc_enc.encode_stream(
-            w, h, n, qp, seed, gop, density, bd=bd, profile=profile,
-            tools=evc_enc.Tools(**{k: 1 for k in tools}),
-            intra_frac=intra_frac)
-        evc.parent.mkdir(parents=True, exist_ok=True)
-        tmp = evc.with_suffix(".tmp")
-        tmp.write_bytes(data)
-        tmp.replace(evc)
+    write_stream(spec, evc)
     t_gen = time.perf_counter() - t0
     if yuv is None:
         print(json.dumps({"frames": None, "gen_s": t_gen, "numpy_s": None}))

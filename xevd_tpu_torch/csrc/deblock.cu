@@ -15,11 +15,29 @@
 // (st[r >> 2] luma, st[r >> 1] chroma) instead of materialising the
 // repeated maps of the JAX version.  Luma edges are 4 px apart and reach
 // +-2 px, so one thread per (line, edge) filters all edges at once.
-// Chroma edges are 2 px apart and cascade (edge e reads the sample edge
-// e - 1 wrote), so one thread per line walks its edges in order, reading
-// and writing the plane in place -- the in-place walk is exactly the
-// lax.scan carry of the JAX version.  Division is C truncating division
-// (`_div_trunc`), not an arithmetic shift.
+// Division is C truncating division (`_div_trunc`), not an arithmetic
+// shift.
+//
+// K9, the chroma cascade.  Chroma edges are 2 px apart: edge e at 2e reads
+// A, B, C, D at 2e - 2 .. 2e + 1 and writes B and C, and its only input
+// from an earlier edge is A, which edge e - 1 wrote as its C (the lax.scan
+// carry of the JAX version).  B, C, D and the strength are never written by
+// an earlier edge.  So the cascade breaks wherever an edge has strength 0:
+// the runs of consecutive nonzero edges are independent, and each is a
+// chain that carries A in a register (ops/deblock.py `chroma_runs_ref` is
+// the plain statement of this order).  Both passes stage their samples and
+// strengths in shared memory with coalesced loads, find the run heads (an
+// edge with a strength whose previous edge has none), walk each run in one
+// thread with A, and the next B, in registers, and write the staged samples
+// back coalesced.  The two chroma lines (columns) of an SCU row (column)
+// share their strengths, so one thread walks a run on both at once.
+//   chroma_ver: one warp per SCU row (its two lines), CV_WARPS rows a CTA;
+//     the heads are compacted with a warp ballot and dealt to the lanes.
+//   chroma_hor: a CTA per tile of tw columns and the whole height, a thread
+//     per (column pair, segment of the edges): it walks the runs whose head
+//     lies in its segment, past the segment's end where a run goes on.
+// A run that spans a whole row (all 479 edges of a 1080p chroma line) is
+// one thread's serial walk: a few dozen cycles a step, all on chip.
 //
 // K10: under SUCO a row's chroma edges cascade in the order of the per-CU
 // deblock visit, not left to right.  The JAX version scans waves of at
@@ -35,6 +53,10 @@
 #include <stdint.h>
 
 #define DB_THREADS 256
+#define CV_MAX_WARPS 2     // chroma_ver: SCU rows a CTA (at most)
+#define CH_THREADS 256     // chroma_hor: threads a CTA
+#define CH_MIN_CTAS 256    // chroma_hor: CTAs a launch should give
+#define DB_SMEM (48 << 10) // dynamic shared memory a chroma CTA may take
 
 namespace {
 
@@ -71,6 +93,66 @@ __device__ __forceinline__ void luma_edge(int16_t* p, long step, int st,
   p[-step] = (int16_t)clampi(B + d1, 0, maxv);
   p[0] = (int16_t)clampi(C - d1, 0, maxv);
   p[step] = (int16_t)clampi(D + d2, 0, maxv);
+}
+
+// One chroma edge of strength st > 0 on samples A, B, C, D: the new B and
+// C.  The clip of `edge_delta`, max(0, |d| - max(0, 2 (|d| - st))), is
+// max(0, min(|d|, 2 st - |d|)): three operations on the chain through A.
+__device__ __forceinline__ void chroma_step(int A, int B, int C, int D,
+                                            int st, int maxv, int& nb,
+                                            int& nc) {
+  const int v = A - B * 4 + C * 4 - D;
+  const int a = (v < 0 ? -v : v) >> 3;
+  const int clip = max(0, min(a, 2 * st - a));
+  const int d1 = v < 0 ? -clip : clip;
+  nb = clampi(B + d1, 0, maxv);
+  nc = clampi(C - d1, 0, maxv);
+}
+
+// two int16 samples (two lines or columns) in one 32-bit word
+__device__ __forceinline__ int lo16(uint32_t w) {
+  return (int16_t)(w & 0xffff);
+}
+__device__ __forceinline__ int hi16(uint32_t w) { return (int16_t)(w >> 16); }
+__device__ __forceinline__ uint32_t pack16(int lo, int hi) {
+  return (uint32_t)(uint16_t)lo | ((uint32_t)(uint16_t)hi << 16);
+}
+
+// Walks the run of edges that starts at `e` on a pair of lines whose
+// samples are the words x[i * xp], i < 2 ne (both lines' sample i), with
+// strengths s[e * sp]; returns the first edge after the run (strength
+// <= 0, or ne).
+__device__ __forceinline__ int chroma_run(uint32_t* x, int xp,
+                                          const int32_t* s, int sp, int e,
+                                          int ne, int maxv) {
+  uint32_t A = x[(2 * e - 2) * xp], B = x[(2 * e - 1) * xp];
+  uint32_t C = x[2 * e * xp], D = x[(2 * e + 1) * xp];
+  int st = s[e * sp];
+  for (;;) {
+    // the next edge's C, D and strength, which this edge does not write,
+    // load while this edge's chain computes
+    const bool more = e + 1 < ne;
+    uint32_t nC = 0, nD = 0;
+    int nst = 0;
+    if (more) {
+      nst = s[(e + 1) * sp];
+      nC = x[(2 * e + 2) * xp];
+      nD = x[(2 * e + 3) * xp];
+    }
+    int b0, c0, b1, c1;
+    chroma_step(lo16(A), lo16(B), lo16(C), lo16(D), st, maxv, b0, c0);
+    chroma_step(hi16(A), hi16(B), hi16(C), hi16(D), st, maxv, b1, c1);
+    const uint32_t nc = pack16(c0, c1);
+    x[(2 * e - 1) * xp] = pack16(b0, b1);
+    x[2 * e * xp] = nc;
+    ++e;
+    if (!more || nst <= 0) return e;
+    A = nc;   // the next edge's A is this edge's C
+    B = D;    // and its B this edge's D, which no edge has written
+    C = nC;
+    D = nD;
+    st = nst;
+  }
 }
 
 __device__ __forceinline__ void chroma_edge(int16_t* p, long step, int st,
@@ -112,37 +194,109 @@ __global__ void luma_hor_kernel(int16_t* area, int stride, int H, int W,
   if (s > 0) luma_edge(area + (long)(4 * e) * stride + c, stride, s, maxv);
 }
 
-// chroma area [H, W]; st [H/2, W/2] per SCU.  Thread per row, walking the
-// vertical edges at x = 2, 4, ... left to right.
-__global__ void chroma_ver_kernel(int16_t* area, int stride, int H, int W,
-                                  const int32_t* __restrict__ st, int maxv,
-                                  long long area_bs, long long st_bs) {
+// chroma area [H, W]; st [H/2, W/2] per SCU.  A warp per SCU row: its two
+// lines (interleaved, one 32-bit word a column) and its strength row are
+// staged in shared memory, the run heads compacted by ballot, each run
+// walked by one lane.  Shared memory a warp: cv_warp_bytes(W).
+__host__ __device__ __forceinline__ int cv_warp_bytes(int W) {
+  return (W * 4 + (W >> 1) * 4 + (W >> 1) * 2 + 15) & ~15;  // lines, st, heads
+}
+
+__global__ void __launch_bounds__(CV_MAX_WARPS * 32)
+chroma_ver_kernel(int16_t* area, int stride, int H, int W,
+                  const int32_t* __restrict__ st, int maxv,
+                  long long area_bs, long long st_bs) {
+  extern __shared__ __align__(16) unsigned char db_smem[];
   area += blockIdx.y * area_bs;
   st += blockIdx.y * st_bs;
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= H) return;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rs = blockIdx.x * (blockDim.x >> 5) + warp;   // SCU row
+  if (2 * rs >= H) return;                                  // warp-uniform
   const int ws = W >> 1;
-  int16_t* row = area + (long)r * stride;
-  const int32_t* srow = st + (r >> 1) * ws;
-  for (int e = 1; e < ws; ++e) {
-    const int s = srow[e];
-    if (s > 0) chroma_edge(row + 2 * e, 1, s, maxv);
+  uint32_t* x = (uint32_t*)(db_smem + (size_t)warp * cv_warp_bytes(W));
+  int32_t* s = (int32_t*)(x + W);
+  int16_t* heads = (int16_t*)(s + ws);
+  int16_t* r0 = area + (long)(2 * rs) * stride;
+  int16_t* r1 = r0 + stride;
+  const int32_t* srow = st + (long)rs * ws;
+#pragma unroll 4
+  for (int i = lane; i < ws; i += 32) s[i] = srow[i];
+#pragma unroll 4
+  for (int i = lane; i < W; i += 32) x[i] = pack16(r0[i], r1[i]);
+  __syncwarp();
+  // run heads: edge e (1 <= e < ws) with a strength whose edge e - 1 has
+  // none (edge 0, the area's left side, is no edge)
+  int nh = 0;
+  for (int e0 = 1; e0 < ws; e0 += 32) {
+    const int e = e0 + lane;
+    const bool head = e < ws && s[e] > 0 && (e == 1 || s[e - 1] <= 0);
+    const unsigned m = __ballot_sync(0xffffffffu, head);
+    if (head) heads[nh + __popc(m & ((1u << lane) - 1))] = (int16_t)e;
+    nh += __popc(m);
+  }
+  if (nh == 0) return;                                      // warp-uniform
+  __syncwarp();
+  for (int k = lane; k < nh; k += 32)
+    chroma_run(x, 1, s, 1, heads[k], ws, maxv);
+  __syncwarp();
+  for (int i = lane; i < W; i += 32) {
+    const uint32_t w = x[i];
+    r0[i] = (int16_t)lo16(w);
+    r1[i] = (int16_t)hi16(w);
   }
 }
 
-// Thread per column, walking the horizontal edges at y = 2, 4, ... top to
-// bottom.
-__global__ void chroma_hor_kernel(int16_t* area, int stride, int H, int W,
-                                  const int32_t* __restrict__ st, int maxv,
-                                  long long area_bs, long long st_bs) {
+// A CTA per tile of tw columns (tw even) over the whole height: the tile
+// (as tw / 2 column pairs, one 32-bit word a pair and row) and its
+// strength columns staged in shared memory, ch_tile_bytes(H, tw); a thread
+// per (column pair, segment of the edges) walks the runs whose heads lie
+// in its segment.
+__host__ __device__ __forceinline__ int ch_tile_bytes(int H, int tw) {
+  return H * tw * 2 + (H >> 1) * (tw >> 1) * 4;   // samples, strengths
+}
+
+__global__ void __launch_bounds__(CH_THREADS)
+chroma_hor_kernel(int16_t* area, int stride, int H, int W,
+                  const int32_t* __restrict__ st, int maxv,
+                  long long area_bs, long long st_bs, int tw) {
+  extern __shared__ __align__(16) unsigned char db_smem[];
   area += blockIdx.y * area_bs;
   st += blockIdx.y * st_bs;
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= W) return;
-  const int ws = W >> 1, ne = H >> 1;
-  for (int e = 1; e < ne; ++e) {
-    const int s = st[e * ws + (c >> 1)];
-    if (s > 0) chroma_edge(area + (long)(2 * e) * stride + c, stride, s, maxv);
+  const int ws = W >> 1, ne = H >> 1, tp = tw >> 1;
+  const int c0 = blockIdx.x * tw, cp = min(tw, W - c0) >> 1;  // pairs here
+  uint32_t* x = (uint32_t*)db_smem;          // [H][tp]
+  int32_t* s = (int32_t*)(x + H * tp);       // [ne][tp]
+#pragma unroll 4
+  for (int i = threadIdx.x; i < ne * tp; i += blockDim.x) {
+    const int r = i / tp, p = i - r * tp;
+    s[i] = p < cp ? st[(long)r * ws + (c0 >> 1) + p] : 0;
+  }
+#pragma unroll 4
+  for (int i = threadIdx.x; i < H * tp; i += blockDim.x) {
+    const int r = i / tp, p = i - r * tp;
+    const int16_t* q = area + (long)r * stride + c0 + 2 * p;
+    x[i] = p < cp ? pack16(q[0], q[1]) : 0;
+  }
+  __syncthreads();
+  const int p = threadIdx.x % tp, k = threadIdx.x / tp;
+  const int nseg = blockDim.x / tp, L = (ne - 1 + nseg - 1) / nseg;
+  const int e_lo = 1 + k * L, e_hi = min(e_lo + L, ne);
+  bool any = false;
+  if (p < cp) {
+    for (int e = e_lo; e < e_hi; ++e) {
+      if (s[e * tp + p] <= 0 || (e > 1 && s[(e - 1) * tp + p] > 0)) continue;
+      any = true;
+      e = chroma_run(x + p, tp, s + p, tp, e, ne, maxv);
+    }
+  }
+  if (!__syncthreads_or(any)) return;        // no edge in the tile
+  for (int i = threadIdx.x; i < H * tp; i += blockDim.x) {
+    const int r = i / tp, p2 = i - r * tp;
+    if (p2 < cp) {
+      int16_t* q = area + (long)r * stride + c0 + 2 * p2;
+      q[0] = (int16_t)lo16(x[i]);
+      q[1] = (int16_t)hi16(x[i]);
+    }
   }
 }
 
@@ -198,13 +352,19 @@ extern "C" int xevd_deblock_luma_hor(void* area, int stride, int H, int W,
   return (int)cudaGetLastError();
 }
 
+// The chroma passes take H and W even (2 x the SCU grid); a line (a
+// column) too long for DB_SMEM of staging is refused.
 extern "C" int xevd_deblock_chroma_ver(void* area, int stride, int H, int W,
                                        const void* st, int bd, int G,
                                        long long area_bs, long long st_bs,
                                        void* stream) {
-  if (H > 0 && G > 0)
-    chroma_ver_kernel<<<dim3(blocks(H), G), DB_THREADS, 0,
-                        (cudaStream_t)stream>>>(
+  const int per = cv_warp_bytes(W);
+  if (per > DB_SMEM || (H | W) & 1) return (int)cudaErrorInvalidValue;
+  const int wpc = per * CV_MAX_WARPS <= DB_SMEM ? CV_MAX_WARPS : 1;
+  const int rows = H >> 1;
+  if (rows > 0 && W > 2 && G > 0)
+    chroma_ver_kernel<<<dim3((rows + wpc - 1) / wpc, G), 32 * wpc,
+                        per * wpc, (cudaStream_t)stream>>>(
         (int16_t*)area, stride, H, W, (const int32_t*)st, (1 << bd) - 1,
         area_bs, st_bs);
   return (int)cudaGetLastError();
@@ -214,11 +374,19 @@ extern "C" int xevd_deblock_chroma_hor(void* area, int stride, int H, int W,
                                        const void* st, int bd, int G,
                                        long long area_bs, long long st_bs,
                                        void* stream) {
-  if (W > 0 && G > 0)
-    chroma_hor_kernel<<<dim3(blocks(W), G), DB_THREADS, 0,
-                        (cudaStream_t)stream>>>(
+  // the widest tile (at most 16 columns) that fits and still gives
+  // CH_MIN_CTAS CTAs, enough to spread over the card's 132 SMs
+  int tw = 16;
+  while (tw > 4 && (long long)((W + tw - 1) / tw) * G < CH_MIN_CTAS)
+    tw >>= 1;
+  while (tw > 2 && ch_tile_bytes(H, tw) > DB_SMEM) tw >>= 1;
+  if (ch_tile_bytes(H, tw) > DB_SMEM || (H | W) & 1)
+    return (int)cudaErrorInvalidValue;
+  if (H > 2 && W > 0 && G > 0)
+    chroma_hor_kernel<<<dim3((W + tw - 1) / tw, G), CH_THREADS,
+                        ch_tile_bytes(H, tw), (cudaStream_t)stream>>>(
         (int16_t*)area, stride, H, W, (const int32_t*)st, (1 << bd) - 1,
-        area_bs, st_bs);
+        area_bs, st_bs, tw);
   return (int)cudaGetLastError();
 }
 

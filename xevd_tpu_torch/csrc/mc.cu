@@ -25,15 +25,19 @@
 // position and taps.  Within one list the blocks tile disjoint parts of
 // the picture, and the two lists are two launches on one stream, so the
 // read-modify-write of pred and cnt needs no atomics and is deterministic.
-// The reference planes come as a pointer table in the kernel's parameters
-// (one pitch per plane group), so no plane is stacked or copied.
+// A frame's reference planes come as a pointer table in the kernel's
+// parameters (one pitch per plane group), so no plane is stacked or copied;
+// a frame has at most MAX_SLOTS references (ops/pack.py refuses more).
 //
 // GOP batch (K15): the table of one list holds the blocks of the G frames
 // of one time step, those of frame g at rows row_off[g] .. row_off[g + 1] -
 // 1; a CTA adds into its frame's prediction and count planes (g times their
-// batch stride), and its slot indexes the step's pointer table of DPB
-// pictures (d, g) (xevd_tpu_torch/parallel/gop.py).  One launch a list and
-// step.
+// batch stride).  Its references are the DPB ring of the batch, one tensor
+// [D, G_dev, H, W] a plane (xevd_tpu_torch/parallel/gop.py): slot s =
+// (d - 1) * G_dev + g is GOP g's picture d steps back from step t, ring
+// entry ((t - d) mod D, g), which the CTA addresses by the ring's strides.
+// So the batch takes any D x G_dev, as JAX's step does.  One launch a list
+// and step.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -45,8 +49,36 @@
 
 namespace {
 
-struct RefPlanes {
-  const int16_t* p[MAX_SLOTS];
+// A frame's references: a pointer a slot and plane (u, v NULL for 4:0:0).
+struct SlotTable {
+  const int16_t* y[MAX_SLOTS];
+  const int16_t* u[MAX_SLOTS];
+  const int16_t* v[MAX_SLOTS];
+  __device__ __forceinline__ void get(int s, const int16_t*& py,
+                                      const int16_t*& pu,
+                                      const int16_t*& pv) const {
+    py = y[s];
+    pu = u[s];
+    pv = v[s];
+  }
+};
+
+// A GOP batch's DPB ring: plane p's picture (i, g) at p + i * sd + g * sg
+// (elements; sd_c, sg_c for u and v); slot s is ring entry
+// ((t - d) mod D, g) with d = s / Gd + 1, g = s mod Gd.
+struct Ring {
+  const int16_t *y, *u, *v;
+  long long sd_y, sg_y, sd_c, sg_c;
+  int D, Gd, t;
+  __device__ __forceinline__ void get(int s, const int16_t*& py,
+                                      const int16_t*& pu,
+                                      const int16_t*& pv) const {
+    const int d = s / Gd + 1, g = s - (d - 1) * Gd;
+    const long long i = ((t - d) % D + D) % D;
+    py = y + i * sd_y + g * sg_y;
+    pu = u ? u + i * sd_c + g * sg_c : nullptr;
+    pv = v ? v + i * sd_c + g * sg_c : nullptr;
+  }
 };
 
 // MC table row: plane, w, h, case, slot, gx, gy, py, px, list
@@ -118,9 +150,10 @@ __device__ __forceinline__ void mc_plane(
   __syncthreads();  // the window and buffer are reused by the next plane
 }
 
+template <class Refs>
 __global__ void __launch_bounds__(MC_THREADS)
-mc_kernel(const int32_t* __restrict__ rows, RefPlanes ref_y,
-          RefPlanes ref_u, RefPlanes ref_v, int pitch_y, int pitch_c,
+mc_kernel(const int32_t* __restrict__ rows, Refs refs, int pitch_y,
+          int pitch_c,
           int32_t* pred_y, int32_t* pred_u, int32_t* pred_v, int8_t* cnt_y,
           int8_t* cnt_c, int ps_y, int ps_c,
           const int32_t* __restrict__ taps_l,
@@ -140,15 +173,33 @@ mc_kernel(const int32_t* __restrict__ rows, RefPlanes ref_y,
     pred_v += g * pbs_c;
     cnt_c += g * pbs_c;
   }
+  const int16_t *ry, *ru, *rv;
+  refs.get(slot, ry, ru, rv);
   if (plane == 0) {
-    mc_plane<8, 4>(ref_y.p[slot], pitch_y, pred_y, cnt_y, ps_y, taps_l, w,
-                   h, cs, gx, gy, py, px, bd, s_win, s_buf);
+    mc_plane<8, 4>(ry, pitch_y, pred_y, cnt_y, ps_y, taps_l, w, h, cs, gx,
+                   gy, py, px, bd, s_win, s_buf);
   } else {
-    mc_plane<4, 5>(ref_u.p[slot], pitch_c, pred_u, cnt_c, ps_c, taps_c, w,
-                   h, cs, gx, gy, py, px, bd, s_win, s_buf);
-    mc_plane<4, 5>(ref_v.p[slot], pitch_c, pred_v, nullptr, ps_c, taps_c, w,
-                   h, cs, gx, gy, py, px, bd, s_win, s_buf);
+    mc_plane<4, 5>(ru, pitch_c, pred_u, cnt_c, ps_c, taps_c, w, h, cs, gx,
+                   gy, py, px, bd, s_win, s_buf);
+    mc_plane<4, 5>(rv, pitch_c, pred_v, nullptr, ps_c, taps_c, w, h, cs, gx,
+                   gy, py, px, bd, s_win, s_buf);
   }
+}
+
+template <class Refs>
+int launch(const void* rows, int n_rows, const Refs& refs, int pitch_y,
+           int pitch_c, void* pred_y, void* pred_u, void* pred_v,
+           void* cnt_y, void* cnt_c, int ps_y, int ps_c, const void* taps_l,
+           const void* taps_c, int bd, const void* row_off, int G,
+           long long pbs_y, long long pbs_c, void* stream) {
+  if (n_rows > 0) {
+    mc_kernel<Refs><<<n_rows, MC_THREADS, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)rows, refs, pitch_y, pitch_c, (int32_t*)pred_y,
+        (int32_t*)pred_u, (int32_t*)pred_v, (int8_t*)cnt_y, (int8_t*)cnt_c,
+        ps_y, ps_c, (const int32_t*)taps_l, (const int32_t*)taps_c, bd,
+        (const int32_t*)row_off, G, pbs_y, pbs_c);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -166,18 +217,35 @@ extern "C" int xevd_mc(const void* rows, int n_rows, const void* const* ref_y,
                        const void* taps_c, int bd, const void* row_off, int G,
                        long long pbs_y, long long pbs_c, void* stream) {
   if (n_slots < 1 || n_slots > MAX_SLOTS) return (int)cudaErrorInvalidValue;
-  RefPlanes ry = {}, ru = {}, rv = {};
+  SlotTable refs = {};
   for (int s = 0; s < n_slots; ++s) {
-    ry.p[s] = (const int16_t*)ref_y[s];
-    if (ref_u) ru.p[s] = (const int16_t*)ref_u[s];
-    if (ref_v) rv.p[s] = (const int16_t*)ref_v[s];
+    refs.y[s] = (const int16_t*)ref_y[s];
+    if (ref_u) refs.u[s] = (const int16_t*)ref_u[s];
+    if (ref_v) refs.v[s] = (const int16_t*)ref_v[s];
   }
-  if (n_rows > 0) {
-    mc_kernel<<<n_rows, MC_THREADS, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)rows, ry, ru, rv, pitch_y, pitch_c, (int32_t*)pred_y,
-        (int32_t*)pred_u, (int32_t*)pred_v, (int8_t*)cnt_y, (int8_t*)cnt_c,
-        ps_y, ps_c, (const int32_t*)taps_l, (const int32_t*)taps_c, bd,
-        (const int32_t*)row_off, G, pbs_y, pbs_c);
-  }
-  return (int)cudaGetLastError();
+  return launch(rows, n_rows, refs, pitch_y, pitch_c, pred_y, pred_u, pred_v,
+                cnt_y, cnt_c, ps_y, ps_c, taps_l, taps_c, bd, row_off, G,
+                pbs_y, pbs_c, stream);
+}
+
+// The GOP batch's list: references from the DPB ring ring_y / ring_u /
+// ring_v (u, v NULL for 4:0:0) of D x Gd pictures a plane, sd / sg its
+// strides over the ring entries and the GOPs (elements), t the step.
+extern "C" int xevd_mc_ring(const void* rows, int n_rows, const void* ring_y,
+                            const void* ring_u, const void* ring_v,
+                            long long sd_y, long long sg_y, long long sd_c,
+                            long long sg_c, int D, int Gd, int t,
+                            int pitch_y, int pitch_c, void* pred_y,
+                            void* pred_u, void* pred_v, void* cnt_y,
+                            void* cnt_c, int ps_y, int ps_c,
+                            const void* taps_l, const void* taps_c, int bd,
+                            const void* row_off, int G, long long pbs_y,
+                            long long pbs_c, void* stream) {
+  if (D < 1 || Gd < 1) return (int)cudaErrorInvalidValue;
+  const Ring refs = {(const int16_t*)ring_y, (const int16_t*)ring_u,
+                     (const int16_t*)ring_v, sd_y, sg_y, sd_c, sg_c, D, Gd,
+                     t};
+  return launch(rows, n_rows, refs, pitch_y, pitch_c, pred_y, pred_u, pred_v,
+                cnt_y, cnt_c, ps_y, ps_c, taps_l, taps_c, bd, row_off, G,
+                pbs_y, pbs_c, stream);
 }

@@ -41,8 +41,8 @@ _DB = (_I, _L, _L)
 # void*, every scalar int, every batch stride long long); each returns
 # cudaGetLastError().
 SIGNATURES = {
-    "xevd_itdq": (_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _I, _P, _P,
-                  _I, _I, _P, _I, _L, _L, _L, _L, _P),
+    "xevd_itdq": (_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _I,
+                  _I, _I, _P, _P, _I, _L, _L, _L, _L, _P),
     "xevd_intra_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _P,
                         _I, _L, _L, _P, _I, _I, _P),
     "xevd_intra_scan_grid": (_P,),
@@ -52,6 +52,9 @@ SIGNATURES = {
     "xevd_deblock_chroma_hor": (_P, _I, _I, _I, _P, _I, *_DB, _P),
     "xevd_mc": (_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I,
                 _P, _P, _I, _P, _I, _L, _L, _P),
+    "xevd_mc_ring": (_P, _I, _P, _P, _P, _L, _L, _L, _L, _I, _I, _I, _I,
+                     _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P, _I, _L,
+                     _L, _P),
     "xevd_intra_scan_wave": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P,
                              _I, _P, _I, _I, _P, _P),
     "xevd_intra_scan_wave_grid": (_P,),

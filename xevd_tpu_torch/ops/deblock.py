@@ -95,6 +95,41 @@ def chroma_hor_ref(area, st, bd):
     area.copy_(p)
 
 
+def chroma_runs_ref(kind, area, st, bd, rng=None):
+    """K9 in the order of its kernels (csrc/deblock.cu): the runs of
+    consecutive edges with a strength, each filtered as one chain that
+    carries A (the previous edge's new C) on both lines (columns) of its
+    SCU row (column), the runs in any order -- a random one with `rng` (a
+    numpy Generator).  Equal to `chroma_ver_ref` / `chroma_hor_ref` for
+    every order: the statement that the runs are independent."""
+    maxv = (1 << bd) - 1
+    p = area.to(torch.int32)
+    lines, s = (p, st) if kind == "chroma_ver" else (p.t(), st.t())
+    on = (s > 0).clone()
+    on[:, 0] = False                 # x = 0 (y = 0) is the area's side
+    prev = torch.zeros_like(on)
+    prev[:, 1:] = on[:, :-1]
+    runs = []
+    for r, e in (on & ~prev).nonzero().tolist():
+        end = e
+        while end < on.shape[1] and on[r, end]:
+            end += 1
+        runs.append((r, e, end))
+    order = rng.permutation(len(runs)) if rng is not None else \
+        range(len(runs))
+    for k in order:
+        r, e0, e1 = runs[k]
+        ln = lines[2 * r:2 * r + 2]
+        A = ln[:, 2 * e0 - 2].clone()
+        for e in range(e0, e1):
+            x = 2 * e
+            B, C = _chroma_filter(A, ln[:, x - 1], ln[:, x], ln[:, x + 1],
+                                  s[r, e].expand(2), maxv)
+            ln[:, x - 1], ln[:, x] = B, C
+            A = C
+    area.copy_(p)
+
+
 _REFS = {"luma_ver": luma_ver_ref, "luma_hor": luma_hor_ref,
          "chroma_ver": chroma_ver_ref, "chroma_hor": chroma_hor_ref}
 # SCU size in samples of the plane each pass filters

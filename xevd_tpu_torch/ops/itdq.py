@@ -19,7 +19,7 @@ from ..host import tables as T
 
 from ..kernels import build as K
 from .pack import (TU_COLS, TU_COMP, TU_LOG2H, TU_LOG2W, TU_SCALE, TU_TRS,
-                   TU_X, TU_Y)
+                   TU_X, TU_Y, ItdqOrder)
 from .tables import BORDER, MAX_TX_VAL, MIN_TX_VAL
 
 S32_MAX = 2 ** 31 - 1
@@ -131,23 +131,27 @@ def itdq_batch_ref(coefs, tus, tu_off, shp_y, shp_c, bd, tables,
                  else torch.stack([o[i] for o in outs]) for i in range(3))
 
 
-def itdq(coefs, tus, shp_y, shp_c, bd, tables, iqt=False, tu_off=None):
+def itdq(coefs, tus, shp_y, shp_c, bd, tables, iqt=False, tu_off=None,
+         order: ItdqOrder | None = None):
     """coefs: (coef_y, coef_u, coef_v) int16 planes (u/v None for 4:0:0);
     tus: int32 [N, 7] TU table (ops/pack.py), whose trs column picks the
     ATS bases; `iqt`: the Main DCT-2 for every TU of the frame.  Returns
     bordered int16 residual planes of shapes shp_y / shp_c (zero where no
     TU).  A GOP batch of G frames: coefficient planes [G, h, w], `tu_off`
     int32 [G + 1] (frame g's TUs are rows tu_off[g]:tu_off[g + 1]), and
-    residual planes [G, ...]."""
+    residual planes [G, ...].  `order`: the kernel's launch over the TUs
+    by size class (ops/pack.py `itdq_order`, on the device as the pack
+    uploads it, built with the same `iqt`), which CUDA planes need; the
+    plain version needs none."""
     if coefs[0].device.type == "cpu":
         if tu_off is not None:
             return itdq_batch_ref(coefs, tus, tu_off, shp_y, shp_c, bd,
                                   tables, iqt)
         return itdq_ref(coefs, tus, shp_y, shp_c, bd, tables, iqt)
-    return _itdq_cuda(coefs, tus, shp_y, shp_c, bd, tables, iqt, tu_off)
+    return _itdq_cuda(coefs, tus, shp_y, shp_c, bd, tables, tu_off, order)
 
 
-def _itdq_cuda(coefs, tus, shp_y, shp_c, bd, tables, iqt, tu_off):
+def _itdq_cuda(coefs, tus, shp_y, shp_c, bd, tables, tu_off, order):
     coef_y, coef_u, coef_v = coefs
     tm64, tr = tables["tm64"], tables["tr"]
     batched = tu_off is not None
@@ -156,6 +160,15 @@ def _itdq_cuda(coefs, tus, shp_y, shp_c, bd, tables, iqt, tu_off):
     K.require(tr, torch.int32, 4, contiguous=True)
     if batched:
         K.require(tu_off, torch.int32, 1, contiguous=True)
+    if order is None:
+        raise ValueError("itdq: the kernel needs the TUs' class order "
+                         "(ops/pack.py itdq_order)")
+    K.require(order.order, torch.int32, 2, contiguous=True)
+    K.require(order.classes, torch.int32, 2, contiguous=True)
+    if order.order.shape != (tus.shape[0], 2) or order.classes.shape[1] != 4:
+        raise ValueError(f"itdq: class order {tuple(order.order.shape)} / "
+                         f"{tuple(order.classes.shape)} for "
+                         f"{tus.shape[0]} TUs")
     for c in coefs:
         if c is not None:
             K.require(c, torch.int16, 3 if batched else 2,
@@ -185,9 +198,9 @@ def _itdq_cuda(coefs, tus, shp_y, shp_c, bd, tables, iqt, tu_off):
         res_y.data_ptr(), res_u.data_ptr() if chroma else None,
         res_v.data_ptr() if chroma else None,
         res_y.stride(-2), res_u.stride(-2) if chroma else 0,
-        tus.data_ptr(), n, tm64.data_ptr(), tr.data_ptr(), bd, int(iqt),
-        tu_off.data_ptr() if batched else None, G, bs(coef_y),
-        bs(coef_u if chroma else None), bs(res_y),
-        bs(res_u if chroma else None), K.stream_ptr(tus.device))
+        tus.data_ptr(), order.order.data_ptr(), order.classes.data_ptr(),
+        order.classes.shape[0], order.n_cta, order.smem, tm64.data_ptr(),
+        tr.data_ptr(), bd, bs(coef_y), bs(coef_u if chroma else None),
+        bs(res_y), bs(res_u if chroma else None), K.stream_ptr(tus.device))
     K.check(err, "xevd_itdq")
     return res_y, res_u, res_v

@@ -11,16 +11,45 @@ included, must be on the card.  `main_taps` (a Main stream with ADMVP)
 selects the Main tap tables; the arithmetic is the same
 (xevd_tpu/ops/jax_mc.py:61-66).  With `mc_off` the table holds the blocks
 of the G frames of one time step of a GOP batch (K15), still one launch
-per list (`mc_all_batch_ref` on the CPU)."""
+per list (`mc_all_batch_ref` on the CPU); its references are the batch's
+DPB ring (`DpbRing`), addressed by the ring's strides."""
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
 from ..kernels import build as K
 from .pack import (MAX_REF_SLOTS, MC_CASE, MC_GX, MC_GY, MC_H, MC_PLANE,
                    MC_PX, MC_PY, MC_SLOT, MC_W)
+
+
+@dataclass(frozen=True)
+class DpbRing:
+    """The references of one time step t of a GOP batch (K15): the DPB
+    ring, one tensor int16 [D, G_dev, H, W] a plane (y, u, v; u, v None for
+    4:0:0), step s written into entry s mod D.  Reference slot
+    (d - 1) * G_dev + g is GOP g's picture d steps back: ring entry
+    ((t - d) mod D, g).  Any D x G_dev."""
+    planes: tuple
+    t: int
+
+    @property
+    def D(self) -> int:
+        return self.planes[0].shape[0]
+
+    @property
+    def Gd(self) -> int:
+        return self.planes[0].shape[1]
+
+    def stacks(self):
+        """The D x G_dev slots' planes stacked in slot order, [R, H, W] a
+        plane (None for 4:0:0): the plain version's view of the ring."""
+        s = torch.arange(self.D * self.Gd, device=self.planes[0].device)
+        d = s // self.Gd + 1
+        return [None if p is None else p[(self.t - d) % self.D, s % self.Gd]
+                for p in self.planes]
 
 
 def _taps(tables, is_luma, main_taps):
@@ -97,15 +126,16 @@ def mc_all_ref(mc, refs, shp_y, shp_c, bd, tables, main_taps=False):
     return planes
 
 
-def mc_all_batch_ref(mc, mc_off, refs, shp_y, shp_c, bd, tables,
+def mc_all_batch_ref(mc, mc_off, ring: DpbRing, shp_y, shp_c, bd, tables,
                      main_taps=False):
     """Plain version of the batched `mc_all`: frame g's rows of both lists
     (mc_off, ops/pack.py `stack_frames`) through `mc_all_ref`'s loop into
-    the planes [g]; returns [G, ...] planes."""
+    the planes [g], each slot read from its ring entry; returns [G, ...]
+    planes."""
     off = mc_off.cpu().tolist()
     G, n0 = len(off[0]) - 1, off[0][-1]
-    planes = _new_planes(shp_y, shp_c, refs[0][0].device, (G,))
-    stacks = _ref_stacks(refs)
+    planes = _new_planes(shp_y, shp_c, ring.planes[0].device, (G,))
+    stacks = ring.stacks()
     for g in range(G):
         rows = torch.cat([mc[off[0][g]:off[0][g + 1]],
                           mc[n0 + off[1][g]:n0 + off[1][g + 1]]])
@@ -156,11 +186,15 @@ def mc_all(mc, lists, refs, shp_y, shp_c, bd, tables, main_taps=False,
     pred_u, pred_v, cnt_c): int32 prediction sums and int8 counts over
     bordered planes of shapes shp_y / shp_c.  A GOP batch of G frames:
     `mc_off` int32 [2, G + 1], frame g's rows of list l at
-    mc_off[l, g]:mc_off[l, g + 1] from the list's first row, and the
-    planes [G, ...]."""
-    if not refs:
+    mc_off[l, g]:mc_off[l, g + 1] from the list's first row, refs a
+    `DpbRing`, and the planes [G, ...]."""
+    if (mc_off is not None) != isinstance(refs, DpbRing):
+        raise ValueError("mc_all: a GOP batch (mc_off) reads a DpbRing, a "
+                         "frame a per-slot plane list")
+    if not isinstance(refs, DpbRing) and not refs:
         raise ValueError("mc_all: no reference planes")
-    if refs[0][0].device.type == "cpu":
+    ref0 = refs.planes[0] if isinstance(refs, DpbRing) else refs[0][0]
+    if ref0.device.type == "cpu":
         if mc_off is not None:
             return mc_all_batch_ref(mc, mc_off, refs, shp_y, shp_c, bd,
                                     tables, main_taps)
@@ -196,27 +230,36 @@ def _mc_cuda(mc, lists, refs, shp_y, shp_c, bd, tables, main_taps, mc_off):
     n0, n1 = lists
     if n0 + n1 != mc.shape[0]:
         raise ValueError(f"MC lists {lists} != {mc.shape[0]} table rows")
-    if len(refs) > MAX_REF_SLOTS:
-        raise ValueError(f"{len(refs)} reference slots > {MAX_REF_SLOTS}")
-    if chroma != (refs[0][1] is not None):
-        raise ValueError("mc_all: chroma reference planes and shp_c disagree")
-    ref_y, pitch_y = _ref_pointers(refs, 0)
-    ref_u, pitch_c = _ref_pointers(refs, 1) if chroma else (None, 0)
-    ref_v, _ = _ref_pointers(refs, 2) if chroma else (None, 0)
-    if chroma and refs[0][1].shape != refs[0][2].shape:
-        raise ValueError("mc_all: u and v reference planes differ in shape")
+    lib = K.lib()
+    if batched:
+        refs_args, pitch_y, pitch_c = _ring_args(refs, chroma)
+        entry = lib.xevd_mc_ring
+    else:
+        if len(refs) > MAX_REF_SLOTS:
+            raise ValueError(f"{len(refs)} reference slots > "
+                             f"{MAX_REF_SLOTS}")
+        if chroma != (refs[0][1] is not None):
+            raise ValueError("mc_all: chroma reference planes and shp_c "
+                             "disagree")
+        ref_y, pitch_y = _ref_pointers(refs, 0)
+        ref_u, pitch_c = _ref_pointers(refs, 1) if chroma else (None, 0)
+        ref_v, _ = _ref_pointers(refs, 2) if chroma else (None, 0)
+        if chroma and refs[0][1].shape != refs[0][2].shape:
+            raise ValueError("mc_all: u and v reference planes differ in "
+                             "shape")
+        refs_args = (ref_y, ref_u, ref_v, len(refs))
+        entry = lib.xevd_mc
     G = mc_off.shape[1] - 1 if batched else 1
     pred_y, cnt_y, pred_u, pred_v, cnt_c = planes = _new_planes(
         shp_y, shp_c, mc.device, (G,) if batched else ())
-    lib = K.lib()
     stream = K.stream_ptr(mc.device)
     for lidx, (off, n) in enumerate(((0, n0), (n0, n1))):
         if n == 0:
             continue
         K.count("mc")
-        err = lib.xevd_mc(
-            mc[off:].data_ptr(), n, ref_y, ref_u, ref_v, len(refs), pitch_y,
-            pitch_c, pred_y.data_ptr(), pred_u.data_ptr() if chroma else None,
+        err = entry(
+            mc[off:].data_ptr(), n, *refs_args, pitch_y, pitch_c,
+            pred_y.data_ptr(), pred_u.data_ptr() if chroma else None,
             pred_v.data_ptr() if chroma else None, cnt_y.data_ptr(),
             cnt_c.data_ptr() if chroma else None, pred_y.stride(-2),
             pred_u.stride(-2) if chroma else 0, taps_l.data_ptr(),
@@ -224,5 +267,25 @@ def _mc_cuda(mc, lists, refs, shp_y, shp_c, bd, tables, main_taps, mc_off):
             mc_off[lidx].data_ptr() if batched else None, G,
             pred_y.stride(0) if batched else 0,
             pred_u.stride(0) if batched and chroma else 0, stream)
-        K.check(err, "xevd_mc")
+        K.check(err, entry.__name__)
     return planes
+
+
+def _ring_args(ring: DpbRing, chroma: bool):
+    """The ring's arguments of `xevd_mc_ring` (base pointers, strides
+    over entries and GOPs, D, G_dev, t) and the row pitches."""
+    y, u, v = ring.planes
+    if chroma != (u is not None):
+        raise ValueError("mc_all: chroma reference planes and shp_c disagree")
+    for p in (y, u, v):
+        if p is not None:
+            K.require(p, torch.int16, 4, rows_contiguous=True)
+    if chroma and (u.shape != v.shape or u.stride() != v.stride()):
+        raise ValueError("mc_all: u and v rings differ in shape or strides")
+    if chroma and u.shape[:2] != y.shape[:2]:
+        raise ValueError("mc_all: the rings' D x G_dev differ")
+    return ((y.data_ptr(), u.data_ptr() if chroma else None,
+             v.data_ptr() if chroma else None, y.stride(0), y.stride(1),
+             u.stride(0) if chroma else 0, u.stride(1) if chroma else 0,
+             ring.D, ring.Gd, ring.t),
+            y.stride(2), u.stride(2) if chroma else 0)

@@ -51,7 +51,7 @@ CU_X, CU_Y, CU_LOG2, CU_IPM, CU_UP, CU_LEFT, CU_CORNER, CU_VALID = range(8)
 # block's top-left py, px in the bordered planes, reference list
 (MC_PLANE, MC_W, MC_H, MC_CASE, MC_SLOT, MC_GX, MC_GY, MC_PY, MC_PX,
  MC_LIST) = range(10)
-MAX_REF_SLOTS = 32      # the MC kernel's pointer table (csrc/mc.cu)
+MAX_REF_SLOTS = 32      # a frame's MC pointer table (csrc/mc.cu)
 # SUCO chroma edge columns: x of the edge in chroma samples, strength in U
 # and in V (xevd_tpu/ops/jax_deblock.py:134-136 without the row, which the
 # row offsets give)
@@ -139,6 +139,71 @@ def pack_itdq(fs, bd: int, chroma: bool, iqt: bool = False,
             raise ValueError("TU outside its coefficient plane")
         rows.append(r)
     return np.concatenate(rows).astype(np.int32)
+
+
+ITDQ_THREADS = 256       # a CTA of the ITDQ kernel (csrc/itdq.cu)
+
+
+@dataclass
+class ItdqOrder:
+    """The ITDQ kernel's launch over a TU table grouped by size class
+    (csrc/itdq.cu): `order` int32 [N, 2] lists (TU row, frame g) class by
+    class, each class's rows in table order; `classes` int32 [K, 4] gives
+    each class present its first CTA, first order entry, TU count and shape
+    (main << 16) | (log2 R << 12) | (log2 T << 8) | (log2 w << 4) | log2 h,
+    T the threads a TU in a CTA, R the CTAs a TU; `n_cta` CTAs with `smem`
+    bytes of dynamic shared memory each.  Host arrays from `itdq_order`,
+    device views after an upload."""
+    order: np.ndarray | torch.Tensor
+    classes: np.ndarray | torch.Tensor
+    n_cta: int
+    smem: int
+
+
+def itdq_order(tus: np.ndarray, iqt: bool, frame=None) -> ItdqOrder:
+    """Group the TU rows by class (log2 w, log2 h, Main or Baseline: the
+    frame's `iqt` or the TU's trs) with a counting sort (numpy's stable sort
+    of uint8 keys is a radix sort), the table itself unchanged.  A class of
+    n = w h samples runs T = clamp(n / 4, 16, 256) threads a TU, 256 / T
+    TUs a CTA, and takes 6 n bytes of shared memory a TU; above 1,024
+    samples a TU takes R = n / 1,024 CTAs (its rows split R ways) and
+    2 n + 4 n / R bytes in each.  `frame`: each row's frame g in a GOP
+    batch (zeros by default)."""
+    t = np.asarray(tus)
+    lw, lh = t[:, TU_LOG2W], t[:, TU_LOG2H]
+    if len(t) and (min(lw.min(), lh.min()) < 1 or max(lw.max(),
+                                                      lh.max()) > 6):
+        raise ValueError("TU size outside 2..64")
+    # class = main * 36 + (lw - 1) * 6 + lh - 1, in uint8 throughout
+    cls = lw.astype(np.uint8) * np.uint8(6) + lh.astype(np.uint8)
+    cls -= np.uint8(7)
+    if iqt:
+        cls += np.uint8(36)
+    else:
+        cls += (t[:, TU_TRS] != 0).astype(np.uint8) * np.uint8(36)
+    perm = np.argsort(cls, kind="stable")
+    counts = np.bincount(cls, minlength=72)
+    present = np.nonzero(counts)[0]
+    m, lw_c, lh_c = present // 36, present // 6 % 6 + 1, present % 6 + 1
+    log2_n = lw_c + lh_c
+    log2_r = np.maximum(log2_n - 10, 0)
+    log2_t = np.clip(log2_n - 2 - log2_r, 4, 8)
+    per_cta = ITDQ_THREADS >> log2_t
+    n_tu = counts[present]
+    ctas = -(-n_tu // per_cta) << log2_r
+    classes = np.stack([np.cumsum(ctas) - ctas, np.cumsum(n_tu) - n_tu, n_tu,
+                        (m << 16) | (log2_r << 12) | (log2_t << 8)
+                        | (lw_c << 4) | lh_c], 1)
+    order = np.zeros((len(t), 2), np.int32)
+    order[:, 0] = perm
+    if frame is not None:
+        order[:, 1] = np.asarray(frame)[perm]
+    return ItdqOrder(
+        order=order,
+        classes=classes.astype(np.int32).reshape(-1, 4),
+        n_cta=int(ctas.sum()),
+        smem=int((per_cta * ((2 << log2_n) + (4 << log2_n >> log2_r)))
+                 .max()) if len(present) else 0)
 
 
 def pack_intra(fs, job) -> np.ndarray:
@@ -460,6 +525,7 @@ class PackedFrame:
     mc_lists: tuple              # MC table rows of list 0, of list 1
     refs: tuple                  # per slot: (y, u, v) reference tensors
     ref_pocs: tuple = ()         # per slot: the reference picture's POC
+    tu_launch: tuple = (0, 0)    # ItdqOrder's (n_cta, smem)
 
 
 @dataclass
@@ -467,6 +533,7 @@ class DeviceFrame:
     """A PackedFrame after its host->device copies (views into two
     device buffers)."""
     tus: torch.Tensor            # int32 [Nt, 7]
+    tu_order: ItdqOrder          # the TUs by size class (views)
     icu: torch.Tensor            # int32 [Nc, 8], EIPD: [Nc, 13 or 16]
     level_off: torch.Tensor | None   # EIPD: int32 [L + 1] level offsets
     mc: torch.Tensor             # int32 [Nm, 10], list 0 rows first
@@ -502,7 +569,11 @@ def pack_frame(job, sps, refp, plane=None) -> PackedFrame:
     eipd = bool(is_main and sps.tool_eipd)
 
     pk = Packer()
-    pk.add("tus", pack_itdq(fs, bd, chroma, iqt, main=is_main))
+    tus = pack_itdq(fs, bd, chroma, iqt, main=is_main)
+    tu_order = itdq_order(tus, iqt)
+    pk.add("tus", tus)
+    pk.add("tu_order", tu_order.order)
+    pk.add("tu_cls", tu_order.classes)
     if eipd:
         icu, level_off = pack_intra_main(fs, job, chroma)
         pk.add("icu", icu)
@@ -552,7 +623,8 @@ def pack_frame(job, sps, refp, plane=None) -> PackedFrame:
         alf=alf, iqt=iqt, eipd=eipd,
         main_taps=bool(is_main and sps.tool_admvp),
         geom=(fs.h, fs.w, fs.h_scu, fs.w_scu), shp_y=shp_y, shp_c=shp_c,
-        mc_lists=mc_lists, refs=refs, ref_pocs=ref_pocs)
+        mc_lists=mc_lists, refs=refs, ref_pocs=ref_pocs,
+        tu_launch=(tu_order.n_cta, tu_order.smem))
 
 
 def upload(pf: PackedFrame, device: torch.device) -> DeviceFrame:
@@ -574,7 +646,10 @@ def upload(pf: PackedFrame, device: torch.device) -> DeviceFrame:
         n = hc * wc
         coef_u = coefs[hy * wy:hy * wy + n].view(hc, wc)
         coef_v = coefs[hy * wy + n:hy * wy + 2 * n].view(hc, wc)
-    return DeviceFrame(tus=view("tus"), icu=view("icu"),
+    return DeviceFrame(tus=view("tus"),
+                       tu_order=ItdqOrder(view("tu_order"), view("tu_cls"),
+                                          *pf.tu_launch),
+                       icu=view("icu"),
                        level_off=view("level_off"), mc=view("mc"),
                        dbst=view("dbst"), addb_l=view("addb_l"),
                        addb_c=view("addb_c"), suco_off=view("suco_off"),
@@ -593,7 +668,8 @@ class PackedBatch:
     0 of every frame, then list 1, with offsets [2, G + 1] from each
     list's first row."""
     payload: np.ndarray          # int32, see `layout`
-    layout: dict                 # tus, tu_off, icu, icu_off, mc, mc_off, dbst
+    layout: dict                 # tus, tu_off, tu_order, tu_cls, icu,
+    #                              icu_off, mc, mc_off, dbst
     coefs: np.ndarray            # int16 [G, L]: each frame's coefficients
     coef_shapes: tuple
     G: int
@@ -606,6 +682,7 @@ class PackedBatch:
     shp_y: tuple
     shp_c: tuple | None
     mc_lists: tuple              # MC rows of list 0, of list 1 (all frames)
+    tu_launch: tuple = (0, 0)    # ItdqOrder's (n_cta, smem)
 
 
 @dataclass
@@ -613,6 +690,7 @@ class DeviceBatch:
     """A PackedBatch after its two host->device copies (views)."""
     tus: torch.Tensor            # int32 [Nt, 7]
     tu_off: torch.Tensor         # int32 [G + 1]
+    tu_order: ItdqOrder          # the TUs by size class, with their g
     icu: torch.Tensor            # int32 [Nc, 8]
     icu_off: torch.Tensor        # int32 [G + 1]
     mc: torch.Tensor             # int32 [Nm, 10], list 0 rows first
@@ -637,10 +715,10 @@ def _offsets(counts) -> np.ndarray:
 
 def stack_frames(frames, slots) -> PackedBatch:
     """Stack the PackedFrames of one time step of a GOP batch.  slots[g]
-    maps frame g's reference slots to entries of the step's pointer table
-    of DPB pictures (xevd_tpu_torch/parallel/gop.py: entry (d - 1) * G_dev
-    + g is the picture d steps back of the device's GOP g); each MC row's
-    slot column is rewritten through it.
+    maps frame g's reference slots to slots of the batch's DPB ring
+    (ops/mc.py `DpbRing`: slot (d - 1) * G_dev + g is the picture d steps
+    back of the device's GOP g); each MC row's slot column is rewritten
+    through it.
 
     The frames must agree in size, bit depth, chroma format and the frame
     flags that pick kernel variants (Main transforms and taps, deblocking)
@@ -669,8 +747,12 @@ def stack_frames(frames, slots) -> PackedBatch:
         mcs.append(m)
     n0 = [f.mc_lists[0] for f in frames]
     pk = Packer()
+    tu_order = itdq_order(np.concatenate(tus), f0.iqt, np.repeat(
+        np.arange(len(tus)), [len(t) for t in tus]))
     pk.add("tus", np.concatenate(tus))
     pk.add("tu_off", _offsets([len(t) for t in tus]))
+    pk.add("tu_order", tu_order.order)
+    pk.add("tu_cls", tu_order.classes)
     pk.add("icu", np.concatenate(icu))
     pk.add("icu_off", _offsets([len(t) for t in icu]))
     pk.add("mc", np.concatenate([m[:n] for m, n in zip(mcs, n0)]
@@ -687,7 +769,8 @@ def stack_frames(frames, slots) -> PackedBatch:
         chroma=f0.chroma, deblock_on=f0.deblock_on, iqt=f0.iqt,
         main_taps=f0.main_taps, geom=f0.geom, shp_y=f0.shp_y,
         shp_c=f0.shp_c,
-        mc_lists=(sum(n0), sum(len(m) for m in mcs) - sum(n0)))
+        mc_lists=(sum(n0), sum(len(m) for m in mcs) - sum(n0)),
+        tu_launch=(tu_order.n_cta, tu_order.smem))
 
 
 def upload_batch(pb: PackedBatch, device: torch.device) -> DeviceBatch:
@@ -712,6 +795,8 @@ def upload_batch(pb: PackedBatch, device: torch.device) -> DeviceBatch:
         coef_u = coefs[:, hy * wy:hy * wy + n].view(G, hc, wc)
         coef_v = coefs[:, hy * wy + n:hy * wy + 2 * n].view(G, hc, wc)
     return DeviceBatch(tus=view("tus"), tu_off=view("tu_off"),
+                       tu_order=ItdqOrder(view("tu_order"), view("tu_cls"),
+                                          *pb.tu_launch),
                        icu=view("icu"), icu_off=view("icu_off"),
                        mc=view("mc"), mc_off=view("mc_off"),
                        dbst=view("dbst"), coef_y=coef_y, coef_u=coef_u,

@@ -47,7 +47,7 @@ from .deblock import deblock_frame
 from .intra import intra_scan
 from .intra_main import intra_scan_wave
 from .itdq import itdq
-from .mc import mc_all
+from .mc import DpbRing, mc_all
 from .recon import pad, recon
 from .tables import BORDER, PAD_C, PAD_L, device_tables
 
@@ -63,7 +63,7 @@ def residuals_and_recon(df: PK.DeviceFrame, tables: dict, mark=None):
     pf = df.packed
     bd = pf.bd
     resids = itdq((df.coef_y, df.coef_u, df.coef_v), df.tus, pf.shp_y,
-                  pf.shp_c, bd, tables, pf.iqt)
+                  pf.shp_c, bd, tables, pf.iqt, order=df.tu_order)
     mark("itdq")
     if pf.refs:
         pred_y, cnt_y, pred_u, pred_v, cnt_c = mc_all(
@@ -157,11 +157,11 @@ def run_frame_device(df: PK.DeviceFrame, tables: dict, on_stage=None):
 
 @dataclass
 class DpbStep:
-    """The device DPB as one step of a GOP batch sees it: `refs`, the
-    step's pointer table of reference pictures, one (y, u, v) plane tuple
-    per entry (the MC table's slots index it); `out`, the (y, u, v) planes
-    [G, h + 2 PAD, w + 2 PAD] that receive the step's padded pictures."""
-    refs: tuple
+    """The device DPB as one step of a GOP batch sees it: `refs`, the DPB
+    ring at this step (ops/mc.py `DpbRing`; the MC table's slots name its
+    pictures); `out`, the (y, u, v) planes [G, h + 2 PAD, w + 2 PAD] that
+    receive the step's padded pictures."""
+    refs: DpbRing
     out: tuple
 
 
@@ -177,7 +177,8 @@ def run_frames_device(batch: PK.DeviceBatch, tables: dict, dpb: DpbStep):
     if batch.tus.is_cuda:
         K.count("gop_step")         # K15: one batched step on the card
     resids = itdq((batch.coef_y, batch.coef_u, batch.coef_v), batch.tus,
-                  pb.shp_y, pb.shp_c, bd, tables, pb.iqt, tu_off=batch.tu_off)
+                  pb.shp_y, pb.shp_c, bd, tables, pb.iqt, tu_off=batch.tu_off,
+                  order=batch.tu_order)
     if batch.mc.shape[0]:
         pred_y, cnt_y, pred_u, pred_v, cnt_c = mc_all(
             batch.mc, pb.mc_lists, dpb.refs, pb.shp_y, pb.shp_c, bd, tables,

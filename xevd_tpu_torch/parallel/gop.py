@@ -20,8 +20,10 @@ checksum.  Here:
           axis of the kernels (csrc/batch.cuh).  The DPB is a carry on the
           device, int16 [D, G_dev, h + 2 PAD, w + 2 PAD] a plane, written
           as a ring (step t into slot t % D; no picture is copied), and MC
-          reads a step's references through a pointer table of its (d, g)
-          pictures, d the steps back from the reference's POC.
+          addresses a step's references, picture (d, g) with d the steps
+          back from the reference's POC, by the ring's strides (ops/mc.py
+          `DpbRing`), so a device takes any D x G_dev, as JAX's step
+          does.
 
 A GOP that has ended leaves the batch of the later steps (JAX pads it with
 inert copies of its last frame, gop.py:113-124): a device's GOPs are
@@ -69,6 +71,7 @@ from ..host import tables as T
 from ..host.decoder import NumpyPixelBackend
 from ..host.syntax import UnsupportedStream
 from ..ops import pack as PK
+from ..ops.mc import DpbRing
 from ..ops.pipeline import DpbStep, TorchPixelBackend, run_frames_device
 from ..ops.tables import device_tables
 
@@ -187,9 +190,6 @@ def _plan(caps, n_dev):
             D = max([D] + ds)
         deltas.append(dg)
     Gd = len(caps) // n_dev
-    if D * Gd > PK.MAX_REF_SLOTS:
-        raise UnsupportedStream(f"torch GOP batch: {D} x {Gd} DPB pictures > "
-                                f"the MC kernel's {PK.MAX_REF_SLOTS} slots")
     plan = []
     for k in range(n_dev):
         gops = sorted(range(k * Gd, (k + 1) * Gd), key=lambda g: -len(caps[g]))
@@ -239,12 +239,11 @@ class _DeviceRun:
         return ctx
 
     def dpb(self, t, G):
-        """The DPB as step t sees it: entry (d - 1) * G_dev + g is GOP g's
-        picture d steps back; the step writes ring slot t % D."""
-        D, Gd = self.D, len(self.gops)
-        refs = tuple(tuple(p[(t - d) % D][g] for p in self.ring)
-                     for d in range(1, D + 1) for g in range(Gd))
-        return DpbStep(refs=refs, out=tuple(p[t % D][:G] for p in self.ring))
+        """The DPB as step t sees it: reference slot (d - 1) * G_dev + g is
+        GOP g's picture d steps back (`DpbRing`); the step writes ring
+        slot t % D."""
+        return DpbStep(refs=DpbRing(self.ring, t),
+                       out=tuple(p[t % self.D][:G] for p in self.ring))
 
     def step(self, t):
         with self._on():
