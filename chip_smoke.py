@@ -12,9 +12,14 @@
 3. Kernel phases: every hand-written kernel against its plain PyTorch
    version on the card, on numpy-seeded inputs at the shapes of the 1080p
    main paths, with exact equality (integer kernels, tolerance 0), and
-   both times: ITDQ Baseline, Main iqt and every ATS basis pair; MC with
-   the Baseline and the Main taps at every (plane, case, bit depth) and on
-   a synthetic 1080p frame; recon, pad, deblock, the SUCO-order chroma
+   both times: ITDQ Baseline, Main iqt and every ATS basis pair; MC on a
+   frame of every class of its kernel (plane group, size, case; windows
+   at the planes' edges, phase 0 under filtering cases, split 64x64
+   blocks) at 8 and 10 bit with the Baseline and the Main taps, 10
+   launches a case, with the Baseline and the Main taps at every (plane,
+   case, bit depth) and on a synthetic 1080p frame; recon, pad (beside
+   torch.nn.functional.pad(mode="replicate"), its library yardstick, or
+   CUDA's refusal of int16), deblock, the SUCO-order chroma
    deblock, the four ADDB passes and ALF luma and chroma (CTU 64 and 128,
    across tiles or not); ITDQ on a frame of every size class (2x2 to
    64x64, square and rectangular, Baseline beside ATS and all Main, and at
@@ -48,8 +53,10 @@
    printed), ITDQ on every config-3 and IPPP frame's own TU table (10
    launches; the TUs of each size class and the host time of the class
    grouping printed), the MC kernel on every 1080p P
-   frame's own block table and on the config-3 stream's B pictures (Main
-   taps), the EIPD scan kernel on its I picture and one B picture, the
+   frame's own block table and class order and on the config-3 stream's
+   B pictures (Main taps; 10 launches each; the rows of each class and the
+   host time of `mc_order` printed), the EIPD scan kernel on its I picture
+   and one B picture, the
    SUCO order on the SUCO stream's pictures, ADDB and ALF on the config-3
    and the CIF 10-bit Main streams' pictures.  The CLI entry point decodes
    the CIF RA and both CIF Main streams.  Six paths are counted and timed:
@@ -59,7 +66,8 @@
    three times; the
    launch counters are reset just before each path and read just after
    it; every kernel the path needs must have launched, and none it must
-   not.  Each counted decode prints its frames/s and per-stage CUDA-event
+   not; MC once a reference list with blocks, per frame.  Each counted
+   decode prints its frames/s and per-stage CUDA-event
    times.
 5. GOP phase (K15, xevd_tpu_torch/parallel/gop.py): 8 independent
    1920x1080 Baseline IPPP GOPs of 2, 3 or 4 frames (xevd_tpu/parallel/
@@ -80,16 +88,21 @@
    streams; captured here) decode as one batch on the card, 40 DPB ring
    pictures (more than a frame's 32 MC slots): every batched kernel held
    to its plain version on step 1 (MC in 10 launches), every frame's MD5
-   equal to the oracle's.
+   equal to the oracle's.  Last, eight 176x144 Main IPPP GOPs with iqt,
+   ATS, ADMVP and cm_init (the batched Main-tap MC; one reference worker
+   writes the streams; captured here): every batched kernel held on step
+   1 at G = 8 and G = 1 (MC in 10 launches, timed), every MD5 of the
+   batch equal to the oracle's.
 6. Prints each scan case's time with the DAG depth (K5) or level count
    (K6) of its frame and the persistent grids, then {"kernels": [...]}
    (launches from the config-3 path; the Baseline intra scan's and
    deblock's from the IPPP path, the SUCO order's from the SUCO path, the
    batched kernels' (gop_*) and K15's from the GOP path; each kernel's
-   bound from its main case's bytes and operations; ITDQ, K9 and MC also
-   with `ms_device`, their time from CUDA-graph replays without the
-   wrappers' host work, and K9 with `ms_all` / `ms_zero` for the maps
-   with every edge on and none) and, as the last line, {"ok": true,
+   bound from its main case's bytes and operations; every kernel also
+   with `ms_device`, its time from CUDA-graph replays without the
+   wrapper's host work; K9 with `ms_all` / `ms_zero` for the maps with
+   every edge on and none; K14 with `library_ms`, F.pad's time, or
+   `library_refused`) and, as the last line, {"ok": true,
    "device": {...}}.
 
 Any failure raises and the exit code is non-zero.  Imports neither JAX
@@ -148,6 +161,12 @@ TIMED_RUNS_GOP = 2
 # on one card (D x G_dev = 40), generated by one reference worker
 BIG_GOP_SPECS = [(64, 64, 2, 30, 3000 + 7 * g, "IPPP", 0.5, 8, 0, (), 0.35)
                  for g in range(40)]
+# the GOP batch with the Main MC taps: eight 176x144 Main IPPP GOPs of 2, 3
+# or 4 frames with iqt, ATS, ADMVP and cm_init (batched iqt/ATS ITDQ and
+# Main-tap MC), generated by one reference worker
+MAIN_GOP_TOOLS = ("iqt", "ats", "admvp", "cm_init")
+MAIN_GOP_SPECS = [(176, 144, 2 + g % 3, 30, 1200 + 7 * g, "IPPP", 0.5, 8, 1,
+                   MAIN_GOP_TOOLS, 0.35) for g in range(8)]
 # the card's peaks for a kernel's bound (H100 SXM datasheet figures):
 # HBM bytes/s; integer operations/s taken at the scalar (non-tensor)
 # float32 FMA rate counted as two operations, a deliberate upper peak: the
@@ -261,14 +280,12 @@ def graph_ms(torch, fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
-# kernels whose time is below their wrapper's host work (ITDQ, the K9
-# passes, MC): also timed as CUDA-graph replays (`graph_ms`), device time
-GRAPH_TIMED = ("itdq", "deblock_chroma_ver", "deblock_chroma_hor", "mc")
 SCAN_LAUNCHES = 20     # race check of each scan case (persistent kernels)
 SCAN_NAMES = ("intra_scan", "intra_scan_wave")
 SCANS = []             # (key, shape, kernel ms, plain ms) of each scan case
 K9_LAUNCHES = 20       # each K9 case: launches equal to the plain version
 ITDQ_LAUNCHES = 10     # each ITDQ class case
+MC_LAUNCHES = 10       # each MC class-mix case and stream table
 
 
 def run_case(torch, case, results, reps, plain_reps, main=False, key=None,
@@ -299,8 +316,10 @@ def run_case(torch, case, results, reps, plain_reps, main=False, key=None,
         raise AssertionError(f"{case.name} {case.shape}: kernel != plain "
                              f"(max abs err {err}, {launches} launches)")
     ms = timed(torch, case.kernel, reps) if reps else None
-    dms = (graph_ms(torch, case.kernel, 2 * reps)
-           if reps and case.name in GRAPH_TIMED else None)
+    # device time too: CUDA-graph replays of one call, without the
+    # wrapper's host work, which back-to-back calls include where a kernel
+    # is shorter than its launch
+    dms = graph_ms(torch, case.kernel, 2 * reps) if reps else None
     plain_ms = (timed(torch, case.plain, plain_reps) if plain_reps
                 else t0.elapsed_time(t1))
     r = results.setdefault(key or case.name, {"max_abs_err": 0})
@@ -338,7 +357,8 @@ def kernel_phases(torch, dev, results):
                                      chroma_map, deblock_case, intra_case,
                                      intra_chain_case, intra_wave_case,
                                      itdq_case, itdq_class_case,
-                                     itdq_size_case, mc_case, mc_size_case,
+                                     itdq_size_case, mc_case, mc_class_case,
+                                     mc_size_case,
                                      pad_case, recon_case, recon_pred_case,
                                      suco_case)
     from xevd_tpu_torch.ops.tables import BORDER, PAD_C, PAD_L, PAD_R
@@ -363,6 +383,13 @@ def kernel_phases(torch, dev, results):
                                                 extreme=extreme),
                          results, 10, 1, launches=ITDQ_LAUNCHES)
 
+    log(f"phase mc classes (every class and case in each list's launch, "
+        f"windows at the planes' edges, phase 0 under filtering cases, "
+        f"split 64x64 blocks; {MC_LAUNCHES} launches a case)")
+    for bd in (8, 10):
+        for main_taps in (False, True):
+            run_case(torch, mc_class_case(dev, bd, main_taps, seed=270),
+                     results, 10, 3, launches=MC_LAUNCHES)
     log("phase mc (Baseline and Main taps)")
     for bd in (8, 10):
         for main_taps in (False, True):
@@ -387,6 +414,7 @@ def kernel_phases(torch, dev, results):
                  results, 50, 50, main=bd == 8)
         run_case(torch, pad_case(dev, bd, 540, 960, PAD_C, seed=220),
                  results, 50, 50)
+    pad_library(torch, dev, results)
 
     log("phase intra_scan (CIF, random causal CU lists; 4x4 CUs)")
     for bd in (8, 10):
@@ -449,12 +477,52 @@ def kernel_phases(torch, dev, results):
                                          across, seed=700), results, 20, 1)
 
 
+def pad_library(torch, dev, results):
+    """K14's yardstick: one PyTorch call that computes `_pad_out`'s
+    jnp.pad(mode="edge"), torch.nn.functional.pad(mode="replicate"), on
+    the int16 picture of the main pad case (1080p luma, +PAD_L); equal to
+    the kernel's output, timed by events and by graph replays; or CUDA's
+    refusal of int16, recorded."""
+    import numpy as np
+    from tests.torch_helpers import bordered
+    from xevd_tpu_torch.ops import recon as TR
+    from xevd_tpu_torch.ops.tables import BORDER, PAD_L
+
+    h, w = 1080, 1920
+    rng = np.random.default_rng(210 + 8)
+    plane = torch.from_numpy(bordered(rng, h, w, 0, 256)).to(dev)
+    area = plane[BORDER:BORDER + h, BORDER:BORDER + w]
+    r = results["pad"]
+
+    def call():
+        return torch.nn.functional.pad(area[None], (PAD_L,) * 4,
+                                       mode="replicate")[0]
+    try:
+        got = call()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        r["library_refused"] = str(e).strip().splitlines()[0]
+        log(f"  F.pad(mode='replicate') on int16 {h}x{w}: refused: "
+            f"{r['library_refused']}")
+        return
+    if not torch.equal(got, TR.pad(area, h, w, PAD_L)):
+        raise AssertionError("F.pad(mode='replicate') != the pad kernel")
+    r["library_ms"] = timed(torch, call, 50)
+    r["library_ms_device"] = graph_ms(torch, call, 100)
+    log(f"  F.pad(mode='replicate') on int16 {h}x{w} +{PAD_L}: equal to the "
+        f"pad kernel; {r['library_ms']:.4f} ms, graph "
+        f"{r['library_ms_device']:.4f} ms")
+
+
 def mc_main_path(torch, dev, packed, results, label, main):
     """The MC kernel against its plain version on a 1080p stream's own
-    inter frames: the block tables and reference planes (the DPB's
-    pictures, still on the card) that the main path hands the kernel;
-    `main` marks the first frame's times as the summary's."""
-    from tests.torch_helpers import mc_table_case
+    inter frames: the block tables, class orders and reference planes (the
+    DPB's pictures, still on the card) that the main path hands the
+    kernel, MC_LAUNCHES launches each; `main` marks the first frame's times
+    as the summary's.  Prints each frame's MC rows by class and the host
+    time of the grouping (ops/pack.py `mc_order`)."""
+    import numpy as np
+    from tests.torch_helpers import mc_class_histogram, mc_table_case
     from xevd_tpu_torch.ops import pack as PK
 
     log(f"phase mc ({label} frames)")
@@ -463,12 +531,23 @@ def mc_main_path(torch, dev, packed, results, label, main):
         raise AssertionError(f"{label}: no frame with inter CUs")
     for i, pf in enumerate(inter):
         df = PK.upload(pf, dev)
+        table = df.mc.cpu().numpy()
+        t = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            o = PK.mc_order(table, pf.mc_lists)
+            t.append(time.perf_counter() - t0)
+        log(f"  {label} frame {i + 1}: {len(table)} MC rows in "
+            f"{len(o.classes)} classes, {o.lists[0][2]}+{o.lists[1][2]} "
+            f"CTAs; mc_order {min(t) * 1e3:.3f} ms (min of 20, median "
+            f"{np.median(t) * 1e3:.3f}); rows a class (l luma, c chroma, w x "
+            f"h, case): {mc_class_histogram(o)}")
         shape = (f"{label} frame {i + 1}, {pf.mc_lists[0]}+{pf.mc_lists[1]} "
                  f"blocks{', Main taps' if pf.main_taps else ''}")
         run_case(torch, mc_table_case(dev, df.mc, pf.mc_lists, pf.refs,
                                       pf.shp_y, pf.shp_c, pf.bd, shape,
-                                      pf.main_taps),
-                 results, 10, 3, main=main and i == 0)
+                                      pf.main_taps, order=df.mc_order),
+                 results, 10, 3, main=main and i == 0, launches=MC_LAUNCHES)
 
 
 def intra_main_path(torch, dev, packed, results):
@@ -693,12 +772,12 @@ def start_gop_worker(g):
         cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
-def start_big_gop_worker():
-    """Start the reference worker that writes the BIG_GOP_SPECS streams
-    to WORK/biggop/<g>.evc, all in one process (they are small)."""
+def start_streams_worker(specs, name):
+    """Start the reference worker that writes the streams of `specs` to
+    WORK/<name>/<g>.evc, all in one process (they are small)."""
     return subprocess.Popen(
         [sys.executable, str(REPO / "tests" / "torch_reference.py"),
-         "--streams", json.dumps(BIG_GOP_SPECS), str(WORK / "biggop")],
+         "--streams", json.dumps(specs), str(WORK / name)],
         cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
@@ -837,6 +916,9 @@ def slice_phase(torch, dev, K, results, prepared):
                     ADDB_KERNELS + ALF_KERNELS, True)
     frame_main_path(torch, dev, packed["cif10_main_alf"], results,
                     "CIF 10-bit Main", ADDB_KERNELS + ALF_KERNELS, False)
+    # MC launches a decode of each stream makes: one a list with rows
+    mc_launches = {name: sum(int(n > 0) for pf in frames for n in pf.mc_lists)
+                   for name, frames in packed.items()}
     packed.clear()
 
     # the port's CLI entry point on the RA stream (B frames, both lists) and
@@ -898,6 +980,9 @@ def slice_phase(torch, dev, K, results, prepared):
         if missing or stray:
             raise AssertionError(f"{name} path: kernels never launched "
                                  f"{missing}, or launched {stray} ({counts})")
+        if counts["mc"] != reps * mc_launches[name]:
+            raise AssertionError(f"{name} path: {counts['mc']} MC launches, "
+                                 f"{reps} x {mc_launches[name]} expected")
         runs[name] = (counts, fps, stage_ms)
     return runs
 
@@ -950,6 +1035,58 @@ def big_gop_phase(torch, dev, K, results, worker):
             "frames": stats["frames"], "ms": stats["seconds"] * 1e3}
 
 
+def main_gop_phase(torch, dev, K, results, worker):
+    """The GOP batch with the Main MC taps: the MAIN_GOP_SPECS GOPs,
+    captured here, on one card: every batched kernel and the step on step
+    1 against its batched plain version at G = 8 and G = 1 (the batched
+    iqt/ATS ITDQ and Main-tap MC; MC in MC_LAUNCHES launches, timed);
+    then the whole batch, every frame's MD5 equal to the oracle's.
+    Returns its stats."""
+    from tests.torch_helpers import gop_step_cases, mc_class_histogram
+    from xevd_tpu_torch.ops import pack as PK
+    from xevd_tpu_torch.parallel import gop as TG
+
+    out, err = worker.communicate()
+    if worker.returncode != 0:
+        raise AssertionError(f"Main GOP stream worker failed (rc "
+                             f"{worker.returncode}):\n{err[-4000:]}")
+    t0 = time.perf_counter()
+    caps = [TG._capture_gop((WORK / "maingop" / f"{g}.evc").read_bytes())
+            for g in range(len(MAIN_GOP_SPECS))]
+    if not all(fr["pack"].main_taps and fr["pack"].iqt for c in caps
+               for fr in c):
+        raise AssertionError("Main GOP batch: a frame without the Main taps "
+                             "or iqt")
+    log(f"phase gop with the Main taps: {len(caps)} 176x144 Main IPPP GOPs "
+        f"({', '.join(MAIN_GOP_TOOLS)}); streams "
+        f"{json.loads(out)['gen_s']:.1f} s, captures "
+        f"{time.perf_counter() - t0:.1f} s")
+    _, [(_, steps)] = TG._plan(caps, 1)
+    o = PK.McOrder(None, PK._table(steps[1], "mc_cls", 4), steps[1].mc_launch)
+    log(f"  step 1 MC rows a class: {mc_class_histogram(o)}")
+    r = results.setdefault("gop_mc", {"max_abs_err": 0})
+    for G in (len(caps), 1):
+        for case in gop_step_cases(dev, caps[:G]):
+            key = case.name if case.name == "gop_step" else f"gop_{case.name}"
+            mc = case.name == "mc"
+            ms = run_case(torch, case, results, 20 if mc else 0,
+                          0, key=key, launches=MC_LAUNCHES if mc else None)
+            if mc:
+                r[f"ms_main_taps_g{G}"] = ms
+                r[f"ms_device_main_taps_g{G}"] = r["last_device_ms"]
+    stats = {}
+    dmd5, smd5 = TG.decode_gops_sharded(None, mesh=[dev], captures=caps,
+                                        stats=stats)
+    if dmd5 != smd5 or stats["checksum"] != stats["serial_checksum"]:
+        raise AssertionError("Main-tap GOP batch: a frame's MD5 differs "
+                             "from the numpy oracle's")
+    log(f"  {stats['frames']} frames in {stats['steps']} steps (batches "
+        f"{stats['batches'][0]}) in {stats['seconds'] * 1e3:.3f} ms; every "
+        "MD5 equal to the numpy oracle's")
+    return {"gops": len(caps), "frames": stats["frames"],
+            "ms": stats["seconds"] * 1e3}
+
+
 def gop_phase(torch, dev, K, results, workers):
     """K15: the 8 1080p GOPs as one batch per time step (parallel/gop.py),
     after each batched kernel and the batched step against its plain
@@ -983,6 +1120,19 @@ def gop_phase(torch, dev, K, results, workers):
     results["pad"]["ms_after_workers"] = run_case(
         torch, pad_case(dev, 8, 1080, 1920, PAD_L, seed=210), {}, 50, 50)
 
+    from tests.torch_helpers import mc_class_histogram
+    from xevd_tpu_torch.ops import pack as PK
+    _, [(_, steps)] = TG._plan(caps, 1)
+    table = PK._table(steps[1], "mc", 10)
+    t = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        o = PK.mc_order(table, steps[1].mc_lists)
+        t.append(time.perf_counter() - t0)
+    log(f"  step 1 at G = {steps[1].G}: {len(table)} MC rows in "
+        f"{len(o.classes)} classes, {o.lists[0][2]}+{o.lists[1][2]} CTAs; "
+        f"mc_order {min(t) * 1e3:.3f} ms (min of 5); rows a class: "
+        f"{mc_class_histogram(o)}")
     log("phase gop kernels (each batched kernel and the batched step on "
         "step 1, G = 8 and G = 1)")
     for G in (len(caps), 1):
@@ -996,7 +1146,6 @@ def gop_phase(torch, dev, K, results, workers):
 
     # launches a batched run must make: one a step for each kernel (a
     # plane each for recon, pad and the chroma passes), MC once per list
-    _, [(_, steps)] = TG._plan(caps, 1)
     expect = dict.fromkeys(K.launch_counts, 0)
     for pb in steps:
         expect["gop_step"] += 1
@@ -1086,7 +1235,8 @@ def main() -> int:
     # reference workers run while the kernels build and are compared
     # the GOP workers first: theirs is the longest host work
     gop_workers = [start_gop_worker(g) for g in range(len(GOP_SPECS))]
-    big_gop_worker = start_big_gop_worker()
+    big_gop_worker = start_streams_worker(BIG_GOP_SPECS, "biggop")
+    main_gop_worker = start_streams_worker(MAIN_GOP_SPECS, "maingop")
     prepared = {name: start_reference(name) for name in STREAMS}
     try:
         K.build(verbose=True)      # always from this checkout's sources
@@ -1099,8 +1249,10 @@ def main() -> int:
         runs = slice_phase(torch, dev, K, results, prepared)
         runs["gop"] = gop_phase(torch, dev, K, results, gop_workers)
         big_gop = big_gop_phase(torch, dev, K, results, big_gop_worker)
+        main_gop = main_gop_phase(torch, dev, K, results, main_gop_worker)
     finally:
-        for p in list(prepared.values()) + gop_workers + [big_gop_worker]:
+        for p in (list(prepared.values()) + gop_workers
+                  + [big_gop_worker, main_gop_worker]):
             if p.poll() is None:
                 p.kill()
             p.communicate()
@@ -1112,7 +1264,8 @@ def main() -> int:
         t_ops = r["ops"] / SCALAR_OPS_PER_S
         counter = name[4:] if name in (f"gop_{k}" for k in GOP_KERNELS) \
             else name
-        extra = {k: r[k] for k in r if k.startswith("ms_")}
+        extra = {k: r[k] for k in r if k.startswith(("ms_", "library_"))
+                 and k != "library_ms"}
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces,
                         "launches": runs[PATH_OF.get(name, MAIN_PATH)][0][
@@ -1122,9 +1275,10 @@ def main() -> int:
                         "bound_ms": max(t_bytes, t_ops) * 1e3,
                         "bound_by": "bytes" if t_bytes >= t_ops
                         else "operations",
-                        # no single PyTorch call computes any of these
-                        # integer pipelines (PERF.md)
-                        "library_ms": None,
+                        # F.pad(mode="replicate") for K14 where CUDA
+                        # takes int16; no single PyTorch call computes the
+                        # other integer pipelines (PERF.md)
+                        "library_ms": r.get("library_ms"),
                         "shape": r["shape"], **extra})
     for key, shape, ms, plain_ms in SCANS:
         log(f"scan {key}: {shape}: kernel {ms:.4f} ms, plain "
@@ -1138,6 +1292,7 @@ def main() -> int:
             f"{'record' if name == 'gop' else 'stage ms/frame'} "
             f"{json.dumps(stage_ms, default=str)}")
     log(f"GOP batch past 32 ring pictures: {json.dumps(big_gop)}")
+    log(f"GOP batch with the Main taps: {json.dumps(main_gop)}")
     log(f"total smoke time {time.perf_counter() - t_start:.1f} s")
     log(gpu_line())
     print(json.dumps({"kernels": kernels}))

@@ -33,7 +33,8 @@ from .torch_helpers import (CHROMA_MAPS, addb_case, alf_case, chroma_map,
                             gop_step_cases, intra_batch_case, intra_case,
                             intra_chain_case, intra_wave_case,
                             itdq_case, itdq_class_case, itdq_size_case,
-                            mc_case, mc_frame, mc_shapes, mc_size_case,
+                            mc_case, mc_class_case, mc_frame,
+                            mc_order_on, mc_shapes, mc_size_case,
                             pad_case, recon_case, recon_pred_case,
                             repeat_equal, suco_case)
 
@@ -127,6 +128,20 @@ def test_mc_kernel_matches_plain_main_taps(dev, case, is_luma, bd):
 @pytest.mark.parametrize("chroma", [True, False])
 def test_mc_kernel_matches_plain_on_frame(dev, bd, chroma):
     _check(mc_case(dev, 288, 352, bd, chroma, seed=bd), launches=2)
+
+
+@pytest.mark.parametrize("main_taps", [False, True])
+@pytest.mark.parametrize("bd", [8, 10])
+def test_mc_kernel_class_mix(dev, bd, main_taps):
+    """Every class of the kernel in each list's launch (every plane group,
+    size and case; windows at the reference planes' edges, phase 0 under
+    filtering cases, full-range samples; 64x64 blocks split over 128
+    threads), ten calls of two launches, each equal to the plain version's
+    one result."""
+    case = mc_class_case(dev, bd, main_taps, seed=bd)
+    n = K.launch_counts["mc"]
+    assert repeat_equal(case, case.plain(), 10) == 0, case.shape
+    assert K.launch_counts["mc"] == n + 20
 
 
 def _check_repeated(case, launches=10):
@@ -240,6 +255,36 @@ def test_gop_intra_scan_repeated(dev, gop_captures, G):
 
 
 @pytest.fixture(scope="module")
+def main_gop_captures():
+    """Three Main IPPP GOPs of 2, 3 and 4 frames at 192x128 with iqt, ATS,
+    ADMVP (the Main MC taps) and cm_init, captured by the port's host
+    decoder."""
+    from xevd_tpu_torch.parallel.gop import _capture_gop
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
+    import evc_enc
+    tools = evc_enc.Tools(iqt=1, ats=1, admvp=1, cm_init=1)
+    return [_capture_gop(evc_enc.encode_stream(
+        192, 128, 2 + g, 30, 1100 + 7 * g, "IPPP", 0.5, profile=1,
+        tools=tools)) for g in range(3)]
+
+
+@pytest.mark.parametrize("G", [1, 3])
+def test_gop_batched_kernels_match_plain_main_taps(dev, main_gop_captures,
+                                                   G):
+    """K15 on Main GOPs: the batched iqt/ATS ITDQ and Main-tap MC, and
+    every other batched kernel and the step, on step 1 of G GOPs; the
+    whole batch equal to the serial oracle frame by frame."""
+    from xevd_tpu_torch.parallel import gop as TG
+    cases = gop_step_cases(dev, main_gop_captures[:G])
+    assert main_gop_captures[0][1]["pack"].main_taps
+    for case in cases:
+        _check(case)
+    dmd5, smd5 = TG.decode_gops_sharded(None, mesh=[dev],
+                                        captures=main_gop_captures[:G])
+    assert dmd5 == smd5
+
+
+@pytest.fixture(scope="module")
 def forty_gop_captures():
     """Forty two-frame 64x64 IPPP GOPs (D x G_dev = 40 DPB pictures on one
     card), captured by the port's host decoder."""
@@ -289,12 +334,20 @@ def test_wrappers_refuse_cpu_operands_mixed_with_cuda(dev):
     fs, job, refp = mc_frame(64, 64, 8, True, seed=3, device=dev)
     table, lists, refs = PK.pack_mc(fs, job, refp, True)
     shp_y, shp_c = mc_shapes(fs, True)
+    order = mc_order_on(dev, table, lists)
     with pytest.raises(ValueError):       # the block table on the CPU
         TM.mc_all(torch.from_numpy(table), lists, refs, shp_y, shp_c, 8,
-                  device_tables(dev))
+                  device_tables(dev), order=order)
     with pytest.raises(ValueError):       # the tap tables on the CPU
         TM.mc_all(torch.from_numpy(table).to(dev), lists, refs, shp_y, shp_c,
-                  8, device_tables("cpu"))
+                  8, device_tables("cpu"), order=order)
+    with pytest.raises(ValueError):       # the class order on the CPU
+        TM.mc_all(torch.from_numpy(table).to(dev), lists, refs, shp_y, shp_c,
+                  8, device_tables(dev), order=mc_order_on("cpu", table,
+                                                           lists))
+    with pytest.raises(ValueError, match="class order"):   # no class order
+        TM.mc_all(torch.from_numpy(table).to(dev), lists, refs, shp_y, shp_c,
+                  8, device_tables(dev))
     recs, res, icu, level_off, _, _ = eipd_scene(64, 64, 8, 1)
     cu_planes = [torch.from_numpy(p).to(dev) for p in recs]
     cu_res = [torch.from_numpy(p).to(dev) for p in res]

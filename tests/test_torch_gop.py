@@ -297,3 +297,41 @@ def test_refuses_main_tools(evc_tools, tools, what):
 def test_refuses_gops_that_do_not_tile_the_mesh(evc_tools):
     with pytest.raises(ValueError, match="tile"):
         TG.decode_gops_sharded([_gen(64, 64, 2, 1001)], mesh=MESH)
+
+
+@pytest.mark.parametrize("tools", [(), ("iqt", "ats", "admvp", "cm_init")])
+def test_main_gop_pair_equals_serial_and_jax(evc_tools, tools):
+    """Two 3-frame 64x64 Main IPPP GOPs, with no tools and with iqt, ATS,
+    ADMVP (the Main MC taps in the batched MC) and cm_init: every frame's
+    MD5 equals the port's serial oracle and JAX's decode_gops_sharded on a
+    2-device mesh."""
+    use_port_native_library()
+    streams = [_gen(64, 64, 3, s, profile=1, tools=tools)
+               for s in (1001, 1008)]
+    stats = {}
+    dev, ser = TG.decode_gops_sharded(streams, mesh=MESH, stats=stats)
+    jdev, jser = JG.decode_gops_sharded(streams, mesh=JG.make_mesh(2))
+    assert dev == ser
+    assert dev == jdev == jser
+    assert stats["checksum"] == stats["serial_checksum"] > 0
+    pack = TG._capture_gop(streams[0])[1]["pack"]
+    assert pack.main_taps == ("admvp" in tools)
+    assert pack.iqt == ("iqt" in tools)
+
+
+def test_stack_frames_ships_the_mc_class_order(step_frames):
+    """A GOP step's batch carries `mc_order` of its MC table (list 0 of
+    every frame, then list 1) with each row's frame g from the offsets, as
+    the batched kernel reads it (no search for the frame on the card)."""
+    pcaps = step_frames[0]
+    _, [(_, steps)] = TG._plan(pcaps, 1)
+    pb = steps[1]
+    b = PK.upload_batch(pb, torch.device("cpu"))
+    off = b.mc_off.numpy()
+    frame = np.concatenate([np.repeat(np.arange(pb.G), np.diff(o))
+                            for o in off])
+    o = PK.mc_order(b.mc.numpy(), pb.mc_lists, frame)
+    np.testing.assert_array_equal(b.mc_order.order.numpy(), o.order)
+    np.testing.assert_array_equal(b.mc_order.classes.numpy(), o.classes)
+    assert b.mc_order.lists == pb.mc_launch == o.lists
+    assert set(b.mc_order.order[:, 1].tolist()) == set(range(pb.G))

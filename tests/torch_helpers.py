@@ -617,6 +617,94 @@ def itdq_order_on(dev, tus, iqt, tu_off=None):
                         o.smem)
 
 
+def mc_order_on(dev, table, lists, mc_off=None):
+    """The MC kernel's class order (ops/pack.py `mc_order`) of a host or
+    device block table, its tables on `dev`, as the pack uploads it; with
+    `mc_off` (a GOP batch) each row's frame g from the offsets."""
+    frame = None
+    if mc_off is not None:
+        off = _host(mc_off)
+        frame = np.concatenate([np.repeat(np.arange(off.shape[1] - 1),
+                                          np.diff(o)) for o in off])
+    o = PK.mc_order(_host(table), lists, frame)
+    return PK.McOrder(_dev(o.order, dev), _dev(o.classes, dev), o.lists)
+
+
+def mc_class_histogram(order: PK.McOrder):
+    """{class label: blocks} of an McOrder, both lists summed; a label is
+    plane (l or c), w x h and case (00, N0, 0N, NN)."""
+    hist = {}
+    for _, _, count, shape in _host(order.classes):
+        key = (f"{'lc'[shape >> 13 & 1]}{1 << ((shape >> 5) & 7)}x"
+               f"{1 << ((shape >> 2) & 7)}"
+               f"{('00', 'N0', '0N', 'NN')[shape & 3]}")
+        hist[key] = hist.get(key, 0) + int(count)
+    return hist
+
+
+def mc_class_frame(bd, seed=0, n=2):
+    """An MC block table with every class of the MC kernel: n blocks of
+    each plane group (luma 4..64, chroma 2..32 a side, square and
+    rectangular) and filter case, in both lists over the same cells (cnt
+    reaches 2); windows anywhere in their reference planes, a share of
+    them at the planes' edges (as clipped MVs give) and a quarter of the
+    filtering ones at phase 0; two reference slots, the second over the
+    whole int16 range (NN's intermediate wraps).  Returns (table, lists,
+    refs: per slot host (y, u, v) int16 planes, shp_y, shp_c)."""
+    rng = np.random.default_rng(seed + bd)
+    ref_hw = ((160, 256), (96, 160))                 # luma, chroma
+    refs = []
+    for slot in range(2):
+        lo, hi = (0, 1 << bd) if slot == 0 else (-32768, 32768)
+        y = rng.integers(lo, hi, size=ref_hw[0])
+        u = rng.integers(lo, hi, size=ref_hw[1])
+        refs.append(tuple(np.ascontiguousarray(p, np.int16)
+                          for p in (y, u, u[::-1])))
+    rows, shapes = [], []
+    for plane, width in ((0, 512), (1, 256)):
+        fbits, half, ntap = (4, 3, 8) if plane == 0 else (5, 1, 4)
+        lmin = 2 - plane
+        specs = [(1 << lw, 1 << lh, case)
+                 for lw in range(lmin, lmin + 5)
+                 for lh in range(lmin, lmin + 5) for case in range(4)
+                 for _ in range(n)]
+        specs.sort(key=lambda s: -s[1])
+        pos, height = _shelves([(h, w) for w, h, _ in specs], width)
+        shapes.append((BORDER + height + PAD_R, BORDER + width + PAD_R))
+        H, W = ref_hw[plane]
+        for lidx in (0, 1):
+            for (y, x), (w, h, case) in zip(pos, specs):
+                g = []
+                for size, extent, taps in ((w, W, case & 1),
+                                           (h, H, case & 2)):
+                    span = size + (ntap - 1 if taps else 0)
+                    lo = int(rng.integers(0, extent - span + 1))
+                    edge = rng.random()
+                    lo = 0 if edge < 0.15 else (extent - span if edge > 0.85
+                                                else lo)
+                    f = int(rng.integers(0, 1 << fbits)) if taps else 0
+                    f = 0 if rng.random() < 0.25 else f
+                    g.append(((lo + (half if taps else 0)) << fbits) + f)
+                rows.append((lidx, plane, w, h, case, int(rng.integers(0, 2)),
+                             g[0], g[1], BORDER + y, BORDER + x, lidx))
+    rows.sort(key=lambda r: r[0])                   # list 0's rows first
+    table = np.array([r[1:] for r in rows], np.int32)
+    n0 = int((table[:, PK.MC_LIST] == 0).sum())
+    return table, (n0, len(table) - n0), refs, shapes[0], shapes[1]
+
+
+def mc_class_case(dev, bd, main_taps=False, seed=0, n=2):
+    """The MC kernel against its plain version on `mc_class_frame`: every
+    class in each list's launch (`reset` a no-op: each launch writes new
+    planes)."""
+    table, lists, refs, shp_y, shp_c = mc_class_frame(bd, seed, n)
+    drefs = [tuple(_dev(p, dev) for p in r) for r in refs]
+    return mc_table_case(
+        dev, table, lists, drefs, shp_y, shp_c, bd,
+        f"every class, {lists[0]}+{lists[1]} blocks bd{bd}"
+        f"{' Main taps' if main_taps else ''}", main_taps)
+
+
 def itdq_case(dev, bd, h, w, chroma=True, seed=0, coef_max=3000, iqt=False):
     """A frame's TU table over h x w coefficient planes; `iqt`: the Main
     transforms, with ATS bases on some luma TUs."""
@@ -894,19 +982,22 @@ def mc_case(dev, H, W, bd, chroma=True, seed=0):
 
 
 def mc_table_case(dev, table, lists, refs, shp_y, shp_c, bd, shape,
-                  main_taps=False):
+                  main_taps=False, order=None):
     """The MC kernel and its plain version on one block table (int32
-    [N, 10], host or device) and per-slot reference planes on `dev`."""
+    [N, 10], host or device) and per-slot reference planes on `dev`;
+    `order`: the table's class order on `dev` (built here by default).
+    `reset` is a no-op: each launch writes new planes."""
     tab = device_tables(dev)
     mc = _dev(np.asarray(table, np.int32), dev) if isinstance(
         table, np.ndarray) else table
+    order = order or mc_order_on(dev, table, lists)
     return KernelCase(
         "mc", shape,
         lambda: list(TM.mc_all(mc, lists, refs, shp_y, shp_c, bd, tab,
-                               main_taps)),
+                               main_taps, order=order)),
         lambda: list(TM.mc_all_ref(mc, refs, shp_y, shp_c, bd, tab,
                                    main_taps)),
-        *mc_work(table))
+        *mc_work(table), reset=lambda: None)
 
 
 def mc_size_case(dev, is_luma, case, bd, seed=0, main_taps=False):
@@ -1196,10 +1287,11 @@ def gop_step_cases(dev, caps, t=1):
     cases.append(KernelCase(
         "mc", f"{label}, {b.mc.shape[0]} blocks",
         lambda: list(TM.mc_all(b.mc, pb.mc_lists, dpb.refs, *m,
-                               mc_off=b.mc_off)),
+                               mc_off=b.mc_off, order=b.mc_order)),
         lambda: list(TM.mc_all_batch_ref(b.mc, b.mc_off, dpb.refs, *m)),
         *mc_work(b.mc), reset=lambda: None))
-    p = TM.mc_all(b.mc, pb.mc_lists, dpb.refs, *m, mc_off=b.mc_off)
+    p = TM.mc_all(b.mc, pb.mc_lists, dpb.refs, *m, mc_off=b.mc_off,
+                  order=b.mc_order)
     preds = ((p[0], p[1]), (p[2], p[4]), (p[3], p[4]))
     n = p[0].numel()
     cases.append(KernelCase(

@@ -50,11 +50,11 @@ SIGNATURES = {
     "xevd_deblock_luma_hor": (_P, _I, _I, _I, _P, _I, *_DB, _P),
     "xevd_deblock_chroma_ver": (_P, _I, _I, _I, _P, _I, *_DB, _P),
     "xevd_deblock_chroma_hor": (_P, _I, _I, _I, _P, _I, *_DB, _P),
-    "xevd_mc": (_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I,
-                _P, _P, _I, _P, _I, _L, _L, _P),
-    "xevd_mc_ring": (_P, _I, _P, _P, _P, _L, _L, _L, _L, _I, _I, _I, _I,
-                     _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P, _I, _L,
-                     _L, _P),
+    "xevd_mc": (_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
+                _P, _I, _I, _P, _P, _I, _I, _L, _L, _P),
+    "xevd_mc_ring": (_P, _P, _P, _I, _I, _P, _P, _P, _L, _L, _L, _L, _I, _I,
+                     _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I,
+                     _L, _L, _P),
     "xevd_intra_scan_wave": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P,
                              _I, _P, _I, _I, _P, _P),
     "xevd_intra_scan_wave_grid": (_P,),

@@ -4,9 +4,10 @@ xevd_tpu/ops/jax_mc.py:50, fused with K4 `_mc_all`,
 xevd_tpu/ops/pipeline.py:179).
 
 `mc_all` launches the CUDA kernel (csrc/mc.cu) once per reference list over
-the frame's MC block table (ops/pack.py `pack_mc`) for CUDA reference
-planes, and runs `mc_all_ref`, the plain PyTorch version, for CPU ones.
-With CUDA planes every operand, the block table and the tap tables
+the frame's MC block table (ops/pack.py `pack_mc`), its rows grouped by
+class (`mc_order`, built by the pack), for CUDA reference planes, and runs
+`mc_all_ref`, the plain PyTorch version, for CPU ones.  With CUDA planes
+every operand, the block table, its class order and the tap tables
 included, must be on the card.  `main_taps` (a Main stream with ADMVP)
 selects the Main tap tables; the arithmetic is the same
 (xevd_tpu/ops/jax_mc.py:61-66).  With `mc_off` the table holds the blocks
@@ -16,13 +17,14 @@ DPB ring (`DpbRing`), addressed by the ring's strides."""
 from __future__ import annotations
 
 import ctypes
+import math
 from dataclasses import dataclass
 
 import torch
 
 from ..kernels import build as K
 from .pack import (MAX_REF_SLOTS, MC_CASE, MC_GX, MC_GY, MC_H, MC_PLANE,
-                   MC_PX, MC_PY, MC_SLOT, MC_W)
+                   MC_PX, MC_PY, MC_SLOT, MC_W, McOrder)
 
 
 @dataclass(frozen=True)
@@ -102,13 +104,20 @@ def mc_blocks_ref(refs, slot, gx, gy, case, w, h, bd, is_luma, tables,
 
 def _new_planes(shp_y, shp_c, device, lead=()):
     """Zero (pred_y, cnt_y, pred_u, pred_v, cnt_c); chroma None for 4:0:0.
-    Intra CUs, and L1-only CUs in list 0, keep zero."""
-    def z(shp, dt):
-        return torch.zeros(lead + shp, dtype=dt, device=device)
-    if shp_c is None:
-        return z(shp_y, torch.int32), z(shp_y, torch.int8), None, None, None
-    return (z(shp_y, torch.int32), z(shp_y, torch.int8),
-            z(shp_c, torch.int32), z(shp_c, torch.int32), z(shp_c, torch.int8))
+    Intra CUs, and L1-only CUs in list 0, keep zero.  The planes are
+    16-byte aligned views into one zeroed buffer: one fill a call."""
+    shapes = [(lead + shp_y, torch.int32), (lead + shp_y, torch.int8)]
+    if shp_c is not None:
+        shapes += [(lead + shp_c, torch.int32), (lead + shp_c, torch.int32),
+                   (lead + shp_c, torch.int8)]
+    sizes = [math.prod(s) * dt.itemsize for s, dt in shapes]
+    buf = torch.zeros(sum(-(-n // 16) * 16 for n in sizes), dtype=torch.uint8,
+                      device=device)
+    planes, off = [], 0
+    for (s, dt), n in zip(shapes, sizes):
+        planes.append(buf[off:off + n].view(dt).view(s))
+        off += -(-n // 16) * 16
+    return tuple(planes) + (None,) * (5 - len(planes))
 
 
 def _ref_stacks(refs):
@@ -178,7 +187,7 @@ def _mc_rows_ref(planes, mc, stacks, bd, tables, main_taps):
 
 
 def mc_all(mc, lists, refs, shp_y, shp_c, bd, tables, main_taps=False,
-           mc_off=None):
+           mc_off=None, order: McOrder | None = None):
     """mc: int32 [N, 10] MC block table (ops/pack.py), `lists` = (rows of
     list 0, rows of list 1), list 0 first; refs: per slot a (y, u, v)
     tuple of padded int16 reference planes (u, v None for 4:0:0);
@@ -187,7 +196,10 @@ def mc_all(mc, lists, refs, shp_y, shp_c, bd, tables, main_taps=False,
     bordered planes of shapes shp_y / shp_c.  A GOP batch of G frames:
     `mc_off` int32 [2, G + 1], frame g's rows of list l at
     mc_off[l, g]:mc_off[l, g + 1] from the list's first row, refs a
-    `DpbRing`, and the planes [G, ...]."""
+    `DpbRing`, and the planes [G, ...].  `order`: the kernel's launches
+    over the rows by class (ops/pack.py `mc_order`, on the device as the
+    pack uploads it, with each row's frame g in a batch), which CUDA
+    planes need; the plain version needs none."""
     if (mc_off is not None) != isinstance(refs, DpbRing):
         raise ValueError("mc_all: a GOP batch (mc_off) reads a DpbRing, a "
                          "frame a per-slot plane list")
@@ -200,7 +212,15 @@ def mc_all(mc, lists, refs, shp_y, shp_c, bd, tables, main_taps=False,
                                     tables, main_taps)
         return mc_all_ref(mc, refs, shp_y, shp_c, bd, tables, main_taps)
     return _mc_cuda(mc, lists, refs, shp_y, shp_c, bd, tables, main_taps,
-                    mc_off)
+                    mc_off, order)
+
+
+def _require_words(p):
+    """The kernel reads reference rows as aligned 32-bit words: a plane
+    4-byte aligned, with even pitch and strides."""
+    if p.data_ptr() % 4 or any(s % 2 for s in p.stride()[:-1]):
+        raise ValueError("mc_all: a reference plane not 4-byte aligned or "
+                         "with an odd pitch")
 
 
 def _ref_pointers(refs, i):
@@ -209,20 +229,27 @@ def _ref_pointers(refs, i):
     planes = [r[i] for r in refs]
     for p in planes:
         K.require(p, torch.int16, 2, contiguous=True)
+        _require_words(p)
     if len({tuple(p.shape) for p in planes}) != 1:
         raise ValueError("mc_all: reference planes differ in shape")
     arr = (ctypes.c_void_p * MAX_REF_SLOTS)(*[p.data_ptr() for p in planes])
     return arr, planes[0].stride(0)
 
 
-def _mc_cuda(mc, lists, refs, shp_y, shp_c, bd, tables, main_taps, mc_off):
+def _mc_cuda(mc, lists, refs, shp_y, shp_c, bd, tables, main_taps, mc_off,
+             order):
+    if order is None:
+        raise ValueError("mc_all: the kernel needs the rows' class order "
+                         "(ops/pack.py mc_order)")
     chroma = shp_c is not None
     batched = mc_off is not None
     taps_l = _taps(tables, True, main_taps)
     taps_c = _taps(tables, False, main_taps)
     K.require(mc, torch.int32, 2, contiguous=True)
-    K.require(taps_l, torch.int32, 2, contiguous=True)
-    K.require(taps_c, torch.int32, 2, contiguous=True)
+    for t in (taps_l, taps_c):
+        K.require(t, torch.int32, 2, contiguous=True)
+        if t.data_ptr() % 16:
+            raise ValueError("mc_all: tap table not 16-byte aligned")
     if batched:
         K.require(mc_off, torch.int32, 2, contiguous=True)
     if mc.shape[1] != 10:
@@ -230,6 +257,14 @@ def _mc_cuda(mc, lists, refs, shp_y, shp_c, bd, tables, main_taps, mc_off):
     n0, n1 = lists
     if n0 + n1 != mc.shape[0]:
         raise ValueError(f"MC lists {lists} != {mc.shape[0]} table rows")
+    K.require(order.order, torch.int32, 2, contiguous=True)
+    K.require(order.classes, torch.int32, 2, contiguous=True)
+    if (order.order.shape != (mc.shape[0], 2)
+            or order.classes.shape[1] != 4
+            or sum(k for _, k, _ in order.lists) != order.classes.shape[0]):
+        raise ValueError(f"mc_all: class order {tuple(order.order.shape)} / "
+                         f"{tuple(order.classes.shape)} / {order.lists} for "
+                         f"{mc.shape[0]} rows")
     lib = K.lib()
     if batched:
         refs_args, pitch_y, pitch_c = _ring_args(refs, chroma)
@@ -253,21 +288,24 @@ def _mc_cuda(mc, lists, refs, shp_y, shp_c, bd, tables, main_taps, mc_off):
     pred_y, cnt_y, pred_u, pred_v, cnt_c = planes = _new_planes(
         shp_y, shp_c, mc.device, (G,) if batched else ())
     stream = K.stream_ptr(mc.device)
-    for lidx, (off, n) in enumerate(((0, n0), (n0, n1))):
-        if n == 0:
+    add = 0
+    for k0, n_cls, n_cta in order.lists:
+        if n_cta == 0:
             continue
         K.count("mc")
         err = entry(
-            mc[off:].data_ptr(), n, *refs_args, pitch_y, pitch_c,
-            pred_y.data_ptr(), pred_u.data_ptr() if chroma else None,
+            mc.data_ptr(), order.order.data_ptr(),
+            order.classes.data_ptr() + 16 * k0, n_cls, n_cta, *refs_args,
+            pitch_y, pitch_c, pred_y.data_ptr(),
+            pred_u.data_ptr() if chroma else None,
             pred_v.data_ptr() if chroma else None, cnt_y.data_ptr(),
             cnt_c.data_ptr() if chroma else None, pred_y.stride(-2),
             pred_u.stride(-2) if chroma else 0, taps_l.data_ptr(),
-            taps_c.data_ptr(), bd,
-            mc_off[lidx].data_ptr() if batched else None, G,
+            taps_c.data_ptr(), bd, add,
             pred_y.stride(0) if batched else 0,
             pred_u.stride(0) if batched and chroma else 0, stream)
         K.check(err, entry.__name__)
+        add = 1        # the first launch stored into the zero planes
     return planes
 
 
@@ -280,6 +318,7 @@ def _ring_args(ring: DpbRing, chroma: bool):
     for p in (y, u, v):
         if p is not None:
             K.require(p, torch.int16, 4, rows_contiguous=True)
+            _require_words(p)
     if chroma and (u.shape != v.shape or u.stride() != v.stride()):
         raise ValueError("mc_all: u and v rings differ in shape or strides")
     if chroma and u.shape[:2] != y.shape[:2]:

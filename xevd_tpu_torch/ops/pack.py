@@ -8,10 +8,12 @@ jit signatures stable is gone: no pow2 bucket padding, no pad rows at
 1<<20, no per-size or per-(size, case) buckets, no per-size-class
 wavefront slots.  The TU table and the MC block table are one list each,
 which the ITDQ kernel walks in a single launch and the MC kernel in one
-launch per reference list; the EIPD scan table is one list sorted by
-wavefront level, with the level offsets beside it in the payload (the
-scan kernel walks the levels on the card); the SUCO chroma edges
-are one list sorted by SCU row and rank, with row offsets (no waves).
+launch per reference list, each in the order of a class order that the
+pack builds beside it (`itdq_order`, `mc_order`); the EIPD scan table is
+one list sorted by wavefront level, with the level offsets beside it in
+the payload (the scan kernel walks the levels on the card); the SUCO
+chroma edges are one list sorted by SCU row and rank, with row offsets
+(no waves).
 `stack_frames` stacks the G frames of one time step of a GOP batch (K15)
 into one such payload, with per-frame row offsets.
 
@@ -483,6 +485,105 @@ def pack_mc(fs, job, refp, chroma, plane=None):
     return table.astype(np.int32), lists, tuple(refs)
 
 
+MC_THREADS = 256         # a CTA of the MC kernel (csrc/mc.cu)
+# the MC kernel's threads an H100 holds at once: 3 CTAs an SM, 132 SMs
+MC_CARD_THREADS = 3 * 132 * MC_THREADS
+
+
+@dataclass
+class McOrder:
+    """The MC kernel's two launches (one a reference list) over a block
+    table grouped by class (csrc/mc.cu): `order` int32 [N, 2] lists
+    (table row, frame g), list 0's rows then list 1's, each list frame by
+    frame, each frame class by class and each class's rows in table order;
+    `classes` int32 [K, 4] gives each (list, frame, class) present its
+    first CTA in its list's launch, first order entry, block count and
+    shape (plane << 13) | (log2 Q << 11) | (log2 R << 8) | (log2 w << 5) |
+    (log2 h << 2) | case, a thread taking a tile of Q columns by R rows of
+    a block; `lists` = ((first class, classes, CTAs) of list 0, of list
+    1).  Host arrays from `mc_order`, device views after an upload."""
+    order: np.ndarray | torch.Tensor
+    classes: np.ndarray | torch.Tensor
+    lists: tuple
+
+
+def mc_order(table: np.ndarray, lists: tuple, frame=None) -> McOrder:
+    """Group each list's MC rows by frame and then by class (plane, log2 w,
+    log2 h, filter case: at most 200 a list and frame) with a counting
+    sort (numpy's stable sort of uint16 keys is a radix sort; above 127
+    frames a batch, a stable sort of wider keys), the table itself
+    unchanged.  Frame-major order keeps a GOP batch's CTAs in flight on
+    one frame's planes at a time, so its scattered writes complete their
+    sectors in L2.  A thread takes a tile of Q = min(w, 4) columns by R
+    rows of one block; a class's block takes w h / (Q R) threads (at most
+    256), and a CTA MC_THREADS / that many blocks.  R = min(h, 4) where a
+    list's launch then fits the card at once (MC_CARD_THREADS: a launch of
+    one partial wave takes as long as a thread's chain of window rows, 7
+    or 3 more than R), else min(h, 8) (fewer rows loaded an output).
+    `lists` = (rows of list 0, of list 1), list 0's first; `frame`: each
+    row's frame g in a GOP batch (zeros by default)."""
+    t = np.asarray(table)
+    n0, n1 = lists
+    if n0 + n1 != len(t):
+        raise ValueError(f"MC lists {lists} != {len(t)} table rows")
+    plane = t[:, MC_PLANE]
+    w, h, case = t[:, MC_W], t[:, MC_H], t[:, MC_CASE]
+    lw = np.log2(np.maximum(w, 1)).astype(np.int64)
+    lh = np.log2(np.maximum(h, 1)).astype(np.int64)
+    lmin = 2 - plane                               # luma 4..64, chroma 2..32
+    if len(t) and (((plane != 0) & (plane != 1)).any() or (w != 1 << lw).any()
+                   or (h != 1 << lh).any() or (lw < lmin).any()
+                   or (lh < lmin).any() or (lw > lmin + 4).any()
+                   or (lh > lmin + 4).any() or (case < 0).any()
+                   or (case > 3).any()):
+        raise ValueError("MC block outside the kernel's classes: luma 4..64, "
+                         "chroma 2..32 a side, cases 0..3")
+    g = (np.zeros(len(t), np.int64) if frame is None
+         else np.asarray(frame, np.int64))
+    n_g = int(g.max()) + 1 if len(t) else 1
+    # class = plane * 100 + (log2 w - lmin) * 20 + (log2 h - lmin) * 4 +
+    # case, under the 256s of its (list, frame) segment
+    seg = g + n_g * (np.arange(len(t)) >= n0)
+    key = (seg << 8) + plane * 100 + (lw - lmin) * 20 + (lh - lmin) * 4 + case
+    if 2 * n_g <= 256:
+        key = key.astype(np.uint16)
+    perm = np.argsort(key, kind="stable")
+    present, n_blk = np.unique(key, return_counts=True)
+    present = present.astype(np.int64)
+    cls = present % 256
+    p_c, case_c = cls // 100, cls % 4
+    lw_c = cls % 100 // 20 + 2 - p_c
+    lh_c = cls % 20 // 4 + 2 - p_c
+    lq = np.minimum(lw_c, 2)
+    list_c = (present >> 8 >= n_g).astype(np.int64)
+
+    def cta_counts(lr):
+        return -(-n_blk // (MC_THREADS >> (lw_c - lq + lh_c - lr)))
+    # R = 4 where a list's launch then fits the card at once, else R = 8
+    lr = np.minimum(lh_c, 3)
+    short = np.minimum(lh_c, 2)
+    fits = np.bincount(list_c, cta_counts(short), minlength=2) * MC_THREADS
+    lr = np.where(fits[list_c] <= MC_CARD_THREADS, short, lr)
+    ctas = cta_counts(lr)
+    classes = np.zeros((len(present), 4), np.int64)
+    classes[:, 1] = np.cumsum(n_blk) - n_blk
+    classes[:, 2] = n_blk
+    classes[:, 3] = ((p_c << 13) | (lq << 11) | (lr << 8) | (lw_c << 5)
+                     | (lh_c << 2) | case_c)
+    launches = []
+    for lidx in range(2):
+        ks = np.nonzero(list_c == lidx)[0]
+        c = ctas[ks]
+        classes[ks, 0] = np.cumsum(c) - c
+        launches.append((int(ks[0]) if len(ks) else 0, len(ks),
+                         int(c.sum())))
+    order = np.zeros((len(t), 2), np.int32)
+    order[:, 0] = perm
+    order[:, 1] = g[perm]
+    return McOrder(order=order, classes=classes.astype(np.int32),
+                   lists=tuple(launches))
+
+
 def _check_mc_windows(table, refs):
     """Every filter window, taps included, inside its reference plane."""
     for plane in (0, 1):
@@ -526,6 +627,7 @@ class PackedFrame:
     refs: tuple                  # per slot: (y, u, v) reference tensors
     ref_pocs: tuple = ()         # per slot: the reference picture's POC
     tu_launch: tuple = (0, 0)    # ItdqOrder's (n_cta, smem)
+    mc_launch: tuple = ((0, 0, 0), (0, 0, 0))   # McOrder's lists
 
 
 @dataclass
@@ -537,6 +639,7 @@ class DeviceFrame:
     icu: torch.Tensor            # int32 [Nc, 8], EIPD: [Nc, 13 or 16]
     level_off: torch.Tensor | None   # EIPD: int32 [L + 1] level offsets
     mc: torch.Tensor             # int32 [Nm, 10], list 0 rows first
+    mc_order: McOrder            # the MC rows by class (views)
     dbst: torch.Tensor | None    # int32 [6, h_scu, w_scu]
     addb_l: torch.Tensor | None  # int32 [2, hs2, ws2, 4]
     addb_c: torch.Tensor | None  # int32 [2, hs2, ws2, 7]
@@ -582,7 +685,10 @@ def pack_frame(job, sps, refp, plane=None) -> PackedFrame:
         pk.add("icu", pack_intra(fs, job))
     mc, mc_lists, refs = pack_mc(fs, job, refp, chroma, plane)
     ref_pocs = tuple(refp[r][lidx].poc for lidx, r in ref_slots(fs, job))
+    mc_ord = mc_order(mc, mc_lists)
     pk.add("mc", mc)
+    pk.add("mc_order", mc_ord.order)
+    pk.add("mc_cls", mc_ord.classes)
     suco = False
     if addb:
         # ADDB takes precedence over the SUCO order (pipeline.py:525)
@@ -624,7 +730,7 @@ def pack_frame(job, sps, refp, plane=None) -> PackedFrame:
         main_taps=bool(is_main and sps.tool_admvp),
         geom=(fs.h, fs.w, fs.h_scu, fs.w_scu), shp_y=shp_y, shp_c=shp_c,
         mc_lists=mc_lists, refs=refs, ref_pocs=ref_pocs,
-        tu_launch=(tu_order.n_cta, tu_order.smem))
+        tu_launch=(tu_order.n_cta, tu_order.smem), mc_launch=mc_ord.lists)
 
 
 def upload(pf: PackedFrame, device: torch.device) -> DeviceFrame:
@@ -651,6 +757,8 @@ def upload(pf: PackedFrame, device: torch.device) -> DeviceFrame:
                                           *pf.tu_launch),
                        icu=view("icu"),
                        level_off=view("level_off"), mc=view("mc"),
+                       mc_order=McOrder(view("mc_order"), view("mc_cls"),
+                                        pf.mc_launch),
                        dbst=view("dbst"), addb_l=view("addb_l"),
                        addb_c=view("addb_c"), suco_off=view("suco_off"),
                        suco_edges=view("suco_edges"), alf_l=view("alf_l"),
@@ -669,7 +777,8 @@ class PackedBatch:
     list's first row."""
     payload: np.ndarray          # int32, see `layout`
     layout: dict                 # tus, tu_off, tu_order, tu_cls, icu,
-    #                              icu_off, mc, mc_off, dbst
+    #                              icu_off, mc, mc_off, mc_order, mc_cls,
+    #                              dbst
     coefs: np.ndarray            # int16 [G, L]: each frame's coefficients
     coef_shapes: tuple
     G: int
@@ -683,6 +792,7 @@ class PackedBatch:
     shp_c: tuple | None
     mc_lists: tuple              # MC rows of list 0, of list 1 (all frames)
     tu_launch: tuple = (0, 0)    # ItdqOrder's (n_cta, smem)
+    mc_launch: tuple = ((0, 0, 0), (0, 0, 0))   # McOrder's lists
 
 
 @dataclass
@@ -695,6 +805,7 @@ class DeviceBatch:
     icu_off: torch.Tensor        # int32 [G + 1]
     mc: torch.Tensor             # int32 [Nm, 10], list 0 rows first
     mc_off: torch.Tensor         # int32 [2, G + 1]
+    mc_order: McOrder            # the MC rows by class, with their g
     dbst: torch.Tensor | None    # int32 [G, 6, h_scu, w_scu]
     coef_y: torch.Tensor         # int16 [G, h_pad, w_pad]
     coef_u: torch.Tensor | None
@@ -755,10 +866,16 @@ def stack_frames(frames, slots) -> PackedBatch:
     pk.add("tu_cls", tu_order.classes)
     pk.add("icu", np.concatenate(icu))
     pk.add("icu_off", _offsets([len(t) for t in icu]))
-    pk.add("mc", np.concatenate([m[:n] for m, n in zip(mcs, n0)]
-                                + [m[n:] for m, n in zip(mcs, n0)]))
-    pk.add("mc_off", np.stack([_offsets(n0), _offsets(
-        [len(m) - n for m, n in zip(mcs, n0)])]))
+    n1 = [len(m) - n for m, n in zip(mcs, n0)]
+    mc = np.concatenate([m[:n] for m, n in zip(mcs, n0)]
+                        + [m[n:] for m, n in zip(mcs, n0)])
+    g = np.arange(len(frames))
+    mc_ord = mc_order(mc, (sum(n0), sum(n1)), np.concatenate(
+        [np.repeat(g, n0), np.repeat(g, n1)]))
+    pk.add("mc", mc)
+    pk.add("mc_off", np.stack([_offsets(n0), _offsets(n1)]))
+    pk.add("mc_order", mc_ord.order)
+    pk.add("mc_cls", mc_ord.classes)
     if f0.deblock_on:
         pk.add("dbst", np.stack([_table(f, "dbst", 0) for f in frames]))
     payload, layout = pk.finish()
@@ -769,8 +886,8 @@ def stack_frames(frames, slots) -> PackedBatch:
         chroma=f0.chroma, deblock_on=f0.deblock_on, iqt=f0.iqt,
         main_taps=f0.main_taps, geom=f0.geom, shp_y=f0.shp_y,
         shp_c=f0.shp_c,
-        mc_lists=(sum(n0), sum(len(m) for m in mcs) - sum(n0)),
-        tu_launch=(tu_order.n_cta, tu_order.smem))
+        mc_lists=(sum(n0), sum(n1)),
+        tu_launch=(tu_order.n_cta, tu_order.smem), mc_launch=mc_ord.lists)
 
 
 def upload_batch(pb: PackedBatch, device: torch.device) -> DeviceBatch:
@@ -799,5 +916,7 @@ def upload_batch(pb: PackedBatch, device: torch.device) -> DeviceBatch:
                                           *pb.tu_launch),
                        icu=view("icu"), icu_off=view("icu_off"),
                        mc=view("mc"), mc_off=view("mc_off"),
+                       mc_order=McOrder(view("mc_order"), view("mc_cls"),
+                                        pb.mc_launch),
                        dbst=view("dbst"), coef_y=coef_y, coef_u=coef_u,
                        coef_v=coef_v, packed=pb)

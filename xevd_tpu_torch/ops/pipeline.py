@@ -68,7 +68,7 @@ def residuals_and_recon(df: PK.DeviceFrame, tables: dict, mark=None):
     if pf.refs:
         pred_y, cnt_y, pred_u, pred_v, cnt_c = mc_all(
             df.mc, pf.mc_lists, pf.refs, pf.shp_y, pf.shp_c, bd, tables,
-            pf.main_taps)
+            pf.main_taps, order=df.mc_order)
         preds = ((pred_y, cnt_y), (pred_u, cnt_c), (pred_v, cnt_c))
     else:
         preds = ((None, None),) * 3
@@ -182,7 +182,7 @@ def run_frames_device(batch: PK.DeviceBatch, tables: dict, dpb: DpbStep):
     if batch.mc.shape[0]:
         pred_y, cnt_y, pred_u, pred_v, cnt_c = mc_all(
             batch.mc, pb.mc_lists, dpb.refs, pb.shp_y, pb.shp_c, bd, tables,
-            pb.main_taps, mc_off=batch.mc_off)
+            pb.main_taps, mc_off=batch.mc_off, order=batch.mc_order)
         preds = ((pred_y, cnt_y), (pred_u, cnt_c), (pred_v, cnt_c))
     else:
         preds = ((None, None),) * 3
