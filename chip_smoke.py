@@ -11,64 +11,64 @@
 2. Builds the CUDA kernels from xevd_tpu_torch/csrc with nvcc (sm_90a).
 3. Kernel phases: every hand-written kernel against its plain PyTorch
    version on the card, on numpy-seeded inputs at the shapes of the 1080p
-   main paths, with exact equality (integer kernels, tolerance 0), and
-   both times: ITDQ Baseline, Main iqt and every ATS basis pair; MC on a
-   frame of every class of its kernel (plane group, size, case; windows
-   at the planes' edges, phase 0 under filtering cases, split 64x64
-   blocks) at 8 and 10 bit with the Baseline and the Main taps, 10
-   launches a case, with the Baseline and the Main taps at every (plane,
-   case, bit depth) and on a synthetic 1080p frame; recon, pad (beside
+   main paths, with exact equality (integer kernels, tolerance 0), and both
+   times: ITDQ Baseline, Main iqt and every ATS basis pair; MC on a frame of
+   every class of its kernel (plane group, size, case; windows at the
+   planes' edges, phase 0 under filtering cases, split 64x64 blocks) at 8
+   and 10 bit with the Baseline and the Main taps, 10 launches a case, with
+   the Baseline and the Main taps at every (plane, case, bit depth) and on a
+   synthetic 1080p frame; recon, pad (beside
    torch.nn.functional.pad(mode="replicate"), its library yardstick, or
-   CUDA's refusal of int16), deblock, the SUCO-order chroma
-   deblock, the four ADDB passes and ALF luma and chroma (CTU 64 and 128,
-   across tiles or not); ITDQ on a frame of every size class (2x2 to
+   CUDA's refusal of int16), deblock, the SUCO-order chroma deblock, ADDB on
+   whole 1080p pictures (one launch over Y, U and V: random maps, bs 4
+   everywhere, no edge, 4:0:0, an unaligned pitch) and ALF on whole 1080p
+   pictures (one launch: CTU 64 and 128, across tiles or not, an unaligned
+   pitch), 10 launches a case; ITDQ on a frame of every size class (2x2 to
    64x64, square and rectangular, Baseline beside ATS and all Main, and at
    the largest scale with coefficients over the whole int16 range), 10
-   launches a case; K9 (the Baseline chroma deblock cascade) on random
-   maps, maps with every edge on and an empty one at 8 and 10 bit, 20
-   launches a case; the Baseline intra scan on CIF with random causal
-   CU lists and on 4x4 CUs with every causal bit set, and the EIPD
-   wavefront scan with HTDF on CIF with random CU lists (step 4 holds the
-   scans, MC, the SUCO order, ADDB and ALF to their plain versions on the
-   streams' own frames).  The two scans are persistent dataflow kernels:
-   each of their cases, here and in steps 4 and 5, runs the plain version
-   once and the kernel 20 times from the same inputs, every launch equal
-   (a race shows as a difference between launches).
+   launches a case; K9 (the Baseline chroma deblock cascade) on random maps,
+   maps with every edge on and an empty one at 8 and 10 bit, 20 launches a
+   case; the Baseline intra scan on CIF with random causal CU lists and on
+   4x4 CUs with every causal bit set, and the EIPD wavefront scan with HTDF
+   on CIF with random CU lists (step 4 holds the scans, MC, the SUCO order,
+   ADDB and ALF to their plain versions on the streams' own frames). The two
+   scans are persistent dataflow kernels: each of their cases, here and in
+   steps 4 and 5, runs the plain version once and the kernel 20 times from
+   the same inputs, every launch equal (a race shows as a difference between
+   launches).
 4. Slice phase: nine streams are decoded with Decoder(backend=
    TorchPixelBackend("cuda")); each 10-bit YUV must equal the numpy
    oracle's: 1920x1080 Baseline all-intra (2 frames), 352x288 10-bit
-   all-intra (4), 1920x1080 Baseline IPPP (4: bench.py's config-2 stream
-   cut from 16 frames), 352x288 10-bit RA (5, bi-prediction), 1920x1080
-   Main RA with bench.py's 14 config-3 tools (5 pictures: config 3 cut
-   from 9 frames to 3), the same 1080p Main RA stream with 12 tools, SUCO
-   without ADDB and ALF (the SUCO-order chroma deblock path), and with 11
-   tools, without SUCO, ADDB and ALF (the raster Baseline deblock on the
-   Main path), and 352x288 10-bit Main IPPP with DRA, iqt, ATS and HTDF
-   (4), once with ADDB and ALF and once without (the Baseline deblock at
-   10 bit).  The
-   Baseline intra scan kernel is held to its plain version on every 1080p
-   intra frame's own CU table and planes and on the 1080p IPPP stream's P
-   frame with the most intra CUs, K9 on every IPPP frame's own chroma
-   areas and maps (20 launches each; the run lengths of each map
-   printed), ITDQ on every config-3 and IPPP frame's own TU table (10
-   launches; the TUs of each size class and the host time of the class
-   grouping printed), the MC kernel on every 1080p P
-   frame's own block table and class order and on the config-3 stream's
-   B pictures (Main taps; 10 launches each; the rows of each class and the
-   host time of `mc_order` printed), the EIPD scan kernel on its I picture
-   and one B picture, the
-   SUCO order on the SUCO stream's pictures, ADDB and ALF on the config-3
-   and the CIF 10-bit Main streams' pictures.  The CLI entry point decodes
-   the CIF RA and both CIF Main streams.  Six paths are counted and timed:
-   the 1080p all-intra decode once, the 1080p IPPP decode twice, the
-   11-tool Main stream, the CIF 10-bit Main stream without ADDB and ALF and
-   the SUCO stream once each, and the config-3 stream (the main path)
-   three times; the
-   launch counters are reset just before each path and read just after
-   it; every kernel the path needs must have launched, and none it must
-   not; MC once a reference list with blocks, per frame.  Each counted
-   decode prints its frames/s and per-stage CUDA-event
-   times.
+   all-intra (4), 1920x1080 Baseline IPPP (4: bench.py's config-2 stream cut
+   from 16 frames), 352x288 10-bit RA (5, bi-prediction), 1920x1080 Main RA
+   with bench.py's 14 config-3 tools (5 pictures: config 3 cut from 9 frames
+   to 3), the same 1080p Main RA stream with 12 tools, SUCO without ADDB and
+   ALF (the SUCO-order chroma deblock path), and with 11 tools, without
+   SUCO, ADDB and ALF (the raster Baseline deblock on the Main path), and
+   352x288 10-bit Main IPPP with DRA, iqt, ATS and HTDF (4), once with ADDB
+   and ALF and once without (the Baseline deblock at 10 bit). The Baseline
+   intra scan kernel is held to its plain version on every 1080p intra
+   frame's own CU table and planes and on the 1080p IPPP stream's P frame
+   with the most intra CUs, K9 on every IPPP frame's own chroma areas and
+   maps (20 launches each; the run lengths of each map printed), ITDQ on
+   every config-3 and IPPP frame's own TU table (10 launches; the TUs of
+   each size class and the host time of the class grouping printed), the MC
+   kernel on every 1080p P frame's own block table and class order and on
+   the config-3 stream's B pictures (Main taps; 10 launches each; the rows
+   of each class and the host time of `mc_order` printed), the EIPD scan
+   kernel on its I picture and one B picture, the SUCO order on the SUCO
+   stream's pictures, ADDB and ALF on every config-3 and CIF 10-bit Main
+   picture (10 launches each; ALF also on the first config-3 picture's luma
+   alone and one chroma plane alone). The CLI entry point decodes the CIF RA
+   and both CIF Main streams. Six paths are counted and timed: the 1080p
+   all-intra decode once, the 1080p IPPP decode twice, the 11-tool Main
+   stream, the CIF 10-bit Main stream without ADDB and ALF and the SUCO
+   stream once each, and the config-3 stream (the main path) three times;
+   the launch counters are reset just before each path and read just after
+   it; every kernel the path needs must have launched, and none it must not;
+   MC once a reference list with blocks, per frame; ADDB once a picture that
+   has it, ALF once a picture that filters any plane. Each counted decode
+   prints its frames/s and per-stage CUDA-event times.
 5. GOP phase (K15, xevd_tpu_torch/parallel/gop.py): 8 independent
    1920x1080 Baseline IPPP GOPs of 2, 3 or 4 frames (xevd_tpu/parallel/
    gop.py `gen_gop_streams(8, 1920, 1080, frames=2, variable=True)`'s
@@ -101,9 +101,14 @@
    bound from its main case's bytes and operations; every kernel also
    with `ms_device`, its time from CUDA-graph replays without the
    wrapper's host work; K9 with `ms_all` / `ms_zero` for the maps with
-   every edge on and none; K14 with `library_ms`, F.pad's time, or
-   `library_refused`) and, as the last line, {"ok": true,
-   "device": {...}}.
+   every edge on and none; ADDB and ALF with `ms_device_per_call`, a
+   call's time in graphs of 20 calls (a one-call graph lasts at least the
+   host's launch of the graph); ALF with `ms_device_luma` /
+   `ms_device_chroma` (and their `_per_call`), its device time on one
+   picture's luma alone and one chroma plane alone (ALF's phase lines
+   also give the bytes of the unflagged luma CTUs it copies); K14 with
+   `library_ms`, F.pad's time, or `library_refused`) and, as the last
+   line, {"ok": true, "device": {...}}.
 
 Any failure raises and the exit code is non-zero.  Imports neither JAX
 nor `xevd_tpu`: the reference runs in its own processes.
@@ -198,18 +203,10 @@ KERNELS = {
            "xevd_tpu/ops/jax_mc.py:50"),
     "chroma_ver_ordered": ("cuda", "xevd_tpu_torch/csrc/deblock.cu",
                            "xevd_tpu/ops/jax_deblock.py:123"),
-    "addb_luma_ver": ("cuda", "xevd_tpu_torch/csrc/addb.cu",
-                      "xevd_tpu/ops/jax_deblock.py:200"),
-    "addb_luma_hor": ("cuda", "xevd_tpu_torch/csrc/addb.cu",
-                      "xevd_tpu/ops/jax_deblock.py:217"),
-    "addb_chroma_ver": ("cuda", "xevd_tpu_torch/csrc/addb.cu",
-                        "xevd_tpu/ops/jax_deblock.py:232"),
-    "addb_chroma_hor": ("cuda", "xevd_tpu_torch/csrc/addb.cu",
-                        "xevd_tpu/ops/jax_deblock.py:247"),
-    "alf_luma": ("cuda", "xevd_tpu_torch/csrc/alf.cu",
-                 "xevd_tpu/ops/jax_alf.py:150"),
-    "alf_chroma": ("cuda", "xevd_tpu_torch/csrc/alf.cu",
-                   "xevd_tpu/ops/jax_alf.py:150"),
+    "addb_frame": ("cuda", "xevd_tpu_torch/csrc/addb.cu",
+                   "xevd_tpu/ops/jax_deblock.py:200"),
+    "alf_frame": ("cuda", "xevd_tpu_torch/csrc/alf.cu",
+                  "xevd_tpu/ops/jax_alf.py:150"),
 }
 # the batched kernels of the GOP path (K15), "gop_" + their counter name,
 # and K15's step itself
@@ -255,37 +252,13 @@ def timed(torch, fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
-def graph_ms(torch, fn, reps):
-    """Mean device milliseconds of fn() over `reps` replays of a CUDA graph
-    that captured one call: the wrapper's host work (argument checks,
-    ctypes) is left out, which back-to-back calls (`timed`) include where
-    a kernel takes less time than its launch."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()                        # allocations outside the capture
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        graph.replay()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
-
-
 SCAN_LAUNCHES = 20     # race check of each scan case (persistent kernels)
 SCAN_NAMES = ("intra_scan", "intra_scan_wave")
 SCANS = []             # (key, shape, kernel ms, plain ms) of each scan case
 K9_LAUNCHES = 20       # each K9 case: launches equal to the plain version
 ITDQ_LAUNCHES = 10     # each ITDQ class case
 MC_LAUNCHES = 10       # each MC class-mix case and stream table
+FRAME_LAUNCHES = 10    # each ADDB and ALF case (one launch a picture)
 
 
 def run_case(torch, case, results, reps, plain_reps, main=False, key=None,
@@ -299,6 +272,7 @@ def run_case(torch, case, results, reps, plain_reps, main=False, key=None,
     the summary reports; `key` files the result under another name than
     the kernel's.  Returns the kernel's ms."""
     from tests.torch_helpers import max_abs_err, repeat_equal
+    from tests.torch_mc_times import graph_ms
     got = case.kernel()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
@@ -320,20 +294,31 @@ def run_case(torch, case, results, reps, plain_reps, main=False, key=None,
     # wrapper's host work, which back-to-back calls include where a kernel
     # is shorter than its launch
     dms = graph_ms(torch, case.kernel, 2 * reps) if reps else None
+    # and a call's time in graphs of case.graph_calls calls, where set
+    pcs = (graph_ms(torch, case.kernel, reps, case.graph_calls)
+           if reps and case.graph_calls > 1 else None)
     plain_ms = (timed(torch, case.plain, plain_reps) if plain_reps
                 else t0.elapsed_time(t1))
     r = results.setdefault(key or case.name, {"max_abs_err": 0})
     r["max_abs_err"] = max(r["max_abs_err"], err)
     r["last_device_ms"] = dms
+    r["last_device_ms_per_call"] = pcs
     if main:
         r.update(ms=ms, plain_ms=plain_ms, shape=case.shape,
                  bytes=case.bytes, ops=case.ops)
         if dms is not None:
             r["ms_device"] = dms
+        if pcs is not None:
+            r["ms_device_per_call"] = pcs
     timing = (f"kernel {ms:9.4f} ms  plain {plain_ms:10.4f} ms" if reps
               else "")
     if dms is not None:
         timing += f"  graph {dms:8.4f} ms"
+    if pcs is not None:
+        timing += f" ({pcs:.4f} a call of {case.graph_calls})"
+    if case.copy_bytes:
+        # the design's bytes beyond the function's (ALF: unflagged CTUs)
+        timing += f"  copies {case.copy_bytes} B"
     log(f"  {case.name:20s} {case.shape:34s} equal"
         f"{f' in {launches} launches' if launches > 1 else ''}  {timing}"
         f"{'  (main path)' if main else ''}")
@@ -353,8 +338,9 @@ def kernel_phases(torch, dev, results):
     scans and MC to their plain versions on the 1080p streams' own
     frames)."""
     import numpy as np
-    from tests.torch_helpers import (CHROMA_MAPS, addb_case, alf_case,
-                                     chroma_map, deblock_case, intra_case,
+    from tests.torch_helpers import (CHROMA_MAPS, addb_synth_case,
+                                     alf_synth_case, chroma_map,
+                                     deblock_case, intra_case,
                                      intra_chain_case, intra_wave_case,
                                      itdq_case, itdq_class_case,
                                      itdq_size_case, mc_case, mc_class_case,
@@ -460,21 +446,30 @@ def kernel_phases(torch, dev, results):
     for bd in (8, 10):
         run_case(torch, suco_case(dev, bd, 270, 480, seed=600), results, 20, 3)
 
-    log("phase addb (1080p luma and chroma, U and V channels)")
+    log(f"phase addb (1080p pictures, one launch each: Y, U and V; random "
+        f"maps, bs 4 everywhere, no edge, 4:0:0, an unaligned pitch; "
+        f"{FRAME_LAUNCHES} launches a case)")
     for bd in (8, 10):
-        for kind, cb in (("luma_ver", 1), ("luma_hor", 1), ("chroma_ver", 1),
-                         ("chroma_ver", 4), ("chroma_hor", 1),
-                         ("chroma_hor", 4)):
-            H, W = (1080, 1920) if kind.startswith("luma") else (540, 960)
-            run_case(torch, addb_case(dev, kind, bd, H, W, seed=650, cb=cb),
-                     results, 20, 3)
+        for maps, chroma, unaligned in (
+                ("dense", True, False), ("strong", True, False),
+                ("none", True, False), ("dense", False, False),
+                ("dense", True, True)):
+            run_case(torch, addb_synth_case(dev, bd, 1080, 1920, seed=650,
+                                            chroma=chroma, maps=maps,
+                                            unaligned=unaligned),
+                     results, 20, 1, launches=FRAME_LAUNCHES)
 
-    log("phase alf (1080p, CTU 64 and 128, across tiles or not)")
+    log(f"phase alf (1080p pictures, one launch each, CTU 64 and 128, "
+        f"across tiles or not, an unaligned pitch; {FRAME_LAUNCHES} launches "
+        f"a case)")
     for bd in (8, 10):
-        for luma in (True, False):
-            for log2_ctu, across in ((6, 1), (6, 0), (7, 1)):
-                run_case(torch, alf_case(dev, luma, bd, 1080, 1920, log2_ctu,
-                                         across, seed=700), results, 20, 1)
+        for log2_ctu, across, unaligned in ((6, 1, False), (6, 0, False),
+                                            (7, 1, False), (7, 0, False),
+                                            (6, 0, True)):
+            run_case(torch, alf_synth_case(dev, bd, 1080, 1920, log2_ctu,
+                                           across, seed=700,
+                                           unaligned=unaligned),
+                     results, 20, 1, launches=FRAME_LAUNCHES)
 
 
 def pad_library(torch, dev, results):
@@ -485,6 +480,7 @@ def pad_library(torch, dev, results):
     refusal of int16, recorded."""
     import numpy as np
     from tests.torch_helpers import bordered
+    from tests.torch_mc_times import graph_ms
     from xevd_tpu_torch.ops import recon as TR
     from xevd_tpu_torch.ops.tables import BORDER, PAD_L
 
@@ -677,24 +673,31 @@ def intra_wave_main_path(torch, dev, packed, results):
 
 
 SUCO_KERNELS = ("chroma_ver_ordered",)
-ADDB_KERNELS = ("addb_luma_ver", "addb_luma_hor", "addb_chroma_ver",
-                "addb_chroma_hor")
-ALF_KERNELS = ("alf_luma", "alf_chroma")
+FRAME_KERNELS = ("addb_frame", "alf_frame")
+
+
+def alf_runs(pf) -> bool:
+    """Whether ALF launches on a packed picture: ALF on, on a plane the
+    picture has."""
+    return pf.alf is not None and bool(
+        pf.alf[0][0] or (pf.chroma and (pf.alf[0][1] or pf.alf[0][2])))
 
 
 def frame_main_path(torch, dev, packed, results, label, kernels, main):
-    """The SUCO-order chroma deblock, the ADDB passes and the ALF kernels
-    against their plain versions on a stream's own pictures: the areas,
-    edge tables, parameter maps, coefficients and CTU flags the main path
-    hands them (each picture run through the path's own stages up to that
-    kernel).  `kernels` names the kernels to hold, each of which some
-    picture must run; `main` marks the times of the picture with the most
-    work as the summary's."""
-    from tests.torch_helpers import (addb_planes_case, alf_planes_case,
+    """The SUCO-order chroma deblock, ADDB and ALF against their plain
+    versions on a stream's own pictures: the areas, edge tables, parameter
+    maps, coefficients and CTU flags the main path hands them (each picture
+    run through the path's own stages up to that kernel), ADDB and ALF in
+    FRAME_LAUNCHES launches each.  `kernels` names the kernels to hold,
+    each of which some picture must run; `main` marks the times of the
+    picture with the most work (bytes) as the summary's, with ALF also
+    timed on the first picture's luma alone and on one chroma plane
+    alone."""
+    from tests.torch_helpers import (addb_frame_case, alf_frame_case,
                                      frame_areas_before, suco_planes_case)
 
     log(f"phase {', '.join(kernels)} ({label} pictures)")
-    cases = []
+    cases, alf_parts = [], []
     for i, pf in enumerate(packed):
         if "chroma_ver_ordered" in kernels and pf.suco:
             (_, u, v), df = frame_areas_before(pf, dev, "deblock")
@@ -703,31 +706,35 @@ def frame_main_path(torch, dev, packed, results, label, kernels, main):
                 dev, u, v, df.suco_off, df.suco_edges, pf.bd,
                 f"{label} picture {i}, {df.suco_edges.shape[0]} edges, "
                 f"longest row {chain}"))
-        if ADDB_KERNELS[0] in kernels and pf.addb:
+        if "addb_frame" in kernels and pf.addb:
             areas, df = frame_areas_before(pf, dev, "deblock")
-            for kind, a, pars, cb in (
-                    ("luma_ver", areas[0], df.addb_l[0], 1),
-                    ("luma_hor", areas[0], df.addb_l[1], 1),
-                    ("chroma_ver", areas[1], df.addb_c[0], 1),
-                    ("chroma_ver", areas[2], df.addb_c[0], 4),
-                    ("chroma_hor", areas[1], df.addb_c[1], 1),
-                    ("chroma_hor", areas[2], df.addb_c[1], 4)):
-                cases.append(addb_planes_case(
-                    dev, kind, a, pars, pf.bd, cb, f"{label} picture {i}, "
-                    f"{a.shape[0]}x{a.shape[1]} cb{cb}"))
-        if ALF_KERNELS[0] in kernels and pf.alf is not None:
+            cases.append(addb_frame_case(
+                dev, areas, df.addb_l, df.addb_c, pf.bd,
+                f"{label} picture {i}, {areas[0].shape[1]}x"
+                f"{areas[0].shape[0]}{'' if pf.chroma else ' 4:0:0'}"))
+        if "alf_frame" in kernels and alf_runs(pf):
             areas, df = frame_areas_before(pf, dev, "alf")
             (en, log2_ctu, across), (h, w) = pf.alf, pf.geom[:2]
-            for plane, area in enumerate(areas):
-                if area is None or not en[plane]:
-                    continue
-                luma = plane == 0
-                cases.append(alf_planes_case(
-                    dev, luma, area, df.alf_l if luma else df.alf_c,
-                    df.alf_on, h >> (not luma), w >> (not luma),
-                    log2_ctu - (not luma), pf.bd, across,
-                    f"{label} picture {i}, {'YUV'[plane]}, CTU "
-                    f"{1 << log2_ctu}"))
+
+            def case(enables, what):
+                return alf_frame_case(
+                    dev, areas, df.alf_l, df.alf_c, df.alf_on, h, w,
+                    (enables, log2_ctu, across), pf.bd,
+                    f"{label} picture {i}, {what}, CTU {1 << log2_ctu}")
+            cases.append(case(en, "planes " + "".join(
+                "YUV"[p] for p in range(3 if pf.chroma else 1) if en[p])))
+            # the first picture with luma ALF also with its luma alone, the
+            # first with chroma ALF with one chroma plane alone (the device
+            # times of the parts)
+            parts = {part for part, _ in alf_parts}
+            if main and en[0] and "luma" not in parts:
+                alf_parts.append(("luma", case((True, False, False),
+                                               "Y alone")))
+            for p in (1, 2):
+                if main and pf.chroma and en[p] and "chroma" not in parts:
+                    alf_parts.append(("chroma", case(
+                        (False, p == 1, p == 2), f"{'YUV'[p]} alone")))
+                    break
     missing = set(kernels) - {c.name for c in cases}
     if missing:
         raise AssertionError(f"{label}: no picture runs {missing}")
@@ -736,7 +743,14 @@ def frame_main_path(torch, dev, packed, results, label, kernels, main):
         if c.name not in best or c.bytes > best[c.name].bytes:
             best[c.name] = c
     for c in cases:
-        run_case(torch, c, results, 10, 1, main=main and best[c.name] is c)
+        launches = FRAME_LAUNCHES if c.name in FRAME_KERNELS else None
+        run_case(torch, c, results, 10, 1, main=main and best[c.name] is c,
+                 launches=launches)
+    for part, c in alf_parts:
+        run_case(torch, c, results, 10, 1, launches=FRAME_LAUNCHES)
+        r = results["alf_frame"]
+        r[f"ms_device_{part}"] = r["last_device_ms"]
+        r[f"ms_device_{part}_per_call"] = r["last_device_ms_per_call"]
 
 
 # --------------------------------------------------------------------------
@@ -913,12 +927,16 @@ def slice_phase(torch, dev, K, results, prepared):
     frame_main_path(torch, dev, packed["1080p_main_suco"], results,
                     "1080p SUCO", SUCO_KERNELS, True)
     frame_main_path(torch, dev, packed[MAIN_PATH], results, "1080p config-3",
-                    ADDB_KERNELS + ALF_KERNELS, True)
+                    FRAME_KERNELS, True)
     frame_main_path(torch, dev, packed["cif10_main_alf"], results,
-                    "CIF 10-bit Main", ADDB_KERNELS + ALF_KERNELS, False)
+                    "CIF 10-bit Main", FRAME_KERNELS, False)
     # MC launches a decode of each stream makes: one a list with rows
     mc_launches = {name: sum(int(n > 0) for pf in frames for n in pf.mc_lists)
                    for name, frames in packed.items()}
+    # and ADDB's and ALF's: one a picture that has them
+    frame_launches = {name: {"addb_frame": sum(pf.addb for pf in frames),
+                             "alf_frame": sum(map(alf_runs, frames))}
+                      for name, frames in packed.items()}
     packed.clear()
 
     # the port's CLI entry point on the RA stream (B frames, both lists) and
@@ -951,7 +969,7 @@ def slice_phase(torch, dev, K, results, prepared):
     common = ("itdq", "recon", "pad")
     baseline_db = ("deblock_luma_ver", "deblock_luma_hor",
                    "deblock_chroma_ver", "deblock_chroma_hor")
-    addb, alf = ADDB_KERNELS, ALF_KERNELS
+    addb, alf = ("addb_frame",), ("alf_frame",)
     runs = {}
     for name, reps, needed, barred in (
             ("1080p_i", 1, common + ("intra_scan",) + baseline_db,
@@ -983,6 +1001,11 @@ def slice_phase(torch, dev, K, results, prepared):
         if counts["mc"] != reps * mc_launches[name]:
             raise AssertionError(f"{name} path: {counts['mc']} MC launches, "
                                  f"{reps} x {mc_launches[name]} expected")
+        for k, n in frame_launches[name].items():
+            if counts[k] != reps * n:
+                raise AssertionError(f"{name} path: {counts[k]} {k} "
+                                     f"launches, {reps} x {n} expected (one "
+                                     f"a picture)")
         runs[name] = (counts, fps, stage_ms)
     return runs
 
@@ -1264,8 +1287,8 @@ def main() -> int:
         t_ops = r["ops"] / SCALAR_OPS_PER_S
         counter = name[4:] if name in (f"gop_{k}" for k in GOP_KERNELS) \
             else name
-        extra = {k: r[k] for k in r if k.startswith(("ms_", "library_"))
-                 and k != "library_ms"}
+        extra = {k: r[k] for k in r
+                 if k.startswith(("ms_", "library_")) and k != "library_ms"}
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces,
                         "launches": runs[PATH_OF.get(name, MAIN_PATH)][0][

@@ -28,7 +28,8 @@ from xevd_tpu_torch.ops import pack as PK
 from xevd_tpu_torch.ops import recon as TR
 from xevd_tpu_torch.ops.tables import PAD_C, PAD_L, device_tables
 
-from .torch_helpers import (CHROMA_MAPS, addb_case, alf_case, chroma_map,
+from .torch_helpers import (CHROMA_MAPS, addb_synth_case, alf_synth_case,
+                            chroma_map,
                             compare, deblock_case, eipd_scene,
                             gop_step_cases, intra_batch_case, intra_case,
                             intra_chain_case, intra_wave_case,
@@ -207,23 +208,34 @@ def test_chroma_ver_ordered_kernel_matches_plain(dev, bd):
     _check(suco_case(dev, bd, 270, 480, seed=bd))
 
 
-@pytest.mark.parametrize("kind,cb", [("luma_ver", 1), ("luma_hor", 1),
-                                     ("chroma_ver", 1), ("chroma_ver", 4),
-                                     ("chroma_hor", 1), ("chroma_hor", 4)])
+@pytest.mark.parametrize("maps,chroma,unaligned", [
+    ("dense", True, False), ("strong", True, False), ("none", True, False),
+    ("dense", False, False), ("dense", True, True)])
 @pytest.mark.parametrize("bd", [8, 10])
-def test_addb_kernel_matches_plain(dev, kind, cb, bd):
-    H, W = (272, 480) if kind.startswith("luma") else (136, 240)
-    _check(addb_case(dev, kind, bd, H, W, seed=bd, cb=cb))
+def test_addb_kernel_matches_plain(dev, maps, chroma, unaligned, bd):
+    """The fused ADDB kernel, one launch a picture, on a 272x480 picture:
+    random maps, bs 4 everywhere and no edge, 4:2:0 and 4:0:0, and planes
+    whose odd pitch takes the sample-by-sample loads; ten launches from
+    the same inputs (a barrier race shows as a difference between them)."""
+    _check_repeated(addb_synth_case(dev, bd, 272, 480, seed=bd,
+                                    chroma=chroma, maps=maps,
+                                    unaligned=unaligned))
 
 
-@pytest.mark.parametrize("luma", [True, False])
 @pytest.mark.parametrize("bd", [8, 10])
-@pytest.mark.parametrize("log2_ctu,h,w,across", [
-    (6, 288, 352, 1), (6, 272, 360, 0), (7, 264, 392, 1), (7, 264, 392, 0)])
-def test_alf_kernel_matches_plain(dev, luma, bd, log2_ctu, h, w, across):
-    """CTU 64 and 128, partial CTUs at the right and bottom, across tiles
-    or not, random CTU flags (luma)."""
-    _check(alf_case(dev, luma, bd, h, w, log2_ctu, across, seed=bd))
+@pytest.mark.parametrize("log2_ctu,h,w,across,enables,unaligned", [
+    (6, 288, 352, 1, (1, 1, 1), False), (6, 272, 360, 0, (1, 1, 1), False),
+    (7, 264, 392, 1, (1, 1, 1), False), (7, 264, 392, 0, (1, 0, 1), False),
+    (6, 272, 360, 0, (0, 1, 1), False), (6, 272, 360, 1, (1, 0, 0), True)])
+def test_alf_kernel_matches_plain(dev, bd, log2_ctu, h, w, across, enables,
+                                  unaligned):
+    """ALF, one launch a picture: CTU 64 and 128, partial CTUs at the right
+    and bottom, across tiles or not, random CTU flags, subsets of the
+    planes, and planes whose odd pitch takes the sample-by-sample loads;
+    ten launches."""
+    _check_repeated(alf_synth_case(dev, bd, h, w, log2_ctu, across, seed=bd,
+                                   enables=tuple(map(bool, enables)),
+                                   unaligned=unaligned))
 
 
 @pytest.fixture(scope="module")
@@ -381,10 +393,21 @@ def test_wrappers_refuse_cpu_operands_mixed_with_cuda(dev):
     with pytest.raises(ValueError):       # the SUCO edge table on the CPU
         TD.chroma_ver_ordered(u, u.clone(), torch.zeros(9, dtype=torch.int32),
                               torch.zeros(0, 3, dtype=torch.int32), 8)
-    with pytest.raises(ValueError):       # the ADDB map on the CPU
-        TA.addb_pass("luma_ver", area, torch.zeros(4, 8, 4, dtype=torch.int32),
-                     8)
+    maps = [torch.zeros(2, 4, 8, n, dtype=torch.int32) for n in (4, 7)]
+    uv = [torch.zeros(8, 16, dtype=torch.int16, device=dev) for _ in range(2)]
+    with pytest.raises(ValueError):       # the ADDB maps on the CPU
+        TA.addb_frame(area, *uv, *maps, 8)
+    with pytest.raises(ValueError):       # the chroma map on the CPU
+        TA.addb_frame(area, *uv, maps[0].to(dev), maps[1], 8)
+    with pytest.raises(ValueError):       # no per-pass kernel
+        TA.addb_pass("luma_ver", area, maps[0][0].to(dev), 8)
+    on = torch.ones(1, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):       # the ALF coefficients on the CPU
-        TL.alf_plane(area, torch.zeros(25, 13, dtype=torch.int32),
-                     torch.ones(1, dtype=torch.int32, device=dev), 16, 32, 6,
-                     8, True, True)
+        TL.alf_frame(area, *uv, torch.zeros(25, 13, dtype=torch.int32),
+                     torch.zeros(7, dtype=torch.int32, device=dev), on, 16,
+                     32, ((True, True, True), 6, True), 8)
+    with pytest.raises(ValueError):       # the CTU flags on the CPU
+        TL.alf_frame(area, *uv, torch.zeros(25, 13, dtype=torch.int32,
+                                            device=dev),
+                     torch.zeros(7, dtype=torch.int32, device=dev), on.cpu(),
+                     16, 32, ((True, False, False), 6, True), 8)

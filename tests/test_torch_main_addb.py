@@ -8,6 +8,11 @@
   the chroma passes with the U and the V channels of the 7-channel map;
 - `addb_frame` on the H8 x W8 crop of bordered planes equals the JAX
   `_deblock_finish_addb` (pass order, crop, U/V channel selection);
+- `addb_blocks_ref`, the fused kernel's order (each shifted block ver then
+  hor, the blocks of Y, U and V in three random orders), equals
+  `_deblock_finish_addb` on dense maps, maps with bs 4 everywhere and
+  maps with no edge, 8 and 10 bit, 4:2:0 and 4:0:0, areas one SCU past
+  the SCU grid;
 - the M7 gate cases, tuples of tests/test_main_profile.py CASES, decode
   byte-equal with the torch backend (plain PyTorch versions), the JAX
   backend and the numpy oracle backend.  The cases marked `slow` take
@@ -95,6 +100,61 @@ def test_addb_frame_equals_deblock_finish_addb(bd, h_scu, w_scu):
                   bd)
     for a, w in zip(areas, want):
         np.testing.assert_array_equal(a.numpy(), np.asarray(w))
+
+
+def _addb_frame_inputs(rng, h_scu, w_scu, bd, maps="dense"):
+    """Bordered planes (smooth areas) and maps padded to even SCU counts,
+    the H8 x W8 crop one SCU past the SCU area where a count is odd:
+    `maps` "dense" (random bs), "strong" (bs 4 everywhere) or "none"."""
+    hs2, ws2 = (h_scu + 1) & ~1, (w_scu + 1) & ~1
+    H8, W8 = 4 * hs2, 4 * ws2
+    recs = [bordered(rng, H8, W8, 0, 1 << bd) for _ in range(3)]
+    recs[0][BORDER:BORDER + H8, BORDER:BORDER + W8] = smooth_plane(
+        rng, H8, W8, bd)
+    for r in recs[1:]:
+        r[BORDER:BORDER + H8 // 2, BORDER:BORDER + W8 // 2] = smooth_plane(
+            rng, H8 // 2, W8 // 2, bd)
+    luma = np.zeros((2, hs2, ws2, 4), np.int32)
+    chroma = np.zeros((2, hs2, ws2, 7), np.int32)
+    luma[:, :h_scu, :w_scu] = addb_pars(rng, h_scu, w_scu, bd, 4)
+    chroma[:, :h_scu, :w_scu] = addb_pars(rng, h_scu, w_scu, bd, 7)
+    for m in (luma, chroma):
+        if maps != "dense":
+            m[:, :h_scu, :w_scu, 0] = 4 if maps == "strong" else 0
+    return recs, luma, chroma, (H8, W8)
+
+
+def _areas(planes, H8, W8, chroma=True):
+    return [planes[0][BORDER:BORDER + H8, BORDER:BORDER + W8]] + [
+        p[BORDER:BORDER + H8 // 2, BORDER:BORDER + W8 // 2] if chroma
+        else None for p in planes[1:]]
+
+
+@pytest.mark.parametrize("chroma", [True, False])
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("maps", ["dense", "strong", "none"])
+def test_addb_blocks_ref_any_order_equals_jax(maps, bd, chroma):
+    """The rule the fused kernel relies on: shifted blocks filtered ver
+    then hor, in any order, give JAX's reference-order result."""
+    rng = np.random.default_rng(40 + bd + 3 * len(maps) + chroma)
+    h_scu, w_scu = 9, 13
+    recs, luma, chroma_p, (H8, W8) = _addb_frame_inputs(rng, h_scu, w_scu,
+                                                        bd, maps)
+    want = PL._deblock_finish_addb(tuple(recs), (luma, chroma_p),
+                                   (4 * h_scu, 4 * w_scu, h_scu, w_scu), bd,
+                                   chroma, 144, False)
+    for k in range(3):
+        planes = [torch.from_numpy(r.copy()) for r in recs]
+        areas = _areas(planes, H8, W8, chroma)
+        TA.addb_blocks_ref(*areas, torch.from_numpy(luma),
+                           torch.from_numpy(chroma_p), bd,
+                           order=np.random.default_rng(k))
+        for a, w in zip(areas, want):
+            assert (a is None) == (w is None)
+            if a is not None:
+                np.testing.assert_array_equal(a.numpy(), np.asarray(w))
+    before = recs[0][BORDER:BORDER + H8, BORDER:BORDER + W8]
+    assert np.array_equal(np.asarray(want[0]), before) == (maps == "none")
 
 
 @pytest.mark.parametrize("name,w,h,n,qp,seed,gop,tools", CASES)

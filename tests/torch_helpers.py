@@ -494,6 +494,10 @@ class KernelCase:
     ops: int = 0              # integer operations these inputs need
     reset: Callable | None = None   # restore the inputs (no-op if none
     #                                 change): repeated launches compare
+    copy_bytes: int = 0       # bytes the design moves beyond the function's
+    graph_calls: int = 1      # > 1: also timed a call in graphs of this many
+    #                           calls (a one-call graph lasts at least the
+    #                           host's launch of the graph, some 5 us)
 
 
 def max_abs_err(got, want) -> int:
@@ -1089,15 +1093,46 @@ def suco_case(dev, bd, h_scu, w_scu, seed=0):
                             "edges")
 
 
-def _addb_work(kind, pars):
-    """(bytes, ops) of an ADDB pass: per edge line with bs > 0, 8 samples
-    read and 6 written (luma) or 4 and 2 (chroma), about 60 (25)
-    operations; the 4 parameters of each map cell on the edge grid."""
-    bs = _host(pars)[..., 0]
-    grid = bs[:, 2::2] if kind.endswith("ver") else bs[2::2, :]
-    luma = kind.startswith("luma")
-    n = int((grid > 0).sum()) * (4 if luma else 2)
-    return n * (28 if luma else 12) + grid.size * 16, n * (60 if luma else 25)
+def _addb_edge_masks(bs, B, H, W):
+    """(read, written) bool [H, W] of one plane's ADDB edges with bs > 0:
+    bs the map's bs channel [2, H/u, W/u] (u = B/2); a line reads B and
+    writes B - 2 samples across its edge."""
+    read = np.zeros((H, W), bool)
+    written = np.zeros((H, W), bool)
+    u = B // 2
+    ver = bs[0][:, 2::2].repeat(u, 0) > 0          # [H, W/B - 1]
+    hor = bs[1][2::2, :].repeat(u, 1) > 0          # [H/B - 1, W]
+    n_x, n_y = W // B - 1, H // B - 1
+    for k in range(-B // 2, B // 2):
+        m = (read, written) if -B // 2 < k < B // 2 - 1 else (read,)
+        for t in m:
+            t[:, B + k::B][:, :n_x] |= ver[:, :n_x]
+            t[B + k::B][:n_y] |= hor[:n_y]
+    return read, written, int(ver.sum() + hor.sum())
+
+
+def addb_frame_work(luma_pars, chroma_pars, chroma):
+    """(bytes, ops) of ADDB on one picture: each sample an edge with bs > 0
+    reads, read once, each it writes, written once (int16); every cell on
+    the edge grid's bs (4 bytes), and for cells with bs > 0 the other
+    channels the filter reads (luma 3, chroma 3 for U and 3 for V); about
+    60 operations a luma line, 25 a chroma line."""
+    lp = _host(luma_pars)
+    planes = [(lp[..., 0], 8, lp.shape[1] * 4, lp.shape[2] * 4, 60, 3)]
+    if chroma:
+        cp = _host(chroma_pars)
+        planes.append((cp[..., 0], 4, cp.shape[1] * 2, cp.shape[2] * 2, 25,
+                       6))
+    nbytes = ops = 0
+    for bs, B, H, W, line_ops, nch in planes:
+        read, written, lines = _addb_edge_masks(bs, B, H, W)
+        on = int((bs[0][:, 2::2] > 0).sum() + (bs[1][2::2] > 0).sum())
+        cells = bs[0][:, 2::2].size + bs[1][2::2].size
+        copies = 2 if B == 4 else 1                    # U and V
+        nbytes += copies * 2 * int(read.sum() + written.sum())
+        nbytes += 4 * cells + 4 * nch * on
+        ops += copies * lines * line_ops
+    return nbytes, ops
 
 
 def _two_copies(area):
@@ -1114,79 +1149,149 @@ def _two_copies(area):
             lambda t: t.as_strided(shape, stride, off))
 
 
-def addb_planes_case(dev, kind, area, pars, bd, cb, shape):
-    """One ADDB pass on `area` (a view into a device plane, left untouched)
-    with `pars` [H/u, W/u, C] on the device."""
-    a, b, view = _two_copies(area)
+def _planes_copies(areas):
+    """(a, b, views, reset): two copies of the planes (None kept) the areas
+    are views into, the same views into each copy, and a function that
+    restores copy a -- so that a kernel and its plain version each work on
+    planes of their own, with the pitch and border the main path gives."""
+    pairs = [None if t is None else _two_copies(t) for t in areas]
+    a = [None if p is None else p[0] for p in pairs]
+    b = [None if p is None else p[1] for p in pairs]
+    src = [None if t is None else t.clone() for t in a]
+
+    def views(copies):
+        return [None if p is None else p[2](c) for p, c in zip(pairs, copies)]
+
+    def reset():
+        for x, r in zip(a, src):
+            if x is not None:
+                x.copy_(r)
+    return a, b, views, reset
+
+
+# ADDB and ALF, some 10 us a picture, are also timed a call in graphs of
+# this many calls
+FRAME_GRAPH_CALLS = 20
+
+
+def addb_frame_case(dev, areas, luma_pars, chroma_pars, bd, shape):
+    """ADDB of one picture on `areas` (y, u, v views into device planes,
+    left untouched; u, v None for 4:0:0) with the maps on the device: the
+    fused kernel against `addb_frame_ref`, each on planes of its own (the
+    whole planes compared: nothing outside the areas may change)."""
+    a, b, views, reset = _planes_copies(areas)
+    chroma = areas[1] is not None
     return KernelCase(
-        f"addb_{kind}", shape,
-        lambda: (TA.addb_pass(kind, view(a), pars, bd, cb), [a])[1],
-        lambda: (TA._REFS[kind](view(b), pars, bd, cb), [b])[1],
-        *_addb_work(kind, pars))
+        "addb_frame", shape,
+        lambda: (TA.addb_frame(*views(a), luma_pars, chroma_pars, bd), a)[1],
+        lambda: (TA.addb_frame_ref(*views(b), luma_pars, chroma_pars, bd),
+                 b)[1],
+        *addb_frame_work(luma_pars, chroma_pars, chroma), reset,
+        graph_calls=FRAME_GRAPH_CALLS)
 
 
-def addb_case(dev, kind, bd, H, W, seed=0, cb=1):
-    """One ADDB pass on a synthetic H x W area of a bordered plane, with a
-    random parameter map (7 channels for chroma: U at cb 1, V at cb 4)."""
-    rng = np.random.default_rng(seed + bd + len(kind))
-    luma = kind.startswith("luma")
-    u = 4 if luma else 2
-    plane = bordered(rng, H, W, 0, 1 << bd)
+def _padded(rng, H, W, bd, extra=0):
+    """A bordered int16 plane on the host with a smooth H x W area; `extra`
+    columns more make the row pitch unaligned."""
+    plane = bordered(rng, H, W + extra, 0, 1 << bd)
     plane[BORDER:BORDER + H, BORDER:BORDER + W] = smooth_plane(rng, H, W, bd)
-    d = _dev(plane, dev)
-    pars = _dev(addb_pars(rng, H // u, W // u, bd, 4 if luma else 7)[0], dev)
-    area = d[BORDER:BORDER + H, BORDER:BORDER + W]
-    return addb_planes_case(dev, kind, area, pars, bd, cb,
-                            f"{H}x{W} bd{bd}" + ("" if luma else f" cb{cb}"))
+    return plane
 
 
-def alf_planes_case(dev, luma, area, coef, ctu_on, ph, pw, log2_s, bd,
-                    across, shape):
-    """ALF of one plane on `area` (a view into a device plane, left
-    untouched)."""
-    a, b, view = _two_copies(area)
-    S = 1 << log2_s
-    n_w, n_h = -(-pw // S), -(-ph // S)
-    if luma:
-        on = np.asarray(ctu_on.cpu()) > 0
+def addb_synth_case(dev, bd, H, W, seed=0, chroma=True, maps="dense",
+                    unaligned=False):
+    """ADDB of a synthetic H x W picture (H, W multiples of 8; chroma H/2 x
+    W/2 or 4:0:0) on bordered planes with random maps: "dense" (random bs),
+    "strong" (bs 4 everywhere) or "none"; `unaligned` gives every plane an
+    odd row pitch, so the kernel reads sample by sample."""
+    rng = np.random.default_rng(seed + bd + 2 * chroma)
+    extra = 1 if unaligned else 0
+    planes = [_padded(rng, H, W, bd, extra)] + [
+        _padded(rng, H // 2, W // 2, bd, extra) if chroma else None
+        for _ in range(2)]
+    pars = [addb_pars(rng, H // 4, W // 4, bd, n) for n in (4, 7)]
+    for m in pars:
+        if maps != "dense":
+            m[..., 0] = 4 if maps == "strong" else 0
+    d = [_dev(p, dev) for p in planes]
+    areas = [d[0][BORDER:BORDER + H, BORDER:BORDER + W]] + [
+        None if t is None
+        else t[BORDER:BORDER + H // 2, BORDER:BORDER + W // 2] for t in d[1:]]
+    return addb_frame_case(
+        dev, areas, _dev(pars[0], dev), _dev(pars[1], dev), bd,
+        f"{W}x{H} bd{bd} {'4:2:0' if chroma else '4:0:0'} {maps} maps"
+        f"{' unaligned pitch' if unaligned else ''}")
+
+
+def alf_frame_work(areas, ctu_on, h, w, cfg, coef_l, coef_c):
+    """(bytes, ops, copy bytes) of ALF on one picture: each filtered plane
+    read once and its filtered samples written once (luma: the CTUs whose
+    flag is set; chroma: all), the coefficients; about 64 operations a
+    filtered luma sample (four Laplacians and their group sums, the
+    classification, the 13-tap filter), 23 a chroma sample.  Copy bytes:
+    the unflagged luma CTUs the kernel copies to its output plane (read
+    and written), the design's cost, not the function's."""
+    nbytes = ops = copy = 0
+    for i, _, ph, pw, log2_s in TL._planes(*areas, h, w, cfg):
+        S = 1 << log2_s
+        n_w, n_h = -(-pw // S), -(-ph // S)
         idx = np.arange(n_w * n_h)
-        wb = np.minimum(S, pw - idx % n_w * S)
-        hb = np.minimum(S, ph - idx // n_w * S)
-        samples = int((wb * hb)[on].sum())
-    else:
-        samples = ph * pw
+        size = np.minimum(S, pw - idx % n_w * S) * \
+            np.minimum(S, ph - idx // n_w * S)
+        on = _host(ctu_on) > 0 if i == 0 else np.ones(len(idx), bool)
+        samples = int(size[on].sum())
+        nbytes += ph * pw * 2 + samples * 2
+        ops += samples * (64 if i == 0 else 23)
+        copy += 4 * int(size[~on].sum())
+    nbytes += (coef_l.numel() if cfg[0][0] else 0) * 4
+    nbytes += (coef_c.numel() if any(cfg[0][1:]) else 0) * 4
+    return nbytes, ops, copy
+
+
+def alf_frame_case(dev, areas, coef_l, coef_c, ctu_on, h, w, cfg, bd,
+                   shape):
+    """ALF of one picture on `areas` (views into device planes, left
+    untouched): the kernel against `alf_frame_ref`, each reading copies of
+    the planes of its own; compared are each returned plane's h x w
+    (chroma h/2 x w/2) part and the whole planes read (which neither may
+    change)."""
+    a, b, views, _ = _planes_copies(areas)
+    crops = [(h, w), (h >> 1, w >> 1), (h >> 1, w >> 1)]
+
+    def run(alf, planes):
+        outs = alf(*views(planes), coef_l, coef_c, ctu_on, h, w, cfg, bd)
+        return [None if p is None else p[:ph, :pw]
+                for p, (ph, pw) in zip(outs, crops)] + planes
+    nbytes, ops, copy = alf_frame_work(areas, ctu_on, h, w, cfg, coef_l,
+                                       coef_c)
     return KernelCase(
-        "alf_luma" if luma else "alf_chroma", shape,
-        lambda: (TL.alf_plane(view(a), coef, ctu_on, ph, pw, log2_s, bd,
-                              across, luma), [a])[1],
-        lambda: (TL.alf_plane_ref(view(b), coef, ctu_on, ph, pw, log2_s, bd,
-                                  across, luma), [b])[1],
-        # a sample's operations, each counted once: luma four Laplacians
-        # (4 each) and their sums (3 of 4 samples) 19, box sums and the
-        # classification about 4, the 7x7 diamond (12 tap-pair adds, 13
-        # multiply-adds, round, shift, clip) 41; chroma the 5x5 diamond 23
-        bytes=ph * pw * 2 + samples * 2 + coef.numel() * 4,
-        ops=samples * (64 if luma else 23))
+        "alf_frame", shape, lambda: run(TL.alf_frame, a),
+        lambda: run(TL.alf_frame_ref, b), nbytes, ops, reset=lambda: None,
+        copy_bytes=copy, graph_calls=FRAME_GRAPH_CALLS)
 
 
-def alf_case(dev, luma, bd, h, w, log2_ctu, across, seed=0):
-    """ALF of one plane of an h x w picture (chroma: h/2 x w/2) on the
-    SCU-rounded area of a bordered plane of random samples, random
-    coefficients and CTU flags."""
-    rng = np.random.default_rng(seed + bd + 2 * luma + across)
-    ph, pw = (h, w) if luma else (h >> 1, w >> 1)
-    log2_s = log2_ctu if luma else log2_ctu - 1
-    plane = _dev(bordered(rng, ph + 8, pw + 8, 0, 1 << bd), dev)
-    area = plane[BORDER:BORDER + ph + 4, BORDER:BORDER + pw + 4]
+def alf_synth_case(dev, bd, h, w, log2_ctu, across, seed=0,
+                   enables=(True, True, True), unaligned=False):
+    """ALF of a synthetic h x w picture on the SCU-rounded areas of
+    bordered planes of random samples, random coefficients and CTU flags
+    (a third off); `unaligned` gives every plane an odd row pitch."""
+    rng = np.random.default_rng(seed + bd + 2 * log2_ctu + across)
+    extra = 1 if unaligned else 0
+    d = [_dev(bordered(rng, ph + 8, pw + 8 + extra, 0, 1 << bd), dev)
+         for ph, pw in ((h, w), (h >> 1, w >> 1), (h >> 1, w >> 1))]
+    areas = [t[BORDER:BORDER + ph + 4, BORDER:BORDER + pw + 4]
+             for t, (ph, pw) in zip(d, ((h, w), (h >> 1, w >> 1),
+                                        (h >> 1, w >> 1)))]
     cl, cc = alf_coefs(rng)
     S = 1 << log2_ctu
     n_ctu = -(-h // S) * -(-w // S)
     ctu_on = _dev((rng.random(n_ctu) < 0.7).astype(np.int32), dev)
-    return alf_planes_case(
-        dev, luma, area, _dev(cl if luma else cc, dev), ctu_on, ph, pw,
-        log2_s, bd, across,
-        f"{'luma' if luma else 'chroma'} {pw}x{ph} CTU {1 << log2_s} bd{bd}"
-        f" across {int(across)}")
+    cfg = (tuple(enables), log2_ctu, bool(across))
+    return alf_frame_case(
+        dev, areas, _dev(cl, dev), _dev(cc, dev), ctu_on, h, w, cfg, bd,
+        f"{w}x{h} CTU {S} bd{bd} across {int(across)} planes "
+        f"{''.join('YUV'[i] for i in range(3) if enables[i])}"
+        f"{' unaligned pitch' if unaligned else ''}")
 
 
 def frame_areas_before(pf, dev, stage):

@@ -18,9 +18,12 @@ import sys
 from pathlib import Path
 
 
-def graph_ms(torch, fn, reps=100):
-    """Mean device ms of fn() over `reps` replays of a CUDA graph of one
-    call (allocations made outside the capture first)."""
+def graph_ms(torch, fn, reps=100, calls=1):
+    """Mean device ms of one fn() call over `reps` replays of a CUDA graph
+    of `calls` calls (allocations made outside the capture first): the
+    wrapper's host work (argument checks, ctypes) is left out.  With one
+    call a replay lasts at least the host's launch of the graph, some 5
+    us; `calls` calls a graph spread that over them."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -28,7 +31,8 @@ def graph_ms(torch, fn, reps=100):
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
+        for _ in range(calls):
+            fn()
     graph.replay()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
@@ -38,7 +42,7 @@ def graph_ms(torch, fn, reps=100):
         graph.replay()
     t1.record()
     torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+    return t0.elapsed_time(t1) / (reps * calls)
 
 
 def main(argv) -> int:

@@ -59,21 +59,16 @@ SIGNATURES = {
                              _I, _P, _I, _I, _P, _P),
     "xevd_intra_scan_wave_grid": (_P,),
     "xevd_chroma_ver_ordered": (_P, _P, _I, _I, _P, _P, _I, _P),
-    "xevd_addb_luma_ver": (_P, _I, _I, _I, _P, _I, _I, _I, _P),
-    "xevd_addb_luma_hor": (_P, _I, _I, _I, _P, _I, _I, _I, _P),
-    "xevd_addb_chroma_ver": (_P, _I, _I, _I, _P, _I, _I, _I, _P),
-    "xevd_addb_chroma_hor": (_P, _I, _I, _I, _P, _I, _I, _I, _P),
-    "xevd_alf_luma": (_P, _I, _P, _I, _I, _I, _I, _P, _P, _I, _I, _P),
-    "xevd_alf_chroma": (_P, _I, _P, _I, _I, _I, _I, _P, _P, _I, _I, _P),
+    "xevd_addb_frame": (_P, _I, _P, _I, _P, _I, _I, _I, _P, _P, _I, _I, _P),
+    "xevd_alf_frame": (_P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I,
+                       _I, _I, _I, _I, _P, _P, _P, _I, _I, _P),
 }
 
 launch_counts = {"itdq": 0, "recon": 0, "pad": 0, "intra_scan": 0,
                  "deblock_luma_ver": 0, "deblock_luma_hor": 0,
                  "deblock_chroma_ver": 0, "deblock_chroma_hor": 0, "mc": 0,
                  "intra_scan_wave": 0, "chroma_ver_ordered": 0,
-                 "addb_luma_ver": 0, "addb_luma_hor": 0,
-                 "addb_chroma_ver": 0, "addb_chroma_hor": 0, "alf_luma": 0,
-                 "alf_chroma": 0, "gop_step": 0}
+                 "addb_frame": 0, "alf_frame": 0, "gop_step": 0}
 
 _LIB = None
 build_seconds = None

@@ -7,10 +7,14 @@ CTU size, S/2 for chroma): the picture replicate-extended, then mirrored at
 the CTU's unavailable sides.  Luma classifies each 4x4 block by its
 gradients (25 classes x 4 transposes) and applies the 7x7 diamond with the
 class's coefficients; chroma applies one 5x5 diamond.  Luma CTUs are
-written where their `ctu_on` flag is set, chroma CTUs always (as the JAX
-mask, jax_alf.py:222-224).  The output goes back into the area in place;
-every CTU reads a copy of the pre-ALF area.  CUDA tensors launch the
-kernels of csrc/alf.cu, CPU tensors take `alf_plane_ref`."""
+filtered where their `ctu_on` flag is set, chroma CTUs always (as the JAX
+mask, jax_alf.py:222-224).  `alf_frame` reads the deblocked areas, leaves
+them untouched and returns the planes pad reads, new output planes where it
+filtered (luma CTUs whose flag is off copied): on CUDA tensors from
+csrc/alf.cu's one kernel a picture, on CPU tensors from `alf_runs_ref`,
+which states the kernel's split: Laplacians summed once into 4x4 groups,
+and a filter run of 4 samples with one row of the transposed coefficient
+table."""
 from __future__ import annotations
 
 import torch
@@ -65,26 +69,31 @@ def _windows(src, ph, pw, log2_s, across):
     return bufs, ys, xs, hb, wb
 
 
-def _classify(bufs, bd, S):
-    """(class << 2) | trans per 4x4 block [N, S/4, S/4] (jax_alf.py:54-121):
-    block (i, j) sums the four Laplacians over window rows and columns
-    M - 2 + 4 i .. M + 5 + 4 i (an 8 x 8 area)."""
-    c = bufs[:, 1:-1, 1:-1]                   # window rows/cols 1..S+4
+def _group_sums(bufs, S):
+    """The four Laplacians (vertical, horizontal, two diagonals) of window
+    rows and columns 1 .. S + 4, once a sample, summed by 4 x 4 group:
+    int64 [N, 4, S/4 + 1, S/4 + 1], group (gi, gj) covering rows
+    1 + 4 gi .. 4 + 4 gi and the same columns."""
+    c = bufs[:, 1:-1, 1:-1]
     up, dn = bufs[:, :-2, 1:-1], bufs[:, 2:, 1:-1]
     lf, rt = bufs[:, 1:-1, :-2], bufs[:, 1:-1, 2:]
     ul, dr = bufs[:, :-2, :-2], bufs[:, 2:, 2:]
     dl, ur = bufs[:, 2:, :-2], bufs[:, :-2, 2:]
-    nb = S // 4
+    lap = torch.stack([(2 * c - up - dn).abs(), (2 * c - lf - rt).abs(),
+                       (2 * c - ul - dr).abs(), (2 * c - dl - ur).abs()], 1)
+    g = S // 4 + 1
+    return lap.reshape(lap.shape[0], 4, g, 4, g, 4).sum((3, 5)).to(
+        torch.int64)
 
-    def bsum(lap):
-        g = lap.reshape(lap.shape[0], nb + 1, 4, nb + 1, 4).sum((2, 4))
-        g = g[:, :-1] + g[:, 1:]
-        return (g[:, :, :-1] + g[:, :, 1:]).to(torch.int64)
 
-    sv = bsum((2 * c - up - dn).abs())
-    sh = bsum((2 * c - lf - rt).abs())
-    sd0 = bsum((2 * c - ul - dr).abs())
-    sd1 = bsum((2 * c - dl - ur).abs())
+def _classify(bufs, bd, S):
+    """(class, trans) per 4x4 block [N, S/4, S/4] (jax_alf.py:54-121):
+    block (i, j) sums the four Laplacians over window rows and columns
+    M - 2 + 4 i .. M + 5 + 4 i (an 8 x 8 area), its four groups (i .. i + 1,
+    j .. j + 1) of `_group_sums`."""
+    g = _group_sums(bufs, S)
+    b = g[..., :-1, :-1] + g[..., :-1, 1:] + g[..., 1:, :-1] + g[..., 1:, 1:]
+    sv, sh, sd0, sd1 = b.unbind(1)
     act = ((sv + sh) >> (bd - 2)).clamp(0, 15)
     cls = torch.as_tensor(_ACT_TH, device=bufs.device).to(torch.int64)[act]
     hv1, hv0 = torch.maximum(sv, sh), torch.minimum(sv, sh)
@@ -110,37 +119,58 @@ def _tap_sums(bufs, taps, S):
                 for dy, dx in pair) for pair in taps]
 
 
-def alf_plane_ref(area, coef, ctu_on, ph, pw, log2_s, bd, across, luma):
-    """One plane of `alf_apply` in place on `area` (only its ph x pw part is
-    read and written), vectorised over CTUs: luma with coef [25, 13] and
-    the CTU flags ctu_on [N], chroma (`luma` False) with coef [7]."""
+def coef_table(coef):
+    """The luma coefficients permuted by transpose, int32 [25, 4, 13]:
+    row (class, trans) holds coef[class][L_TBL[trans][i]] at tap i, the
+    table the kernel stages once a CTA."""
+    return coef.to(torch.int32)[:, torch.as_tensor(_L_TBL,
+                                                   device=coef.device).long()]
+
+
+def alf_runs_ref(area, coef, ctu_on, ph, pw, log2_s, bd, across, luma):
+    """One plane of `alf_apply` in the kernel's split, returned as a new
+    int16 [ph, pw] plane: luma blocks classified from the group sums, then
+    each run of 4 samples of a block's row filtered with the one row
+    coef_table(coef)[class, trans] (luma) or the 7 chroma taps, the run's
+    window rows read once for its four outputs; luma CTUs whose flag is off
+    copied from the area."""
     S = 1 << log2_s
-    bufs, ys, xs, hb, wb = _windows(area[:ph, :pw].clone(), ph, pw, log2_s,
-                                    across)
-    sums = _tap_sums(bufs, _TAPS7 if luma else _TAPS5, S)
+    bufs, ys, xs, hb, wb = _windows(area[:ph, :pw], ph, pw, log2_s, across)
+    N, R = bufs.shape[0], S // 4
+    taps = _TAPS7 if luma else _TAPS5
+    # tap i's sum at sample (j, 4 k + q) of each CTU: [N, S, R, 4]
+    sums = [s.reshape(N, S, R, 4) for s in _tap_sums(bufs, taps, S)]
     if luma:
         cls, trans = _classify(bufs, bd, S)
-        ltbl = torch.as_tensor(_L_TBL, device=area.device).to(torch.int64)
-        co = coef.to(torch.int32)[cls[..., None], ltbl[trans]]  # [N,nb,nb,13]
-        co = co.repeat_interleave(4, 1).repeat_interleave(4, 2)
-        acc = sum(co[..., i] * s for i, s in enumerate(sums))
+        rows = coef_table(coef)[cls, trans]               # [N, R, R, 13]
+        rows = rows.repeat_interleave(4, 1)               # a row per run
+        acc = sum(rows[..., i, None] * s for i, s in enumerate(sums))
     else:
         acc = sum(int(coef[i]) * s for i, s in enumerate(sums))
-    vals = ((acc + 256) >> 9).clamp(0, (1 << bd) - 1).to(area.dtype)
+    vals = ((acc + 256) >> 9).clamp(0, (1 << bd) - 1).reshape(N, S, S)
+    if luma:
+        on = ctu_on.to(area.device)[:, None, None] > 0
+        vals = torch.where(on, vals, bufs[:, M:M + S, M:M + S])
+    out = torch.empty(ph, pw, dtype=area.dtype, device=area.device)
     j = torch.arange(S, device=area.device)
     m = (j[None, None, :] < wb[:, None, None]) & \
         (j[None, :, None] < hb[:, None, None])
-    if luma:
-        m &= ctu_on.to(area.device)[:, None, None] > 0
     yy = (ys[:, None, None] + j[None, :, None]).expand_as(m)[m]
     xx = (xs[:, None, None] + j[None, None, :]).expand_as(m)[m]
-    area[yy, xx] = vals[m]
+    out[yy, xx] = vals[m].to(area.dtype)
+    return out
 
 
-def alf_plane(area, coef, ctu_on, ph, pw, log2_s, bd, across, luma):
-    """ALF of one plane in place on `area` [>= ph, >= pw] int16: luma
-    (coef int32 [25, 13], ctu_on int32 [N]) or chroma (coef int32 [7],
-    ctu_on unused) with CTU size 2^log2_s of this plane."""
+def _planes(y_area, u_area, v_area, h, w, cfg):
+    """(plane index, area, ph, pw, log2_s) of each plane ALF filters
+    (index 0 is luma)."""
+    enables, log2_ctu, _ = cfg
+    return [(i, a, h >> (i > 0), w >> (i > 0), log2_ctu - (i > 0))
+            for i, a in enumerate((y_area, u_area, v_area))
+            if a is not None and enables[i]]
+
+
+def _check(area, coef, ctu_on, ph, pw, log2_s, luma):
     if area.shape[0] < ph or area.shape[1] < pw:
         raise ValueError(f"alf: area {tuple(area.shape)} smaller than "
                          f"{ph}x{pw}")
@@ -150,33 +180,61 @@ def alf_plane(area, coef, ctu_on, ph, pw, log2_s, bd, across, luma):
         raise ValueError(f"alf: coefficients {tuple(coef.shape)}, CTU flags "
                          f"{None if ctu_on is None else tuple(ctu_on.shape)}"
                          f" for {n_ctu} CTUs")
-    if area.device.type == "cpu":
-        alf_plane_ref(area, coef, ctu_on, ph, pw, log2_s, bd, across, luma)
-        return area
-    K.require(area, torch.int16, 2, rows_contiguous=True)
-    K.require(coef, torch.int32, 2 if luma else 1, contiguous=True)
-    if luma:
-        K.require(ctu_on, torch.int32, 1, contiguous=True)
-    src = area[:ph, :pw].clone()     # every CTU reads the pre-ALF picture
-    name = "alf_luma" if luma else "alf_chroma"
-    K.count(name)
-    err = getattr(K.lib(), f"xevd_{name}")(
-        src.data_ptr(), src.stride(0), area.data_ptr(), area.stride(0), ph,
-        pw, log2_s, coef.data_ptr(), ctu_on.data_ptr() if luma else None,
-        int(across), bd, K.stream_ptr(area.device))
-    K.check(err, f"xevd_{name}")
-    return area
+
+
+def alf_frame_ref(y_area, u_area, v_area, coef_l, coef_c, ctu_on, h, w, cfg,
+                  bd):
+    """The plain version of `alf_frame` (any device): the (y, u, v) planes
+    pad reads, `alf_runs_ref`'s new plane for each plane ALF filters, the
+    area for each it does not; the areas are left untouched."""
+    out = [y_area, u_area, v_area]
+    for i, area, ph, pw, log2_s in _planes(*out, h, w, cfg):
+        out[i] = alf_runs_ref(area, coef_c if i else coef_l, ctu_on, ph, pw,
+                              log2_s, bd, cfg[2], i == 0)
+    return tuple(out)
 
 
 def alf_frame(y_area, u_area, v_area, coef_l, coef_c, ctu_on, h, w, cfg, bd):
     """The ALF stage (xevd_tpu/ops/pipeline.py:377-389 -> alf_apply): cfg =
     (enables, log2_ctu, across); luma when enables[0], U / V when
-    enables[1] / enables[2] (u_area / v_area None for 4:0:0)."""
-    enables, log2_ctu, across = cfg
-    if enables[0]:
-        alf_plane(y_area, coef_l, ctu_on, h, w, log2_ctu, bd, across, True)
-    if u_area is not None:
-        for area, en in ((u_area, enables[1]), (v_area, enables[2])):
-            if en:
-                alf_plane(area, coef_c, None, h >> 1, w >> 1, log2_ctu - 1,
-                          bd, across, False)
+    enables[1] / enables[2] (u_area / v_area None for 4:0:0).  Returns the
+    (y, u, v) planes pad reads, each filtered plane a new int16 [ph, pw]
+    tensor (a plane not filtered is its area), and leaves the areas
+    untouched: on CUDA tensors from one launch, on CPU tensors from
+    `alf_frame_ref`."""
+    planes = _planes(y_area, u_area, v_area, h, w, cfg)
+    for i, area, ph, pw, log2_s in planes:
+        _check(area, coef_c if i else coef_l, ctu_on, ph, pw, log2_s, i == 0)
+    if y_area.device.type == "cpu":
+        return alf_frame_ref(y_area, u_area, v_area, coef_l, coef_c, ctu_on,
+                             h, w, cfg, bd)
+    out = [y_area, u_area, v_area]
+    if not planes:
+        return tuple(out)
+    args, mask, wide = [None, 0, None, 0] * 3, 0, 0
+    for i, area, ph, pw, _ in planes:
+        K.require(area, torch.int16, 2, rows_contiguous=True)
+        # the output's pitch a multiple of 4 samples: aligned 8-byte words
+        dst = torch.empty(ph, (pw + 3) & ~3, dtype=torch.int16,
+                          device=area.device)
+        if area.data_ptr() % 8 == 0 and area.stride(0) % 4 == 0:
+            wide |= 1 << i
+        mask |= 1 << i
+        args[4 * i:4 * i + 4] = (area.data_ptr(), area.stride(0),
+                                 dst.data_ptr(), dst.stride(0))
+        out[i] = dst[:, :pw]
+    luma, chroma = mask & 1, mask & 6
+    if luma:
+        K.require(coef_l, torch.int32, 2, contiguous=True)
+        K.require(ctu_on, torch.int32, 1, contiguous=True)
+    if chroma:
+        K.require(coef_c, torch.int32, 1, contiguous=True)
+    K.count("alf_frame")
+    err = K.lib().xevd_alf_frame(
+        *args, h, w, cfg[1], mask, wide,
+        coef_l.data_ptr() if luma else None,
+        ctu_on.data_ptr() if luma else None,
+        coef_c.data_ptr() if chroma else None, int(cfg[2]), bd,
+        K.stream_ptr(y_area.device))
+    K.check(err, "xevd_alf_frame")
+    return tuple(out)

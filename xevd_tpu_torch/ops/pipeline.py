@@ -10,7 +10,8 @@ host->device copies, then `run_frame_device`:
   -> intra: the Baseline scan (csrc/intra.cu), or with EIPD the wavefront
   scan with HTDF (csrc/intra_main.cu), each one persistent launch ->
   deblock (csrc/deblock.cu, with SUCO its ordered chroma pass; with ADDB
-  csrc/addb.cu) -> ALF (csrc/alf.cu) -> pad-expand (Triton)
+  csrc/addb.cu, one launch) -> ALF (csrc/alf.cu, one launch, into new
+  planes) -> pad-expand (Triton) of what ALF returns
 
 The decoded picture planes stay on the device as DPB references
 (DevicePlane); MC reads them there, and they reach the host only when the
@@ -119,11 +120,14 @@ def deblock_stage(df: PK.DeviceFrame, areas):
 
 
 def alf_stage(df: PK.DeviceFrame, areas):
-    """ALF in place on the areas, when the frame has it."""
+    """ALF, when the frame has it: returns the (y, u, v) planes pad reads
+    (on the card, ALF's new output planes where it filtered; else the
+    areas)."""
     pf = df.packed
-    if pf.alf is not None:
-        alf_frame(*areas, df.alf_l, df.alf_c, df.alf_on, pf.geom[0],
-                  pf.geom[1], pf.alf, pf.bd)
+    if pf.alf is None:
+        return areas
+    return alf_frame(*areas, df.alf_l, df.alf_c, df.alf_on, pf.geom[0],
+                     pf.geom[1], pf.alf, pf.bd)
 
 
 def run_frame_device(df: PK.DeviceFrame, tables: dict, on_stage=None):
@@ -142,10 +146,9 @@ def run_frame_device(df: PK.DeviceFrame, tables: dict, on_stage=None):
     areas = frame_areas(df, recs)
     deblock_stage(df, areas)
     mark("deblock")
-    alf_stage(df, areas)
+    y_area, u_area, v_area = alf_stage(df, areas)
     mark("alf")
     h, w = pf.geom[0], pf.geom[1]
-    y_area, u_area, v_area = areas
     pic_y = pad(y_area, h, w, PAD_L)
     pic_u = pic_v = None
     if pf.chroma:
