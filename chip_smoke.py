@@ -17,9 +17,13 @@
    planes' edges, phase 0 under filtering cases, split 64x64 blocks) at 8
    and 10 bit with the Baseline and the Main taps, 10 launches a case, with
    the Baseline and the Main taps at every (plane, case, bit depth) and on a
-   synthetic 1080p frame; recon, pad (beside
-   torch.nn.functional.pad(mode="replicate"), its library yardstick, or
-   CUDA's refusal of int16), deblock, the SUCO-order chroma deblock, ADDB on
+   synthetic 1080p frame; recon, pad-expand (one launch a picture over Y,
+   U and V: a config-3-sized picture, an odd pitch, 4:0:0, a GOP batch
+   step of 8 and of 1 picture; beside torch.nn.functional.pad(mode=
+   "replicate"), its library yardstick, three calls a picture, or CUDA's
+   refusal of int16), deblock, the SUCO-order chroma deblock (K10: random
+   lists, every edge on, one long run, repeated edges, empty rows; 20
+   launches a case), ADDB on
    whole 1080p pictures (one launch over Y, U and V: random maps, bs 4
    everywhere, no edge, 4:0:0, an unaligned pitch) and ALF on whole 1080p
    pictures (one launch: CTU 64 and 128, across tiles or not, an unaligned
@@ -59,16 +63,18 @@
    kernel on its I picture and one B picture, the SUCO order on the SUCO
    stream's pictures, ADDB and ALF on every config-3 and CIF 10-bit Main
    picture (10 launches each; ALF also on the first config-3 picture's luma
-   alone and one chroma plane alone). The CLI entry point decodes the CIF RA
-   and both CIF Main streams. Six paths are counted and timed: the 1080p
-   all-intra decode once, the 1080p IPPP decode twice, the 11-tool Main
+   alone and one chroma plane alone), K10 in 20 launches a picture (each
+   picture's longest run printed beside its longest row list). The CLI
+   entry point decodes the CIF RA and both CIF Main streams. Six paths
+   are counted and timed: the 1080p all-intra decode once, the 1080p IPPP decode twice, the 11-tool Main
    stream, the CIF 10-bit Main stream without ADDB and ALF and the SUCO
    stream once each, and the config-3 stream (the main path) three times;
    the launch counters are reset just before each path and read just after
    it; every kernel the path needs must have launched, and none it must not;
    MC once a reference list with blocks, per frame; ADDB once a picture that
-   has it, ALF once a picture that filters any plane. Each counted decode
-   prints its frames/s and per-stage CUDA-event times.
+   has it, ALF once a picture that filters any plane, pad once a
+   picture. Each counted decode prints its frames/s and per-stage
+   CUDA-event times.
 5. GOP phase (K15, xevd_tpu_torch/parallel/gop.py): 8 independent
    1920x1080 Baseline IPPP GOPs of 2, 3 or 4 frames (xevd_tpu/parallel/
    gop.py `gen_gop_streams(8, 1920, 1080, frames=2, variable=True)`'s
@@ -80,10 +86,12 @@
    version on the batch's own step-1 (P) tables and DPB at G = 8 and G =
    1; then all 8 GOPs decode as one batch per time step on the card
    (counted: each batched kernel once a step, the intra scan once a step,
-   not once a frame), twice, and every frame's MD5 must equal the numpy
-   oracle's serial decode; the same 8 GOPs then decode serially through
-   Decoder + TorchPixelBackend("cuda"), equal too, for the record.  The
-   pad kernel (K14) is timed a second time once every worker has ended.
+   not once a frame; pad one launch a step over Y, U and V), twice, and
+   every frame's MD5 must equal the numpy oracle's serial decode; the
+   same 8 GOPs then decode serially through Decoder +
+   TorchPixelBackend("cuda"), equal too, for the record.  The
+   pad kernel (K14) is timed a second time, on a 1080p picture, once every
+   worker has ended.
    Then forty 64x64 two-frame IPPP GOPs (one reference worker writes the
    streams; captured here) decode as one batch on the card, 40 DPB ring
    pictures (more than a frame's 32 MC slots): every batched kernel held
@@ -101,13 +109,15 @@
    bound from its main case's bytes and operations; every kernel also
    with `ms_device`, its time from CUDA-graph replays without the
    wrapper's host work; K9 with `ms_all` / `ms_zero` for the maps with
-   every edge on and none; ADDB and ALF with `ms_device_per_call`, a
-   call's time in graphs of 20 calls (a one-call graph lasts at least the
-   host's launch of the graph); ALF with `ms_device_luma` /
+   every edge on and none; every kernel but the two persistent scans and
+   K15's step with `ms_device_per_call`, a call's time in graphs of 20
+   calls (a one-call graph lasts at least the host's launch of the graph);
+   ALF with `ms_device_luma` /
    `ms_device_chroma` (and their `_per_call`), its device time on one
    picture's luma alone and one chroma plane alone (ALF's phase lines
-   also give the bytes of the unflagged luma CTUs it copies); K14 with
-   `library_ms`, F.pad's time, or `library_refused`) and, as the last
+   also give the bytes of the unflagged luma CTUs it copies); K14 and
+   `gop_pad` with `library_ms` and `library_ms_device`, F.pad's times on
+   the same planes (three calls), or `library_refused`) and, as the last
    line, {"ok": true, "device": {...}}.
 
 Any failure raises and the exit code is non-zero.  Imports neither JAX
@@ -187,7 +197,7 @@ KERNELS = {
                         "xevd_tpu/ops/jax_intra_main.py:572"),
     "recon": ("triton", "xevd_tpu_torch/ops/recon_triton.py",
               "xevd_tpu/ops/pipeline.py:221"),
-    "pad": ("triton", "xevd_tpu_torch/ops/recon_triton.py",
+    "pad": ("cuda", "xevd_tpu_torch/csrc/pad.cu",
             "xevd_tpu/ops/pipeline.py:241"),
     "intra_scan": ("cuda", "xevd_tpu_torch/csrc/intra.cu",
                    "xevd_tpu/ops/jax_intra.py:113"),
@@ -255,7 +265,8 @@ def timed(torch, fn, reps):
 SCAN_LAUNCHES = 20     # race check of each scan case (persistent kernels)
 SCAN_NAMES = ("intra_scan", "intra_scan_wave")
 SCANS = []             # (key, shape, kernel ms, plain ms) of each scan case
-K9_LAUNCHES = 20       # each K9 case: launches equal to the plain version
+K9_LAUNCHES = 20       # each K9 and K10 case: launches equal to the plain
+#                        version
 ITDQ_LAUNCHES = 10     # each ITDQ class case
 MC_LAUNCHES = 10       # each MC class-mix case and stream table
 FRAME_LAUNCHES = 10    # each ADDB and ALF case (one launch a picture)
@@ -344,10 +355,10 @@ def kernel_phases(torch, dev, results):
                                      intra_chain_case, intra_wave_case,
                                      itdq_case, itdq_class_case,
                                      itdq_size_case, mc_case, mc_class_case,
-                                     mc_size_case,
-                                     pad_case, recon_case, recon_pred_case,
+                                     mc_size_case, pad_picture_case,
+                                     recon_case, recon_pred_case, SUCO_LISTS,
                                      suco_case)
-    from xevd_tpu_torch.ops.tables import BORDER, PAD_C, PAD_L, PAD_R
+    from xevd_tpu_torch.ops.tables import BORDER, PAD_R
 
     H, W = 1088, 1920                     # 1080p, CTU-padded
     log("phase itdq (Baseline DCT-2; Main iqt DCT-2 and ATS bases)")
@@ -388,7 +399,7 @@ def kernel_phases(torch, dev, results):
         run_case(torch, mc_case(dev, 1080, 1920, bd, seed=260), results, 10,
                  3)
 
-    log("phase recon/pad")
+    log("phase recon/pad (pad: one launch a picture over Y, U and V)")
     for bd in (8, 10):
         run_case(torch, recon_case(dev, bd, BORDER + H + PAD_R,
                                    BORDER + W + PAD_R, seed=200),
@@ -396,10 +407,13 @@ def kernel_phases(torch, dev, results):
         run_case(torch, recon_pred_case(dev, bd, BORDER + H + PAD_R,
                                         BORDER + W + PAD_R, seed=230),
                  results, 50, 50, main=bd == 8)
-        run_case(torch, pad_case(dev, bd, 1080, 1920, PAD_L, seed=210),
+        run_case(torch, pad_picture_case(dev, bd, 1080, 1920, seed=210),
                  results, 50, 50, main=bd == 8)
-        run_case(torch, pad_case(dev, bd, 540, 960, PAD_C, seed=220),
-                 results, 50, 50)
+        for chroma, G, unaligned in ((True, None, True), (False, None, False),
+                                     (True, 8, False), (True, 1, False)):
+            run_case(torch, pad_picture_case(dev, bd, 1080, 1920, chroma, G,
+                                             unaligned, seed=220),
+                     results, 20 if G == 8 else 0, 0)
     pad_library(torch, dev, results)
 
     log("phase intra_scan (CIF, random causal CU lists; 4x4 CUs)")
@@ -442,9 +456,14 @@ def kernel_phases(torch, dev, results):
                     r[f"ms_{maps}"] = ms
                     r[f"ms_device_{maps}"] = r["last_device_ms"]
 
-    log("phase chroma_ver_ordered (SUCO order; 1080p chroma, random edges)")
+    log(f"phase chroma_ver_ordered (SUCO order; 1080p chroma; random lists, "
+        f"every edge on, one long run, repeated edges, empty rows; "
+        f"{K9_LAUNCHES} launches a case)")
     for bd in (8, 10):
-        run_case(torch, suco_case(dev, bd, 270, 480, seed=600), results, 20, 3)
+        for kind in SUCO_LISTS:
+            run_case(torch, suco_case(dev, bd, 270, 480, seed=600, kind=kind),
+                     results, 20, 1 if kind == "random" else 0,
+                     launches=K9_LAUNCHES)
 
     log(f"phase addb (1080p pictures, one launch each: Y, U and V; random "
         f"maps, bs 4 everywhere, no edge, 4:0:0, an unaligned pitch; "
@@ -473,41 +492,49 @@ def kernel_phases(torch, dev, results):
 
 
 def pad_library(torch, dev, results):
-    """K14's yardstick: one PyTorch call that computes `_pad_out`'s
-    jnp.pad(mode="edge"), torch.nn.functional.pad(mode="replicate"), on
-    the int16 picture of the main pad case (1080p luma, +PAD_L); equal to
-    the kernel's output, timed by events and by graph replays; or CUDA's
-    refusal of int16, recorded."""
-    import numpy as np
-    from tests.torch_helpers import bordered
+    """K14's yardstick: torch.nn.functional.pad(mode="replicate"), the
+    PyTorch call that computes `_pad_out`'s jnp.pad(mode="edge"), once a
+    plane on the planes of the main pad case (a 1080p 4:2:0 picture: three
+    calls) and of a GOP batch step of 8 such pictures (`gop_pad`); each
+    equal to the kernel's output, timed by events and by graph replays; or
+    CUDA's refusal of int16, recorded."""
+    from tests.torch_helpers import picture_areas
     from tests.torch_mc_times import graph_ms
     from xevd_tpu_torch.ops import recon as TR
-    from xevd_tpu_torch.ops.tables import BORDER, PAD_L
+    from xevd_tpu_torch.ops.tables import PAD_C, PAD_L
 
     h, w = 1080, 1920
-    rng = np.random.default_rng(210 + 8)
-    plane = torch.from_numpy(bordered(rng, h, w, 0, 256)).to(dev)
-    area = plane[BORDER:BORDER + h, BORDER:BORDER + w]
-    r = results["pad"]
+    for key, G in (("pad", None), ("gop_pad", 8)):
+        areas = picture_areas(dev, 8, h, w, True, G, seed=210)
+        crops = [(h, w, PAD_L), (h >> 1, w >> 1, PAD_C), (h >> 1, w >> 1,
+                                                          PAD_C)]
+        r = results.setdefault(key, {"max_abs_err": 0})
 
-    def call():
-        return torch.nn.functional.pad(area[None], (PAD_L,) * 4,
-                                       mode="replicate")[0]
-    try:
-        got = call()
-        torch.cuda.synchronize()
-    except (RuntimeError, NotImplementedError) as e:
-        r["library_refused"] = str(e).strip().splitlines()[0]
-        log(f"  F.pad(mode='replicate') on int16 {h}x{w}: refused: "
-            f"{r['library_refused']}")
-        return
-    if not torch.equal(got, TR.pad(area, h, w, PAD_L)):
-        raise AssertionError("F.pad(mode='replicate') != the pad kernel")
-    r["library_ms"] = timed(torch, call, 50)
-    r["library_ms_device"] = graph_ms(torch, call, 100)
-    log(f"  F.pad(mode='replicate') on int16 {h}x{w} +{PAD_L}: equal to the "
-        f"pad kernel; {r['library_ms']:.4f} ms, graph "
-        f"{r['library_ms_device']:.4f} ms")
+        def call():
+            # [1, H, W] (C, H, W) or [G, 1, H, W]: the last two dims padded
+            return [torch.nn.functional.pad(
+                a[..., :ch, :cw][None] if G is None
+                else a[:, None, :ch, :cw], (p,) * 4, mode="replicate")
+                for a, (ch, cw, p) in zip(areas, crops)]
+        what = f"{f'G {G} x ' if G else ''}{h}x{w} 4:2:0"
+        try:
+            got = call()
+            torch.cuda.synchronize()
+        except (RuntimeError, NotImplementedError) as e:
+            r["library_refused"] = str(e).strip().splitlines()[0]
+            log(f"  F.pad(mode='replicate') on int16 {what}: refused: "
+                f"{r['library_refused']}")
+            continue
+        want = TR.pad_picture(*areas, h, w, True)
+        if not all(torch.equal(g.reshape(x.shape), x)
+                   for g, x in zip(got, want)):
+            raise AssertionError(f"F.pad(mode='replicate') != the pad "
+                                 f"kernel on {what}")
+        r["library_ms"] = timed(torch, call, 50)
+        r["library_ms_device"] = graph_ms(torch, call, 100)
+        log(f"  F.pad(mode='replicate') on int16 {what}, a call a plane: "
+            f"equal to the pad kernel; {r['library_ms']:.4f} ms, graph "
+            f"{r['library_ms_device']:.4f} ms")
 
 
 def mc_main_path(torch, dev, packed, results, label, main):
@@ -688,7 +715,8 @@ def frame_main_path(torch, dev, packed, results, label, kernels, main):
     versions on a stream's own pictures: the areas, edge tables, parameter
     maps, coefficients and CTU flags the main path hands them (each picture
     run through the path's own stages up to that kernel), ADDB and ALF in
-    FRAME_LAUNCHES launches each.  `kernels` names the kernels to hold,
+    FRAME_LAUNCHES launches each, K10 in K9_LAUNCHES.  `kernels` names the
+    kernels to hold,
     each of which some picture must run; `main` marks the times of the
     picture with the most work (bytes) as the summary's, with ALF also
     timed on the first picture's luma alone and on one chroma plane
@@ -701,11 +729,16 @@ def frame_main_path(torch, dev, packed, results, label, kernels, main):
     for i, pf in enumerate(packed):
         if "chroma_ver_ordered" in kernels and pf.suco:
             (_, u, v), df = frame_areas_before(pf, dev, "deblock")
-            chain = int((df.suco_off[1:] - df.suco_off[:-1]).max())
+            row = int((df.suco_off[1:] - df.suco_off[:-1]).max())
+            off = df.suco_runs.run_off
+            run = int((off[1:] - off[:-1]).max())
+            log(f"  {label} picture {i}: {df.suco_edges.shape[0]} edges in "
+                f"{off.shape[0] - 1} runs; longest run {run}, longest row "
+                f"list {row}")
             cases.append(suco_planes_case(
                 dev, u, v, df.suco_off, df.suco_edges, pf.bd,
                 f"{label} picture {i}, {df.suco_edges.shape[0]} edges, "
-                f"longest row {chain}"))
+                f"longest run {run} (row {row})", runs=df.suco_runs))
         if "addb_frame" in kernels and pf.addb:
             areas, df = frame_areas_before(pf, dev, "deblock")
             cases.append(addb_frame_case(
@@ -743,7 +776,8 @@ def frame_main_path(torch, dev, packed, results, label, kernels, main):
         if c.name not in best or c.bytes > best[c.name].bytes:
             best[c.name] = c
     for c in cases:
-        launches = FRAME_LAUNCHES if c.name in FRAME_KERNELS else None
+        launches = (FRAME_LAUNCHES if c.name in FRAME_KERNELS
+                    else K9_LAUNCHES)
         run_case(torch, c, results, 10, 1, main=main and best[c.name] is c,
                  launches=launches)
     for part, c in alf_parts:
@@ -933,9 +967,11 @@ def slice_phase(torch, dev, K, results, prepared):
     # MC launches a decode of each stream makes: one a list with rows
     mc_launches = {name: sum(int(n > 0) for pf in frames for n in pf.mc_lists)
                    for name, frames in packed.items()}
-    # and ADDB's and ALF's: one a picture that has them
+    # and ADDB's and ALF's: one a picture that has them; pad's: one a
+    # picture
     frame_launches = {name: {"addb_frame": sum(pf.addb for pf in frames),
-                             "alf_frame": sum(map(alf_runs, frames))}
+                             "alf_frame": sum(map(alf_runs, frames)),
+                             "pad": len(frames)}
                       for name, frames in packed.items()}
     packed.clear()
 
@@ -1137,11 +1173,10 @@ def gop_phase(torch, dev, K, results, workers):
             f"s, capture (numpy oracle) {cap['seconds']:.1f} s")
 
     # every worker has ended: the pad kernel again, on a quiet host
-    from tests.torch_helpers import pad_case
-    from xevd_tpu_torch.ops.tables import PAD_L
+    from tests.torch_helpers import pad_picture_case
     log("phase pad again (no worker running)")
     results["pad"]["ms_after_workers"] = run_case(
-        torch, pad_case(dev, 8, 1080, 1920, PAD_L, seed=210), {}, 50, 50)
+        torch, pad_picture_case(dev, 8, 1080, 1920, seed=210), {}, 50, 50)
 
     from tests.torch_helpers import mc_class_histogram
     from xevd_tpu_torch.ops import pack as PK
@@ -1168,7 +1203,7 @@ def gop_phase(torch, dev, K, results, workers):
                 results[key]["ms_g1"] = ms
 
     # launches a batched run must make: one a step for each kernel (a
-    # plane each for recon, pad and the chroma passes), MC once per list
+    # plane each for recon and the chroma passes), MC once per list
     expect = dict.fromkeys(K.launch_counts, 0)
     for pb in steps:
         expect["gop_step"] += 1
@@ -1176,7 +1211,7 @@ def gop_phase(torch, dev, K, results, workers):
         expect["mc"] += sum(int(n > 0) for n in pb.mc_lists)
         expect["recon"] += 3
         expect["intra_scan"] += int(pb.layout["icu"][1][0] > 0)
-        expect["pad"] += 3
+        expect["pad"] += 1
         for kind in ("luma_ver", "luma_hor", "chroma_ver", "chroma_hor"):
             expect[f"deblock_{kind}"] += pb.deblock_on * (
                 1 if kind.startswith("luma") else 2)

@@ -26,18 +26,18 @@ from xevd_tpu_torch.ops import itdq as TQ
 from xevd_tpu_torch.ops import mc as TM
 from xevd_tpu_torch.ops import pack as PK
 from xevd_tpu_torch.ops import recon as TR
-from xevd_tpu_torch.ops.tables import PAD_C, PAD_L, device_tables
+from xevd_tpu_torch.ops.tables import PAD_L, device_tables
 
-from .torch_helpers import (CHROMA_MAPS, addb_synth_case, alf_synth_case,
-                            chroma_map,
+from .torch_helpers import (CHROMA_MAPS, SUCO_LISTS, addb_synth_case,
+                            alf_synth_case, chroma_map,
                             compare, deblock_case, eipd_scene,
                             gop_step_cases, intra_batch_case, intra_case,
                             intra_chain_case, intra_wave_case,
                             itdq_case, itdq_class_case, itdq_size_case,
                             mc_case, mc_class_case, mc_frame,
                             mc_order_on, mc_shapes, mc_size_case,
-                            pad_case, recon_case, recon_pred_case,
-                            repeat_equal, suco_case)
+                            pad_picture_case, recon_case,
+                            recon_pred_case, repeat_equal, suco_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -101,8 +101,22 @@ def test_itdq_kernel_class_mix(dev, bd, iqt, extreme):
 @pytest.mark.parametrize("bd", [8, 10])
 def test_recon_pad_kernels_match_plain(dev, bd):
     _check(recon_case(dev, bd, 1296, 2128))
-    _check(pad_case(dev, bd, 1080, 1920, PAD_L))
-    _check(pad_case(dev, bd, 540, 960, PAD_C))
+    _check(pad_picture_case(dev, bd, 1080, 1920))
+
+
+@pytest.mark.parametrize("h,w,chroma,G,unaligned", [
+    (1080, 1920, True, None, False), (1080, 1920, True, None, True),
+    (1080, 1920, False, None, False), (1080, 1920, True, 8, False),
+    (1080, 1920, True, 1, False), (144, 176, True, 8, True),
+    (90, 150, True, None, False)])
+@pytest.mark.parametrize("bd", [8, 10])
+def test_pad_picture_kernel_matches_plain(dev, bd, h, w, chroma, G,
+                                          unaligned):
+    """K14, one launch a picture over Y, U and V: a config-3-sized
+    picture, planes with an odd pitch (scalar loads), 4:0:0, a GOP batch
+    step of 8 and of 1 picture, and an output width that is not a multiple
+    of 8 (scalar stores)."""
+    _check(pad_picture_case(dev, bd, h, w, chroma, G, unaligned, seed=bd))
 
 
 @pytest.mark.parametrize("bd", [8, 10])
@@ -206,6 +220,17 @@ def test_deblock_chroma_kernel_map_kinds(dev, kind, bd, maps):
 def test_chroma_ver_ordered_kernel_matches_plain(dev, bd):
     """The SUCO-order chroma edges on the 1080p chroma SCU grid."""
     _check(suco_case(dev, bd, 270, 480, seed=bd))
+
+
+@pytest.mark.parametrize("kind", SUCO_LISTS)
+@pytest.mark.parametrize("bd", [8, 10])
+def test_chroma_ver_ordered_kernel_list_kinds(dev, bd, kind):
+    """K10 on the 1080p chroma SCU grid with every kind of edge list
+    (random, every edge on, one long run, repeated edges, empty rows);
+    twenty launches from the same inputs (a missing barrier in the
+    shared-memory walk shows only as a difference between them)."""
+    _check_repeated(suco_case(dev, bd, 270, 480, seed=bd, kind=kind),
+                    launches=20)
 
 
 @pytest.mark.parametrize("maps,chroma,unaligned", [
@@ -393,6 +418,17 @@ def test_wrappers_refuse_cpu_operands_mixed_with_cuda(dev):
     with pytest.raises(ValueError):       # the SUCO edge table on the CPU
         TD.chroma_ver_ordered(u, u.clone(), torch.zeros(9, dtype=torch.int32),
                               torch.zeros(0, 3, dtype=torch.int32), 8)
+    off = torch.zeros(9, dtype=torch.int32, device=dev)
+    edges = torch.zeros(0, 3, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="run table"):    # no run table
+        TD.chroma_ver_ordered(u, u.clone(), off, edges, 8)
+    runs = PK.suco_runs(np.zeros(9, np.int32), np.zeros((0, 3), np.int32))
+    with pytest.raises(ValueError):       # the run table on the host
+        TD.chroma_ver_ordered(u, u.clone(), off, edges, 8, runs=runs)
+    with pytest.raises(ValueError):       # a pad output plane on the CPU
+        TR.pad_picture(area, None, None, 8, 16, False,
+                       out=(torch.zeros(8 + 2 * PAD_L, 16 + 2 * PAD_L,
+                                        dtype=torch.int16), None, None))
     maps = [torch.zeros(2, 4, 8, n, dtype=torch.int32) for n in (4, 7)]
     uv = [torch.zeros(8, 16, dtype=torch.int16, device=dev) for _ in range(2)]
     with pytest.raises(ValueError):       # the ADDB maps on the CPU

@@ -11,7 +11,7 @@ from xevd_tpu.ops import jax_deblock as JD
 from xevd_tpu.ops import pipeline as PL
 from xevd_tpu_torch.ops import deblock as TD
 from xevd_tpu_torch.ops import recon as TR
-from xevd_tpu_torch.ops.tables import BORDER, PAD_C, PAD_L
+from xevd_tpu_torch.ops.tables import BORDER, PAD_L
 
 from .torch_helpers import (CHROMA_MAPS, bordered, chroma_map, run_lengths,
                             strengths)
@@ -64,9 +64,9 @@ def test_deblock_finish_matches_jax(chroma, bd):
     va = t[2][BORDER:BORDER + H4 // 2, BORDER:BORDER + W4 // 2]
     TD.deblock_frame(ya, ua if chroma else None, va if chroma else None,
                      torch.from_numpy(st), bd)
-    got = [TR.pad(ya, h, w, PAD_L)]
-    if chroma:
-        got += [TR.pad(a, h // 2, w // 2, PAD_C) for a in (ua, va)]
+    got = [p for p in TR.pad_picture(ya, ua if chroma else None,
+                                     va if chroma else None, h, w, chroma)
+           if p is not None]
     assert len([x for x in want if x is not None]) == len(got)
     for g, wnt in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(wnt))

@@ -225,12 +225,11 @@ def test_batched_plain_stages_equal_jax_vmap(G, step_frames):
     jpics = jax.vmap(lambda y, u, v: PL._pad_out(y, u, v, h, w, True,
                                                  PAD_L))(*jareas)
     areas = [torch.from_numpy(np.array(x)) for x in jareas]
-    pics = [TR.pad(areas[0], h, w, PAD_L)] + [
-        TR.pad(a, h // 2, w // 2, PAD_C) for a in areas[1:]]
+    pics = TR.pad_picture(*areas, h, w, True)
     _assert_equal(pics, jpics, "pad")
-    out = [torch.zeros_like(p) for p in pics]
-    TR.pad(areas[0], h, w, PAD_L, out=out[0])
-    _assert_equal(out[:1], jpics[:1], "pad into out")
+    out = tuple(torch.zeros_like(p) for p in pics)
+    assert TR.pad_picture(*areas, h, w, True, out=out) == out
+    _assert_equal(out, jpics, "pad into out")
 
 
 def _gen(w, h, n, seed, gop="IPPP", bd=8, profile=0, tools=()):

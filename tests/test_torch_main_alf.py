@@ -13,7 +13,7 @@
   directional windows (CTU 64 and 128, 8 and 10 bit); `alf_runs_ref`
   (runs of 4 samples, one row of the transposed coefficient table each,
   unflagged luma CTUs copied) equals `alf_apply` on every plane, and
-  `alf_frame`'s returned planes, pad-expanded by `pad`, equal JAX's padded
+  `alf_frame`'s returned planes, pad-expanded by `pad_picture`, equal JAX's padded
   planes for each subset of `enables` -- CTU 64 and 128, across 0 and 1,
   mixed CTU flags, 8 and 10 bit, pictures that are not CTU multiples;
 - the pack's ALF parameters equal the JAX pack's (`recon_coef_arrays`,
@@ -37,7 +37,7 @@ from xevd_tpu.ops import jax_alf as JA
 from xevd_tpu.ops import pipeline as PL
 from xevd_tpu_torch.ops import alf as TL
 from xevd_tpu_torch.ops import pack as PK
-from xevd_tpu_torch.ops.recon import pad
+from xevd_tpu_torch.ops.recon import pad_picture
 from xevd_tpu_torch.ops.tables import PAD_L
 
 from .test_torch_slice import _stream, assert_backends_agree
@@ -165,9 +165,8 @@ def test_alf_runs_and_frame_pad_equal_jax(bd, log2_ctu, h, w, across):
                             (enables, log2_ctu, bool(across)), bd)
         ref = [jnp.asarray(wnt if en else p)
                for p, wnt, en in zip(planes, want, enables)]
-        for o, r, (ph, pw, _) in zip(outs, PL._pad_out(*ref, h, w, True,
-                                                       PAD_L), sizes):
-            pic = pad(o, ph, pw, PAD_L >> (ph != h))
+        for pic, r in zip(pad_picture(*outs, h, w, True),
+                          PL._pad_out(*ref, h, w, True, PAD_L), strict=True):
             np.testing.assert_array_equal(pic.numpy(), np.asarray(r))
 
 

@@ -4,6 +4,13 @@
   `chroma_ver_ordered` on seeded edge lists at 8 and 10 bit, and the pack's
   per-row edge table (`chroma_ver_edges`) holds the same edges in the same
   order as the JAX pack's waves (`_chroma_ver_waves`) on real SUCO frames;
+- `chroma_ver_runs_ref`, the plain statement of the K10 kernel's order
+  (each run of edge columns 2 samples apart a chain, the runs in a random
+  order), equals the JAX `chroma_ver_ordered` on every kind of seeded list
+  (`suco_lists`: repeats, neighbours with mixed U and V strengths, a run
+  over a whole row, empty rows), and the pack's run table (`suco_runs`)
+  equals the plain split (`suco_runs_plain`) on those lists and on the
+  real SUCO frames;
 - the M6 gate cases, tuples of tests/test_main_profile.py CASES that have
   SUCO but neither ADDB nor ALF, decode byte-equal with the torch backend
   (plain PyTorch versions), the JAX backend and the numpy oracle backend.
@@ -24,7 +31,8 @@ from xevd_tpu_torch.ops import deblock as TD
 from xevd_tpu_torch.ops import pack as PK
 
 from .test_torch_slice import _stream, assert_backends_agree
-from .torch_helpers import captured_frames, suco_edges
+from .torch_helpers import (SUCO_LISTS, captured_frames, smooth_plane,
+                            suco_edges, suco_lists)
 
 CASES = [
     # name, w, h, frames, qp, seed, gop, tools
@@ -76,6 +84,53 @@ def test_chroma_ver_ordered_plain_equals_jax(bd, seed):
     assert not np.array_equal(tu.numpy(), u)
 
 
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("kind", SUCO_LISTS)
+def test_chroma_ver_runs_ref_equals_jax(bd, kind):
+    """The runs walked one after another in a random order give the JAX
+    wave scan's planes."""
+    rng = np.random.default_rng(20 + bd + SUCO_LISTS.index(kind))
+    h_scu, w_scu = 10, 16
+    u, v = (smooth_plane(rng, 2 * h_scu, 2 * w_scu, bd, 8) for _ in range(2))
+    row_off, edges = suco_lists(rng, kind, h_scu, w_scu)
+    ju, jv = JD.chroma_ver_ordered(u, v, _waves(row_off, edges, h_scu), bd)
+    tu, tv = torch.from_numpy(u.copy()), torch.from_numpy(v.copy())
+    TD.chroma_ver_runs_ref(tu, tv, row_off, edges, bd,
+                           rng=np.random.default_rng(bd))
+    np.testing.assert_array_equal(tu.numpy(), np.asarray(ju))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    assert not np.array_equal(tu.numpy(), u)
+
+
+def _table_runs(runs):
+    """The pack's run table as `suco_runs_plain` states the runs."""
+    out = []
+    for slot in range(len(runs.row_runs) - 1):
+        for k in range(runs.row_runs[slot], runs.row_runs[slot + 1]):
+            ents = runs.entries[runs.run_off[k]:runs.run_off[k + 1]]
+            out.append((slot // 2, slot % 2,
+                        [(int(e) & 0xFFFF, int(e) >> 16) for e in ents]))
+    return out
+
+
+def _assert_runs_plain(row_off, edges):
+    runs = PK.suco_runs(row_off, edges)
+    want = TD.suco_runs_plain(row_off, edges)
+    assert _table_runs(runs) == want
+    per_row = {}
+    for r, _, run in want:
+        n, e = per_row.get(r, (0, 0))
+        per_row[r] = (n + 1, e + len(run))
+    assert runs.row_runs_max == max(n for n, _ in per_row.values())
+    assert runs.row_entries_max == max(e for _, e in per_row.values())
+
+
+@pytest.mark.parametrize("kind", SUCO_LISTS)
+def test_suco_runs_table_equals_plain_split(kind):
+    rng = np.random.default_rng(40 + SUCO_LISTS.index(kind))
+    _assert_runs_plain(*suco_lists(rng, kind, 12, 20))
+
+
 def test_chroma_ver_edges_equal_jax_waves(fixtures_dir):
     """On every frame of a SUCO stream, the pack's per-row edge table is
     the JAX pack's wave schedule, rank for rank."""
@@ -91,6 +146,7 @@ def test_chroma_ver_edges_equal_jax_waves(fixtures_dir):
             continue
         np.testing.assert_array_equal(_waves(*got, job.fs.h_scu), want)
         assert pf.suco
+        _assert_runs_plain(*got)
         seen += 1
     assert seen >= 3
 

@@ -437,6 +437,54 @@ def suco_edges(rng, h_scu, w_scu, max_edges=5):
     return row_off, np.asarray(edges, np.int32).reshape(-1, 3)
 
 
+SUCO_LISTS = ("random", "all", "long", "repeat", "empty")
+
+
+def suco_lists(rng, kind, h_scu, w_scu):
+    """A SUCO chroma edge table (row_off, edges) as `suco_edges` of one
+    kind: "random" (`suco_edges`: short runs, repeats, neighbours with
+    mixed U and V strengths), "all" (every column of every row in both
+    planes, each row's columns in a random order: each row one run a plane
+    of w_scu - 1 columns), "long" (the first row's columns left to right
+    and back again in U only, a run of 2 w_scu - 3 entries; the other rows
+    random), "repeat" (a few columns a row, each listed two to four times
+    in a random order, with mixed strengths) or "empty" (one row in seven
+    has edges, the rest none)."""
+    if kind == "random":
+        return suco_edges(rng, h_scu, w_scu)
+    rows = []
+    for r in range(h_scu):
+        cols = []
+        if kind == "all":
+            cols = list(rng.permutation(np.arange(1, w_scu)))
+        elif kind == "long" and r == 0:
+            cols = list(range(1, w_scu)) + list(range(w_scu - 2, 0, -1))
+        elif kind == "repeat":
+            cols = [c for c in rng.choice(np.arange(1, w_scu), 4,
+                                          replace=False)
+                    for _ in range(int(rng.integers(2, 5)))]
+            cols = list(rng.permutation(cols))
+        elif kind == "empty" and r % 7 == 3:
+            cols = list(rng.integers(1, w_scu, size=6))
+        elif kind in ("long", "empty"):
+            cols = [] if kind == "empty" else list(
+                rng.integers(1, w_scu, size=int(rng.integers(0, 6))))
+        ed = []
+        for c in cols:
+            su, sv = (int(x) for x in rng.integers(1, 13, size=2))
+            if kind == "long":
+                sv = 0
+            elif kind in ("repeat", "empty"):
+                su, sv = (s * int(rng.random() < 0.7) for s in (su, sv))
+                if su == sv == 0:
+                    su = 3
+            ed.append((2 * int(c), su, sv))
+        rows.append(ed)
+    row_off = np.concatenate([[0], np.cumsum([len(e) for e in rows])])
+    edges = np.asarray([e for ed in rows for e in ed], np.int32)
+    return row_off.astype(np.int32), edges.reshape(-1, 3)
+
+
 def smooth_plane(rng, h, w, bd, noise=3):
     """int16 [h, w]: a slow gradient over the whole sample range plus
     +-noise steps per 4x4 block and per sample (clipped), so that deblock
@@ -495,9 +543,11 @@ class KernelCase:
     reset: Callable | None = None   # restore the inputs (no-op if none
     #                                 change): repeated launches compare
     copy_bytes: int = 0       # bytes the design moves beyond the function's
-    graph_calls: int = 1      # > 1: also timed a call in graphs of this many
+    graph_calls: int = 20     # > 1: also timed a call in graphs of this many
     #                           calls (a one-call graph lasts at least the
-    #                           host's launch of the graph, some 5 us)
+    #                           host's launch of the graph, some 5 us); 1
+    #                           for the persistent scans, whose ticket state
+    #                           is per launch, and K15's whole step
 
 
 def max_abs_err(got, want) -> int:
@@ -843,16 +893,68 @@ def recon_case(dev, bd, H, W, seed=0):
                       lambda: [TR.recon_ref(resid, bd)])
 
 
-def pad_case(dev, bd, h, w, pad, seed=0):
-    """Pad-expand of the h x w picture from a view into a bordered plane
-    (a row pitch), as the pipeline calls it."""
-    rng = np.random.default_rng(seed + bd)
-    plane = _dev(bordered(rng, h, w, 0, 1 << bd), dev)
-    area = plane[BORDER:BORDER + h, BORDER:BORDER + w]
-    return KernelCase("pad", f"{h}x{w} +{pad} bd{bd}",
-                      lambda: [TR.pad(area, h, w, pad)],
-                      lambda: [TR.pad_ref(area, h, w, pad)],
-                      2 * (h * w + (h + 2 * pad) * (w + 2 * pad)), 0)
+def pad_work(G, h, w, chroma):
+    """Bytes of K14 on G pictures: each plane's h x w crop read once and
+    its padded plane written once (int16)."""
+    n = h * w + (h + 2 * PAD_L) * (w + 2 * PAD_L)
+    if chroma:
+        n += 2 * ((h >> 1) * (w >> 1)
+                  + ((h >> 1) + 2 * PAD_C) * ((w >> 1) + 2 * PAD_C))
+    return 2 * G * n
+
+
+def pad_areas_case(dev, areas, h, w, chroma, shape, out=None):
+    """K14 on one picture's areas (y, u, v views into device planes; [G,
+    ...] for a GOP batch step), as the path calls it: `pad_picture`, one
+    launch, into new planes or the planes of `out` (each side writes
+    copies of its own), against `pad_ref` plane by plane."""
+    mine = None if out is None else [None if o is None else o.clone()
+                                     for o in out]
+    G = areas[0].shape[0] if areas[0].dim() == 3 else 1
+    crops = [(h, w, PAD_L)] + [(h >> 1, w >> 1, PAD_C)] * 2
+
+    def plain():
+        return [TR.pad_ref(a, *c) for a, c in zip(areas, crops)
+                if a is not None]
+    return KernelCase(
+        "pad", shape,
+        lambda: [p for p in TR.pad_picture(*areas, h, w, chroma, out=mine)
+                 if p is not None],
+        plain, pad_work(G, h, w, chroma), 0, reset=lambda: None)
+
+
+def picture_areas(dev, bd, h, w, chroma=True, G=None, unaligned=False,
+                  seed=0):
+    """The (y, u, v) SCU areas of a synthetic h x w picture (or of G, a
+    GOP batch step: [G, H, W]) as the path gives them: views into
+    bordered planes of random samples (a row pitch, the area 8-px
+    rounded); u, v None for 4:0:0; `unaligned` gives every plane an odd
+    row pitch."""
+    rng = np.random.default_rng(seed + bd + 2 * chroma + (G or 0))
+    H8, W8 = -(-h // 8) * 8, -(-w // 8) * 8
+    extra = 1 if unaligned else 0
+    areas = []
+    for k, (ph, pw) in enumerate(((H8, W8), (H8 >> 1, W8 >> 1),
+                                  (H8 >> 1, W8 >> 1))):
+        if k and not chroma:
+            areas.append(None)
+            continue
+        p = np.stack([bordered(rng, ph, pw + extra, 0, 1 << bd)
+                      for _ in range(G or 1)])
+        t = _dev(p if G else p[0], dev)
+        areas.append(t[..., BORDER:BORDER + ph, BORDER:BORDER + pw])
+    return areas
+
+
+def pad_picture_case(dev, bd, h, w, chroma=True, G=None, unaligned=False,
+                     seed=0):
+    """K14 on a synthetic picture, or G of them (`picture_areas`);
+    `unaligned`: odd row pitches (scalar loads)."""
+    return pad_areas_case(
+        dev, picture_areas(dev, bd, h, w, chroma, G, unaligned, seed), h, w,
+        chroma,
+        f"{f'G {G} x ' if G else ''}{w}x{h} {'4:2:0' if chroma else '4:0:0'}"
+        f" bd{bd}{' unaligned pitch' if unaligned else ''}")
 
 
 def intra_planes_case(dev, recs, res, icu, bd, chroma, shape, icu_off=None):
@@ -868,7 +970,8 @@ def intra_planes_case(dev, recs, res, icu, bd, chroma, shape, icu_off=None):
     return KernelCase(
         "intra_scan", shape,
         lambda: list(TI.intra_scan(a, res, icu, bd, chroma, icu_off=icu_off)),
-        plain, *intra_work(icu, PK.CU_LOG2, PK.CU_LOG2, chroma), reset=reset)
+        plain, *intra_work(icu, PK.CU_LOG2, PK.CU_LOG2, chroma), reset=reset,
+        graph_calls=1)
 
 
 def intra_case(dev, H, W, bd, chroma=True, seed=0):
@@ -920,7 +1023,8 @@ def intra_wave_planes_case(dev, recs, res, icu, level_off, bd, chroma,
                                          tab)),
         lambda: list(TIM.intra_scan_wave_ref(b, res, icu, level_off, bd,
                                              chroma)),
-        *intra_work(icu, PK.ICM_LOG2W, PK.ICM_LOG2H, chroma), reset=reset)
+        *intra_work(icu, PK.ICM_LOG2W, PK.ICM_LOG2H, chroma), reset=reset,
+        graph_calls=1)
 
 
 def intra_wave_case(dev, H, W, bd, chroma=True, seed=0, htdf=True):
@@ -1065,32 +1169,60 @@ def recon_pred_case(dev, bd, H, W, seed=0):
 # --------------------------------------------------------------------------
 # SUCO chroma order (K10), ADDB (K11), ALF (K13)
 # --------------------------------------------------------------------------
-def suco_planes_case(dev, u, v, row_off, edges, bd, shape):
+def suco_runs_on(dev, row_off, edges):
+    """K10's run table (ops/pack.py `suco_runs`) of a host edge table, its
+    arrays on `dev`, as the pack uploads it."""
+    r = PK.suco_runs(_host(row_off), _host(edges))
+    return PK.SucoRuns(_dev(r.row_runs, dev), _dev(r.run_off, dev),
+                       _dev(r.entries, dev), r.row_runs_max,
+                       r.row_entries_max)
+
+
+def suco_work(row_off, edges, runs):
+    """(bytes, ops) of K10 on an edge table: per edge and plane with a
+    strength, A..D read and B, C written on both lines of its SCU row
+    (int16), about 14 operations a line; the run table read."""
+    e = _host(edges)
+    on = int((e[:, PK.SE_ST_U:] > 0).sum())
+    table = sum(int(np.asarray(_host(a)).size) for a in (
+        runs.row_runs, runs.run_off, runs.entries))
+    return on * 2 * 6 * 2 + 4 * table, on * 2 * 14
+
+
+def suco_planes_case(dev, u, v, row_off, edges, bd, shape, runs=None):
     """K10 on chroma areas u, v (views into device planes, left untouched:
-    each side filters copies of its own) with the edge table row_off,
-    edges (host or device)."""
+    each side filters copies of its own, with the pitch the path gives)
+    with the edge table row_off, edges (host or device) and its run table
+    on the device (built here from the edge table by default)."""
     off, ed = (_dev(np.asarray(a), dev) if isinstance(a, np.ndarray) else a
                for a in (row_off, edges))
-    a = (u.clone(), v.clone())
-    b = (u.clone(), v.clone())
-    n = int(ed.shape[0])
+    runs = runs or suco_runs_on(dev, off, ed)
+    a, b, views, reset = _planes_copies([u, v])
+    ka, kb = views(a), views(b)     # made once: the kernel's time is its own
     return KernelCase(
         "chroma_ver_ordered", shape,
-        lambda: list(TD.chroma_ver_ordered(*a, off, ed, bd)),
-        lambda: (TD.chroma_ver_ordered_ref(*b, off, ed, bd), list(b))[1],
-        bytes=n * 2 * 2 * 6 * 2 + (off.numel() + ed.numel()) * 4,
-        ops=n * 2 * 2 * 14)
+        lambda: (TD.chroma_ver_ordered(*ka, off, ed, bd, runs=runs), a)[1],
+        lambda: (TD.chroma_ver_ordered_ref(*kb, off, ed, bd), b)[1],
+        *suco_work(off, ed, runs), reset=reset)
 
 
-def suco_case(dev, bd, h_scu, w_scu, seed=0):
-    """K10 on synthetic chroma planes with a random edge table."""
-    rng = np.random.default_rng(seed + bd)
-    u, v = (_dev(smooth_plane(rng, 2 * h_scu, 2 * w_scu, bd, 8), dev)
-            for _ in range(2))
-    row_off, edges = suco_edges(rng, h_scu, w_scu)
-    return suco_planes_case(dev, u, v, row_off, edges, bd,
-                            f"{2 * h_scu}x{2 * w_scu} bd{bd}, {len(edges)} "
-                            "edges")
+def suco_case(dev, bd, h_scu, w_scu, seed=0, kind="random"):
+    """K10 on synthetic chroma planes (views into bordered planes) with an
+    edge table of one kind (`suco_lists`)."""
+    rng = np.random.default_rng(seed + bd + 3 * SUCO_LISTS.index(kind))
+    H, W = 2 * h_scu, 2 * w_scu
+    planes = []
+    for _ in range(2):
+        p = bordered(rng, H, W, 0, 1 << bd)
+        p[BORDER:BORDER + H, BORDER:BORDER + W] = smooth_plane(rng, H, W, bd,
+                                                               8)
+        planes.append(_dev(p, dev)[BORDER:BORDER + H, BORDER:BORDER + W])
+    row_off, edges = suco_lists(rng, kind, h_scu, w_scu)
+    runs = PK.suco_runs(row_off, edges)
+    return suco_planes_case(
+        dev, *planes, row_off, edges, bd,
+        f"{H}x{W} bd{bd} {kind} lists, {len(edges)} edges, longest run "
+        f"{int(np.diff(runs.run_off).max()) if len(edges) else 0}")
 
 
 def _addb_edge_masks(bs, B, H, W):
@@ -1169,11 +1301,6 @@ def _planes_copies(areas):
     return a, b, views, reset
 
 
-# ADDB and ALF, some 10 us a picture, are also timed a call in graphs of
-# this many calls
-FRAME_GRAPH_CALLS = 20
-
-
 def addb_frame_case(dev, areas, luma_pars, chroma_pars, bd, shape):
     """ADDB of one picture on `areas` (y, u, v views into device planes,
     left untouched; u, v None for 4:0:0) with the maps on the device: the
@@ -1186,8 +1313,7 @@ def addb_frame_case(dev, areas, luma_pars, chroma_pars, bd, shape):
         lambda: (TA.addb_frame(*views(a), luma_pars, chroma_pars, bd), a)[1],
         lambda: (TA.addb_frame_ref(*views(b), luma_pars, chroma_pars, bd),
                  b)[1],
-        *addb_frame_work(luma_pars, chroma_pars, chroma), reset,
-        graph_calls=FRAME_GRAPH_CALLS)
+        *addb_frame_work(luma_pars, chroma_pars, chroma), reset)
 
 
 def _padded(rng, H, W, bd, extra=0):
@@ -1267,7 +1393,7 @@ def alf_frame_case(dev, areas, coef_l, coef_c, ctu_on, h, w, cfg, bd,
     return KernelCase(
         "alf_frame", shape, lambda: run(TL.alf_frame, a),
         lambda: run(TL.alf_frame_ref, b), nbytes, ops, reset=lambda: None,
-        copy_bytes=copy, graph_calls=FRAME_GRAPH_CALLS)
+        copy_bytes=copy)
 
 
 def alf_synth_case(dev, bd, h, w, log2_ctu, across, seed=0,
@@ -1426,11 +1552,9 @@ def gop_step_cases(dev, caps, t=1):
                     TD.deblock_pass_ref(kind, view(y), st, bd), [y])[1],
                 *deblock_work(kind, st)))
         TD.deblock_pass(kind, areas[plane], st, bd)
-    cases.append(KernelCase(
-        "pad", f"{label}, luma {h}x{w} +{PAD_L}",
-        lambda: [TR.pad(areas[0], h, w, PAD_L)],
-        lambda: [TR.pad_ref(areas[0], h, w, PAD_L)],
-        2 * G * (h * w + (h + 2 * PAD_L) * (w + 2 * PAD_L)), 0))
+    cases.append(pad_areas_case(
+        dev, areas, h, w, chroma,
+        f"{label}, {'Y, U, V' if chroma else 'Y'} {h}x{w}", out=dpb.out))
     out = DpbStep(dpb.refs, tuple(torch.zeros_like(o) for o in dpb.out))
     # the step's own traffic: its payload and coefficients, the reference
     # windows, the pictures written; the operations of its stages
@@ -1443,5 +1567,5 @@ def gop_step_cases(dev, caps, t=1):
         "gop_step", f"{label}, {G} x {h}x{w} pictures",
         lambda: list(run_frames_device(b, tab, out)),
         lambda: gop_step_plain(b, tab, dpb),
-        step_bytes, sum(c.ops for c in cases)))
+        step_bytes, sum(c.ops for c in cases), graph_calls=1))
     return cases

@@ -1,28 +1,37 @@
-"""Device times of the loop-filter stages ADDB (`ops/addb.py` `addb_frame`)
-and ALF (`ops/alf.py` `alf_frame`) on whole pictures: a synthetic 1080p
-4:2:0 picture (the smoke's ADDB maps; ALF at CTU 64 with 70 % of the CTU
-flags set), and, given a stream, each of its pictures' own areas, maps,
-coefficients and flags.  ALF is timed on the whole picture, on its luma
-alone and on one chroma plane alone.  Each case gives two times, both by
-CUDA graphs (every launch the stage makes and whatever it allocates or
-copies, the wrapper's host work left out): the mean of 100 replays of a
-graph of one stage call, and the mean a call of 20 replays of a graph of
-20 calls -- a replay of a one-call graph lasts at least the host's launch
-of the graph, some 5 us.
+"""Device times of the loop-filter and output stages on whole pictures:
+ADDB (`ops/addb.py` `addb_frame`), ALF (`ops/alf.py` `alf_frame`), the
+SUCO-order chroma deblock (K10, `ops/deblock.py` `chroma_ver_ordered`)
+and pad-expand (K14: `ops/recon.py` `pad_picture`, one launch over Y, U
+and V; in a checkout without it, `pad` once a plane).  On a synthetic
+1080p 4:2:0 picture (the smoke's ADDB maps; ALF at CTU 64 with 70 % of
+the CTU flags set; pad), and, given streams, on each picture's own areas,
+maps, coefficients, flags and SUCO edge tables (K10 on every picture that
+has one), pad on each stream's picture 0.  ALF is timed on the whole
+picture, on its luma alone and on one chroma plane alone.  Each case
+gives two times, both by CUDA graphs (every launch the stage makes and
+whatever it allocates or copies, the wrapper's host work left out): the
+mean of 100 replays of a graph of one stage call, and the mean a call of
+20 replays of a graph of 20 calls -- a replay of a one-call graph lasts
+at least the host's launch of the graph, some 5 us.  Each SUCO picture
+also gets the host time of its pack (`ops/pack.py` `pack_frame`, the SUCO
+edge replay and, where the checkout has it, the run table included):
+[ms, the least of 5 packs; ms, their median].
 
-    python tests/torch_loopfilter_times.py [ROOT [STREAM]]
+    python tests/torch_loopfilter_times.py [ROOT [STREAM ...]]
 
 ROOT is the checkout whose port and helpers are timed (this one by
-default): both stage functions keep their signatures across the port's
-versions, so two commits compare in one call on one card (run the script
-on each in turns).  STREAM, a Main stream with ADDB and ALF (for example
-the smoke's config-3 stream, written by `tests/torch_reference.py
---streams`), adds its pictures.  Prints the card (nvidia-smi name and
-power limit), then one JSON object {case: [ms one-call graph, ms a call
-in 20-call graphs]}.  Needs a CUDA device; imports no JAX."""
+default): the stage functions keep their signatures across the port's
+versions (K10's run table and `pad_picture` are used where the checkout
+has them), so two commits compare in one call on one card (run the
+script on each in turns).  A STREAM, a Main stream with ADDB and ALF or
+with SUCO (for example the smoke's config-3 and SUCO streams, cached
+under tests/fixtures), adds its pictures.  Prints the card (nvidia-smi
+name and power limit), then one JSON object {case: [ms one-call graph,
+ms a call in 20-call graphs]}.  Needs a CUDA device; imports no JAX."""
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -79,6 +88,30 @@ def stage_times(torch, TA, TL, label, addb_areas, maps, alf_areas, alf_args,
                                         (enables, log2_ctu, across), bd))
 
 
+def pad_times(torch, TR, label, areas, h, w, chroma, out):
+    """Time pad-expand of one picture's areas into new planes."""
+    from xevd_tpu_torch.ops.tables import PAD_C, PAD_L
+    if hasattr(TR, "pad_picture"):
+        def call():
+            TR.pad_picture(*areas, h, w, chroma)
+    else:
+        def call():
+            TR.pad(areas[0], h, w, PAD_L)
+            for a in areas[1:] if chroma else ():
+                TR.pad(a, h >> 1, w >> 1, PAD_C)
+    out[f"{label} pad"] = both(torch, call)
+
+
+def suco_times(torch, TD, label, areas, df, bd, out):
+    """Time K10 on a picture's chroma areas and its own edge table (with
+    the run table where the checkout ships one)."""
+    runs = getattr(df, "suco_runs", None)
+    kw = {} if runs is None else {"runs": runs}
+    out[f"{label} chroma_ver_ordered"] = both(
+        torch, lambda: TD.chroma_ver_ordered(areas[1], areas[2], df.suco_off,
+                                             df.suco_edges, bd, **kw))
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -89,6 +122,9 @@ def main(argv) -> int:
     import tests.torch_helpers as H
     from xevd_tpu_torch.ops import addb as TA
     from xevd_tpu_torch.ops import alf as TL
+    from xevd_tpu_torch.ops import deblock as TD
+    from xevd_tpu_torch.ops import pack as PK
+    from xevd_tpu_torch.ops import recon as TR
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
@@ -98,17 +134,33 @@ def main(argv) -> int:
     stage_times(torch, TA, TL, "synthetic 1080p", areas, maps,
                 [a.clone() for a in areas], alf_args,
                 ((True, True, True), log2_ctu, True), bd, out)
-    if len(argv) > 1:
-        for i, (_, _, _, pf) in enumerate(H.captured_frames(Path(argv[1]),
-                                                            dev)):
+    pad_times(torch, TR, "synthetic 1080p", areas, 1080, 1920, True, out)
+    for stream in argv[1:]:
+        name = Path(stream).stem
+        for i, (job, sps, refp, pf) in enumerate(
+                H.captured_frames(Path(stream), dev)):
+            label = f"{name} picture {i}"
             addb_areas = alf_areas = None
+            if pf.suco:
+                t = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    PK.pack_frame(job, sps, refp)
+                    t.append((time.perf_counter() - t0) * 1e3)
+                out[f"{label} pack_frame host"] = [min(t), float(np.median(t))]
+                suco_areas, df = H.frame_areas_before(pf, dev, "deblock")
+                suco_times(torch, TD, label, suco_areas, df, pf.bd, out)
+            if i == 0:
+                pad_areas, df = H.frame_areas_before(pf, dev, "alf")
+                pad_times(torch, TR, label, pad_areas, *pf.geom[:2],
+                          pf.chroma, out)
             if pf.addb:
                 addb_areas, df = H.frame_areas_before(pf, dev, "deblock")
             if pf.alf is not None:
                 alf_areas, df = H.frame_areas_before(pf, dev, "alf")
             if addb_areas is None and alf_areas is None:
                 continue
-            stage_times(torch, TA, TL, f"picture {i}", addb_areas,
+            stage_times(torch, TA, TL, label, addb_areas,
                         (df.addb_l, df.addb_c), alf_areas,
                         (df.alf_l, df.alf_c, df.alf_on) + pf.geom[:2],
                         pf.alf, pf.bd, out)

@@ -41,10 +41,19 @@
 //
 // K10: under SUCO a row's chroma edges cascade in the order of the per-CU
 // deblock visit, not left to right.  The JAX version scans waves of at
-// most one edge per SCU row; here the host ships each SCU row's edges in
-// that order (ops/pack.py `chroma_ver_edges`, a CSR table), and one
-// thread per chroma line and plane walks its row's list -- one launch a
-// frame, no waves.  Its dependency chain is the longest row's edge count.
+// most one edge per SCU row.  Two edges interact only where they are 2
+// samples apart (or repeat a column) and both filter in that plane: an
+// edge at x reads x - 2 .. x + 1 and writes x - 1, x.  So the host splits
+// each row's list (ops/pack.py `chroma_ver_edges`) per plane into runs --
+// maximal sets of edge columns 2 samples apart with a strength in the
+// plane, each run's edges in list order (`suco_runs`; ops/deblock.py
+// `chroma_ver_runs_ref` is the plain statement) -- and the kernel takes a
+// CTA per SCU row: the row's two lines of U and V and its run table are
+// staged in shared memory with coalesced loads, a thread walks each run
+// on both lines at once, and the lines are written back coalesced.  One
+// launch a frame, no waves; the dependency chain is the longest run, one
+// shared-memory round trip a step, not the longest row list through
+// device memory.
 //
 // GOP batch (K15): the four Baseline passes filter the areas of the G
 // frames of one time step in one launch each, frame g in blockIdx.y, at g
@@ -57,6 +66,8 @@
 #define CH_THREADS 256     // chroma_hor: threads a CTA
 #define CH_MIN_CTAS 256    // chroma_hor: CTAs a launch should give
 #define DB_SMEM (48 << 10) // dynamic shared memory a chroma CTA may take
+#define CO_THREADS 256     // K10: threads a CTA (an SCU row)
+#define CO_SMEM_MAX 232448 // K10: the most shared memory a CTA can have
 
 namespace {
 
@@ -153,15 +164,6 @@ __device__ __forceinline__ int chroma_run(uint32_t* x, int xp,
     D = nD;
     st = nst;
   }
-}
-
-__device__ __forceinline__ void chroma_edge(int16_t* p, long step, int st,
-                                            int maxv) {
-  const int A = p[-2 * step], B = p[-step], C = p[0], D = p[step];
-  int clip;
-  const int d1 = edge_delta(A, B, C, D, st, &clip);
-  p[-step] = (int16_t)clampi(B + d1, 0, maxv);
-  p[0] = (int16_t)clampi(C - d1, 0, maxv);
 }
 
 // area [H, W] with row pitch `stride`; st [H/4, W/4]: strength of the
@@ -300,23 +302,64 @@ chroma_hor_kernel(int16_t* area, int stride, int H, int W,
   }
 }
 
-// K10: u, v [H, W] (H = 2 h_scu), one row pitch; row_off [h_scu + 1] and
-// edges [E, 3] = (x, st_u, st_v), each SCU row's edges in filter order.
-// Thread per (plane, line): the two lines of an SCU row see the same
-// edges; the pack checks 2 <= x <= W - 2.
-__global__ void chroma_ver_ordered_kernel(int16_t* u, int16_t* v, int stride,
-                                          int H,
-                                          const int32_t* __restrict__ row_off,
-                                          const int32_t* __restrict__ edges,
-                                          int maxv) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= 2 * H) return;
-  const int plane = idx >= H, r = idx - plane * H;
-  int16_t* row = (plane ? v : u) + (long)r * stride;
-  const int e1 = row_off[(r >> 1) + 1];
-  for (int e = row_off[r >> 1]; e < e1; ++e) {
-    const int s = edges[3 * e + 1 + plane];
-    if (s > 0) chroma_edge(row + edges[3 * e], 1, s, maxv);
+// K10: a CTA per SCU row.  u, v [H, W] (H = 2 h_scu), one row pitch; the
+// run table of ops/pack.py `SucoRuns`: row_runs [2 h_scu + 1] (the runs of
+// row r in U, then in V), run_off [R + 1], entries x | st << 16.  The
+// row's two lines of U and of V (one 32-bit word a column: both lines'
+// samples) and its entries and run offsets are staged in shared memory
+// (cv_runs_bytes), each run walked by one thread in list order on both
+// lines at once, the lines written back.  A row without runs returns at
+// once.  The pack checks 2 <= x <= W - 2.
+__host__ __device__ __forceinline__ int cv_runs_bytes(int W, int runs,
+                                                      int entries) {
+  return 2 * W * 4 + (runs + 1) * 4 + entries * 4;
+}
+
+__global__ void __launch_bounds__(CO_THREADS)
+chroma_ver_runs_kernel(int16_t* u, int16_t* v, int stride, int W,
+                       const int32_t* __restrict__ row_runs,
+                       const int32_t* __restrict__ run_off,
+                       const int32_t* __restrict__ entries, int maxv) {
+  extern __shared__ __align__(16) unsigned char db_smem[];
+  const int r = blockIdx.x, tid = threadIdx.x;
+  const int k0 = row_runs[2 * r], kv = row_runs[2 * r + 1] - k0;
+  const int nr = row_runs[2 * r + 2] - k0;
+  if (nr == 0) return;                       // no edge in this SCU row
+  const int e0 = run_off[k0], ne = run_off[k0 + nr] - e0;
+  uint32_t* xs = (uint32_t*)db_smem;         // [2][W]: U, V
+  int32_t* ro = (int32_t*)(xs + 2 * W);      // [nr + 1], from e0
+  int32_t* es = ro + nr + 1;                 // [ne]
+  int16_t* u0 = u + (long)(2 * r) * stride;
+  int16_t* v0 = v + (long)(2 * r) * stride;
+#pragma unroll 4
+  for (int i = tid; i < W; i += CO_THREADS) {
+    xs[i] = pack16(u0[i], u0[i + stride]);
+    xs[W + i] = pack16(v0[i], v0[i + stride]);
+  }
+  for (int i = tid; i <= nr; i += CO_THREADS) ro[i] = run_off[k0 + i] - e0;
+  for (int i = tid; i < ne; i += CO_THREADS) es[i] = entries[e0 + i];
+  __syncthreads();
+  for (int k = tid; k < nr; k += CO_THREADS) {
+    uint32_t* x = xs + (k >= kv ? W : 0);
+    const int end = ro[k + 1];
+    for (int e = ro[k]; e < end; ++e) {
+      const int w = es[e], c = w & 0xffff, st = w >> 16;
+      const uint32_t A = x[c - 2], B = x[c - 1], C = x[c], D = x[c + 1];
+      int b0, c0, b1, c1;
+      chroma_step(lo16(A), lo16(B), lo16(C), lo16(D), st, maxv, b0, c0);
+      chroma_step(hi16(A), hi16(B), hi16(C), hi16(D), st, maxv, b1, c1);
+      x[c - 1] = pack16(b0, b1);
+      x[c] = pack16(c0, c1);
+    }
+  }
+  __syncthreads();
+#pragma unroll 4
+  for (int i = tid; i < W; i += CO_THREADS) {
+    const uint32_t a = xs[i], b = xs[W + i];
+    u0[i] = (int16_t)lo16(a);
+    u0[i + stride] = (int16_t)hi16(a);
+    v0[i] = (int16_t)lo16(b);
+    v0[i + stride] = (int16_t)hi16(b);
   }
 }
 
@@ -390,13 +433,27 @@ extern "C" int xevd_deblock_chroma_hor(void* area, int stride, int H, int W,
   return (int)cudaGetLastError();
 }
 
+// K10 over the run table; runs_max and entries_max: the most runs and
+// entries of one SCU row (ops/pack.py `SucoRuns`), which size the CTA's
+// shared memory.
 extern "C" int xevd_chroma_ver_ordered(void* u, void* v, int stride, int H,
-                                       const void* row_off, const void* edges,
-                                       int bd, void* stream) {
-  if (H > 0)
-    chroma_ver_ordered_kernel<<<blocks(2L * H), DB_THREADS, 0,
-                                (cudaStream_t)stream>>>(
-        (int16_t*)u, (int16_t*)v, stride, H, (const int32_t*)row_off,
-        (const int32_t*)edges, (1 << bd) - 1);
+                                       int W, const void* row_runs,
+                                       const void* run_off,
+                                       const void* entries, int runs_max,
+                                       int entries_max, int bd,
+                                       void* stream) {
+  const int smem = cv_runs_bytes(W, runs_max, entries_max);
+  if (smem > CO_SMEM_MAX || (H & 1)) return (int)cudaErrorInvalidValue;
+  if (smem > DB_SMEM) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        chroma_ver_runs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (H > 0 && runs_max > 0)
+    chroma_ver_runs_kernel<<<H >> 1, CO_THREADS, smem,
+                             (cudaStream_t)stream>>>(
+        (int16_t*)u, (int16_t*)v, stride, W, (const int32_t*)row_runs,
+        (const int32_t*)run_off, (const int32_t*)entries, (1 << bd) - 1);
   return (int)cudaGetLastError();
 }

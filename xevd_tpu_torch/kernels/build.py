@@ -26,7 +26,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "xevd_tpu_torch"
 SOURCES = ("itdq.cu", "intra.cu", "deblock.cu", "mc.cu", "intra_main.cu",
-           "addb.cu", "alf.cu")
+           "addb.cu", "alf.cu", "pad.cu")
 HEADERS = ("batch.cuh", "scan.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -58,10 +58,12 @@ SIGNATURES = {
     "xevd_intra_scan_wave": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P,
                              _I, _P, _I, _I, _P, _P),
     "xevd_intra_scan_wave_grid": (_P,),
-    "xevd_chroma_ver_ordered": (_P, _P, _I, _I, _P, _P, _I, _P),
+    "xevd_chroma_ver_ordered": (_P, _P, _I, _I, _I, _P, _P, _P, _I, _I,
+                                _I, _P),
     "xevd_addb_frame": (_P, _I, _P, _I, _P, _I, _I, _I, _P, _P, _I, _I, _P),
     "xevd_alf_frame": (_P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I,
                        _I, _I, _I, _I, _P, _P, _P, _I, _I, _P),
+    "xevd_pad_picture": (_P, _I, _I, _P),
 }
 
 launch_counts = {"itdq": 0, "recon": 0, "pad": 0, "intra_scan": 0,
@@ -176,7 +178,13 @@ def check(err: int, name: str):
 
 
 def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of `device`'s current CUDA stream (the call Triton's
+    launcher makes: a fraction of the host time of building a
+    torch.cuda.Stream object, which a launch of a few microseconds
+    notices)."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(idx)
 
 
 def require(t: torch.Tensor, dtype: torch.dtype, ndim: int,
@@ -184,6 +192,9 @@ def require(t: torch.Tensor, dtype: torch.dtype, ndim: int,
     """Check one kernel operand: a CUDA tensor of `dtype` and `ndim`
     dimensions; `contiguous` asks for a dense tensor, `rows_contiguous` for
     unit stride along the last dimension (a 2-D view with a row pitch)."""
+    if not isinstance(t, torch.Tensor):
+        raise ValueError(f"kernel operand is a {type(t).__name__}, not a "
+                         "tensor on a CUDA device")
     if not t.is_cuda:
         raise ValueError(f"kernel operand on {t.device}, not on a CUDA device")
     if t.dtype != dtype or t.dim() != ndim:

@@ -201,11 +201,62 @@ def chroma_ver_ordered_ref(u, v, row_off, edges, bd):
     v.copy_(pv)
 
 
-def chroma_ver_ordered(u, v, row_off, edges, bd):
+def suco_runs_plain(row_off, edges):
+    """The runs of a SUCO edge table, stated plainly: for each SCU row and
+    plane (0 U, 1 V), the columns whose edges have a strength in that
+    plane, split where a column does not follow the previous one by 2
+    samples; each run's edges in list order.  Returns [(row, plane,
+    [(x, st), ...])] by row, plane and first column (the order of
+    ops/pack.py `suco_runs`' table)."""
+    off = [int(o) for o in row_off]
+    ed = [tuple(int(c) for c in e) for e in edges]
+    runs = []
+    for r in range(len(off) - 1):
+        row = ed[off[r]:off[r + 1]]
+        for p in (0, 1):
+            cols = sorted({x for x, *st in row if st[p] > 0})
+            groups = []
+            for x in cols:
+                if groups and x == groups[-1][-1] + 2:
+                    groups[-1].append(x)
+                else:
+                    groups.append([x])
+            for g in groups:
+                runs.append((r, p, [(x, st[p]) for x, *st in row
+                                    if st[p] > 0 and x in g]))
+    return runs
+
+
+def chroma_ver_runs_ref(u, v, row_off, edges, bd, rng=None):
+    """K10 in the order of its kernel (csrc/deblock.cu): the runs of
+    `suco_runs_plain`, each walked as one chain in list order on both
+    chroma lines of its SCU row, the runs in any order -- a random one
+    with `rng` (a numpy Generator).  Equal to `chroma_ver_ordered_ref` for
+    every order: the statement that the runs are independent (an edge at
+    x reads x - 2 .. x + 1 and writes x - 1, x, so edges 4 or more
+    samples apart touch disjoint samples)."""
+    maxv = (1 << bd) - 1
+    planes = (u.to(torch.int32), v.to(torch.int32))
+    runs = suco_runs_plain(row_off, edges)
+    order = rng.permutation(len(runs)) if rng is not None else \
+        range(len(runs))
+    for k in order:
+        r, p, run = runs[k]
+        ln = planes[p][2 * r:2 * r + 2]
+        for x, st in run:
+            ln[:, x - 1], ln[:, x] = _chroma_filter(
+                ln[:, x - 2], ln[:, x - 1], ln[:, x], ln[:, x + 1],
+                torch.full((2,), st, dtype=torch.int32), maxv)
+    u.copy_(planes[0])
+    v.copy_(planes[1])
+
+
+def chroma_ver_ordered(u, v, row_off, edges, bd, runs=None):
     """K10: the SUCO-order chroma vertical edges, in place on the chroma
     areas u, v [H, W] int16 (H = 2 h_scu).  CUDA tensors launch
-    csrc/deblock.cu `chroma_ver_ordered_kernel`, CPU tensors take
-    `chroma_ver_ordered_ref`."""
+    csrc/deblock.cu `chroma_ver_runs_kernel` over `runs`, the table's run
+    table on the device (ops/pack.py `SucoRuns`; a CUDA call without it
+    raises); CPU tensors take `chroma_ver_ordered_ref`."""
     H, W = u.shape
     if v.shape != u.shape or row_off.shape != (H // 2 + 1,) or H % 2 \
             or edges.dim() != 2 or edges.shape[1] != 3:
@@ -217,14 +268,23 @@ def chroma_ver_ordered(u, v, row_off, edges, bd):
         return u, v
     for a in (u, v):
         K.require(a, torch.int16, 2, rows_contiguous=True)
-    K.require(row_off, torch.int32, 1, contiguous=True)
-    K.require(edges, torch.int32, 2, contiguous=True)
+    if runs is None:
+        raise ValueError("chroma_ver_ordered: a CUDA call needs the run "
+                         "table (ops/pack.py suco_runs)")
+    K.require(runs.row_runs, torch.int32, 1, contiguous=True)
+    K.require(runs.run_off, torch.int32, 1, contiguous=True)
+    K.require(runs.entries, torch.int32, 1, contiguous=True)
+    if runs.row_runs.shape != (H + 1,):
+        raise ValueError(f"chroma_ver_ordered: run rows "
+                         f"{tuple(runs.row_runs.shape)} for {H // 2} SCU rows")
     if u.stride(0) != v.stride(0):
         raise ValueError("chroma_ver_ordered: u and v differ in row pitch")
     K.count("chroma_ver_ordered")
     err = K.lib().xevd_chroma_ver_ordered(
-        u.data_ptr(), v.data_ptr(), u.stride(0), H, row_off.data_ptr(),
-        edges.data_ptr(), bd, K.stream_ptr(u.device))
+        u.data_ptr(), v.data_ptr(), u.stride(0), H, W,
+        runs.row_runs.data_ptr(), runs.run_off.data_ptr(),
+        runs.entries.data_ptr(), runs.row_runs_max, runs.row_entries_max, bd,
+        K.stream_ptr(u.device))
     K.check(err, "xevd_chroma_ver_ordered")
     return u, v
 
@@ -233,8 +293,9 @@ def deblock_frame(y_area, u_area, v_area, st, bd, suco=None):
     """K12: the passes in reference order -- luma ver, chroma ver (u, v),
     luma hor, chroma hor (u, v) (ref: xevd_tpu/ops/pipeline.py:299-309).
     st: int32 [6, h_scu, w_scu] = ver_y, hor_y, ver_u, hor_u, ver_v, hor_v.
-    suco: (row_off, edges) of a SUCO frame's chroma vertical edges, which
-    then run in that order (K10) instead of the raster pass.  u_area /
+    suco: (row_off, edges, runs) of a SUCO frame's chroma vertical edges
+    (ops/pack.py `chroma_ver_edges`, `suco_runs`), which then run in that
+    order (K10) instead of the raster pass.  u_area /
     v_area are None for 4:0:0.  A GOP batch: areas [G, H, W], st
     [G, 6, h_scu, w_scu], no SUCO."""
     if st.dim() == 4 and suco is not None:
@@ -242,7 +303,8 @@ def deblock_frame(y_area, u_area, v_area, st, bd, suco=None):
     m = st.movedim(-3, 0)           # the six maps first, batch or not
     deblock_pass("luma_ver", y_area, m[0], bd)
     if u_area is not None and suco is not None:
-        chroma_ver_ordered(u_area, v_area, *suco, bd)
+        row_off, edges, runs = suco
+        chroma_ver_ordered(u_area, v_area, row_off, edges, bd, runs=runs)
     elif u_area is not None:
         deblock_pass("chroma_ver", u_area, m[2], bd)
         deblock_pass("chroma_ver", v_area, m[4], bd)

@@ -13,7 +13,8 @@ pack builds beside it (`itdq_order`, `mc_order`); the EIPD scan table is
 one list sorted by wavefront level, with the level offsets beside it in
 the payload (the scan kernel walks the levels on the card); the SUCO
 chroma edges are one list sorted by SCU row and rank, with row offsets
-(no waves).
+(no waves), and beside it the same edges by run, which the K10 kernel
+walks (`suco_runs`).
 `stack_frames` stacks the G frames of one time step of a GOP batch (K15)
 into one such payload, with per-frame row offsets.
 
@@ -300,45 +301,128 @@ def chroma_ver_edges(fs, job):
     replay of the per-CU deblock visit with the pass-local coded map
     (ref: src_base/xevd_df.c:388-545).  There, wave k holds the edge of rank
     k of each row; here each row lists its edges by rank, which is the
-    order of the cascade within the row (rows never interact)."""
+    order of the cascade within the row (rows never interact).
+
+    Vectorised: an SCU is coded when CU i is visited iff a CU before i
+    covers it, so the map of the first CU covering each SCU (painted once,
+    in reverse visit order) decides every CU's left and right candidate
+    edges at once; the candidates' rows are expanded with np.repeat in
+    visit order (CU, left before right, top to bottom), and a stable sort
+    by row gives each row's edges in rank order."""
     h_scu, w_scu = fs.h_scu, fs.w_scu
     w, h = fs.w, fs.h
     h_scu_max = (h + 3) >> 2
-    cod = np.zeros((h_scu, w_scu), np.uint8)
-    dvu, dvv = job.db_ver_u, job.db_ver_v
-    rows, edges = [], []
-    for i in range(fs.num_cus()):
-        x0, y0 = fs.cu_x[i], fs.cu_y[i]
-        cuw = 1 << fs.cu_log2w[i]
-        cuh = 1 << fs.cu_log2h[i]
-        xs_, ys_ = x0 >> 2, y0 >> 2
-        scuw, scuh = cuw >> 2, cuh >> 2
-        if fs.cu_tree[i] != 1:  # do_chroma
-            cands = []
-            if 0 < x0 < w and cod[ys_, xs_ - 1]:
-                cands.append(xs_)
-            if x0 + cuw < w and xs_ + scuw < w_scu and cod[ys_, xs_ + scuw]:
-                cands.append(xs_ + scuw)
-            for xp in cands:
-                for ys in range(ys_, min(ys_ + scuh, h_scu_max)):
-                    su = int(dvu[ys, xp])
-                    sv = int(dvv[ys, xp])
-                    if su or sv:
-                        rows.append(ys)
-                        edges.append((xp * 2, su, sv))
-        cod[ys_:ys_ + scuh, xs_:xs_ + scuw] = 1
-    if not edges:
+    n = fs.num_cus()
+    x0 = np.asarray(fs.cu_x[:n], np.int64)
+    y0 = np.asarray(fs.cu_y[:n], np.int64)
+    cuw = np.left_shift(1, np.asarray(fs.cu_log2w[:n], np.int64))
+    cuh = np.left_shift(1, np.asarray(fs.cu_log2h[:n], np.int64))
+    xs_, ys_, scuw, scuh = x0 >> 2, y0 >> 2, cuw >> 2, cuh >> 2
+    first = np.full((h_scu, w_scu), n, np.int64)   # first CU covering an SCU
+    for i, (a, b, c, d) in reversed(list(enumerate(zip(
+            ys_.tolist(), xs_.tolist(), scuh.tolist(), scuw.tolist())))):
+        first[a:a + c, b:b + d] = i
+    idx = np.arange(n)
+    chroma = np.asarray(fs.cu_tree[:n]) != 1            # do_chroma
+    # (the column indices clamped where the condition beside them fails)
+    left = chroma & (0 < x0) & (x0 < w)
+    left &= first[ys_, np.maximum(xs_ - 1, 0)] < idx
+    xr = xs_ + scuw
+    right = chroma & (x0 + cuw < w) & (xr < w_scu)
+    right &= first[ys_, np.minimum(xr, w_scu - 1)] < idx
+    # the candidates in visit order: CU by CU, the left one first
+    take = np.stack([left, right], 1).ravel()
+    xp = np.stack([xs_, xr], 1).ravel()[take]
+    y_lo = np.repeat(ys_, 2)[take]
+    cnt = np.maximum(np.minimum(np.repeat(ys_ + scuh, 2)[take], h_scu_max)
+                     - y_lo, 0)
+    rows = np.repeat(y_lo - (np.cumsum(cnt) - cnt), cnt) + np.arange(
+        int(cnt.sum()))
+    cols = np.repeat(xp, cnt)
+    su = np.asarray(job.db_ver_u)[rows, cols]
+    sv = np.asarray(job.db_ver_v)[rows, cols]
+    keep = (su != 0) | (sv != 0)
+    if not keep.any():
         return None
-    rows = np.asarray(rows, np.int64)
+    rows = rows[keep]
     order = np.argsort(rows, kind="stable")     # rank order within a row
     row_off = np.concatenate(
         [[0], np.cumsum(np.bincount(rows, minlength=h_scu))]).astype(np.int32)
-    edges = np.asarray(edges, np.int32)[order]
+    edges = np.stack([cols[keep] * 2, su[keep], sv[keep]],
+                     1).astype(np.int32)[order]
     if (rows >= h_scu).any() or (edges[:, SE_COL] < 2).any() \
             or (edges[:, SE_COL] > 2 * w_scu - 2).any():
         # the filter reads 2 samples a side, without clamping
         raise ValueError("SUCO chroma edge outside the chroma area")
     return row_off, np.ascontiguousarray(edges)
+
+
+@dataclass
+class SucoRuns:
+    """K10's launch over a SUCO edge table split into runs
+    (csrc/deblock.cu `chroma_ver_runs_kernel`).  A run of a plane is a
+    maximal set of edge columns of one SCU row, 2 chroma samples apart,
+    that all have a strength in that plane; its edges (a repeated column
+    as often as it is listed) filter in list order, and runs never touch
+    each other's samples.  `row_runs` int32 [2 h_scu + 1]: the runs of
+    SCU row r in plane p (0 U, 1 V) are row_runs[2 r + p] ..
+    row_runs[2 r + p + 1], by first column; `run_off` int32 [R + 1]: run
+    k's entries are entries[run_off[k]:run_off[k + 1]]; `entries` int32
+    [N] = x | st << 16, x in chroma samples.  `row_runs_max` and
+    `row_entries_max`: the most runs and entries of one SCU row (both
+    planes), which size the kernel's shared memory.  Host arrays from
+    `suco_runs`, device views after an upload."""
+    row_runs: np.ndarray | torch.Tensor
+    run_off: np.ndarray | torch.Tensor
+    entries: np.ndarray | torch.Tensor
+    row_runs_max: int
+    row_entries_max: int
+
+
+def suco_runs(row_off: np.ndarray, edges: np.ndarray) -> SucoRuns:
+    """The run table of a SUCO edge table (row_off int32 [h_scu + 1],
+    edges int32 [E, 3], `chroma_ver_edges`), vectorised: each edge with a
+    strength in plane p marks its column in grid row 2 r + p (a column of
+    padding between rows, so no run spans two), a run starts at each
+    marked cell whose left neighbour is unmarked, and a stable sort by run
+    keeps list order within a run.  ops/deblock.py `suco_runs_plain`
+    states the same split plainly."""
+    h_scu = len(row_off) - 1
+    e = np.asarray(edges, np.int32).reshape(-1, 3)
+    x = e[:, SE_COL]
+    col = x >> 1
+    if len(e) and ((x & 1).any() or col.min() < 1 or x.max() >= 1 << 16
+                   or e[:, SE_ST_U:].max() >= 1 << 15):
+        raise ValueError("SUCO edge table: odd, negative or oversized column "
+                         "or strength")
+    stride = int(col.max()) + 2 if len(e) else 2
+    row = np.repeat(np.arange(h_scu, dtype=np.int32), np.diff(row_off))
+    cell = row * (2 * stride) + col
+    cells, ents = [], []
+    for p in (0, 1):
+        st = e[:, SE_ST_U + p]
+        on = st > 0
+        cells.append(cell[on] + p * stride)
+        ents.append(x[on] | st[on] << 16)
+    cells = np.concatenate(cells)
+    grid = np.zeros(2 * h_scu * stride, bool)
+    grid[cells] = True
+    marked = np.flatnonzero(grid)
+    head = np.ones(len(marked), bool)
+    head[1:] = np.diff(marked) != 1
+    run_of = np.empty(len(grid), np.int32)
+    run_of[marked] = np.cumsum(head, dtype=np.int32) - 1
+    ent_run = run_of[cells]
+    row_runs = _offsets(np.bincount(marked[head] // stride,
+                                    minlength=2 * h_scu))
+    run_off = _offsets(np.bincount(ent_run, minlength=int(head.sum())))
+    runs = row_runs[2::2] - row_runs[:-1:2]
+    ents_row = run_off[row_runs[2::2]] - run_off[row_runs[:-1:2]]
+    return SucoRuns(
+        row_runs=row_runs, run_off=run_off,
+        entries=np.concatenate(ents)[np.argsort(ent_run, kind="stable")],
+        row_runs_max=int(runs.max()) if h_scu else 0,
+        row_entries_max=int(ents_row.max()) if h_scu else 0)
 
 
 def addb_maps(fs, job):
@@ -628,6 +712,7 @@ class PackedFrame:
     ref_pocs: tuple = ()         # per slot: the reference picture's POC
     tu_launch: tuple = (0, 0)    # ItdqOrder's (n_cta, smem)
     mc_launch: tuple = ((0, 0, 0), (0, 0, 0))   # McOrder's lists
+    suco_launch: tuple = (0, 0)  # SucoRuns' (row_runs_max, row_entries_max)
 
 
 @dataclass
@@ -645,6 +730,7 @@ class DeviceFrame:
     addb_c: torch.Tensor | None  # int32 [2, hs2, ws2, 7]
     suco_off: torch.Tensor | None    # int32 [h_scu + 1]
     suco_edges: torch.Tensor | None  # int32 [E, 3]
+    suco_runs: SucoRuns | None       # the edges by run (views)
     alf_l: torch.Tensor | None   # int32 [25, 13]
     alf_c: torch.Tensor | None   # int32 [7]
     alf_on: torch.Tensor | None  # int32 [n_ctu]
@@ -689,7 +775,7 @@ def pack_frame(job, sps, refp, plane=None) -> PackedFrame:
     pk.add("mc", mc)
     pk.add("mc_order", mc_ord.order)
     pk.add("mc_cls", mc_ord.classes)
-    suco = False
+    suco, suco_launch = False, (0, 0)
     if addb:
         # ADDB takes precedence over the SUCO order (pipeline.py:525)
         luma_p, chroma_p = addb_maps(fs, job)
@@ -706,8 +792,13 @@ def pack_frame(job, sps, refp, plane=None) -> PackedFrame:
             sched = chroma_ver_edges(fs, job)
             if sched is not None:     # else the plain raster order (:301)
                 suco = True
+                runs = suco_runs(*sched)
                 pk.add("suco_off", sched[0])
                 pk.add("suco_edges", sched[1])
+                pk.add("suco_rows", runs.row_runs)
+                pk.add("suco_run_off", runs.run_off)
+                pk.add("suco_entries", runs.entries)
+                suco_launch = (runs.row_runs_max, runs.row_entries_max)
     alf = None
     if job.alf_param is not None:
         coef_l, coef_c, ctu_on, alf = alf_params(fs, job)
@@ -730,7 +821,8 @@ def pack_frame(job, sps, refp, plane=None) -> PackedFrame:
         main_taps=bool(is_main and sps.tool_admvp),
         geom=(fs.h, fs.w, fs.h_scu, fs.w_scu), shp_y=shp_y, shp_c=shp_c,
         mc_lists=mc_lists, refs=refs, ref_pocs=ref_pocs,
-        tu_launch=(tu_order.n_cta, tu_order.smem), mc_launch=mc_ord.lists)
+        tu_launch=(tu_order.n_cta, tu_order.smem), mc_launch=mc_ord.lists,
+        suco_launch=suco_launch)
 
 
 def upload(pf: PackedFrame, device: torch.device) -> DeviceFrame:
@@ -761,7 +853,12 @@ def upload(pf: PackedFrame, device: torch.device) -> DeviceFrame:
                                         pf.mc_launch),
                        dbst=view("dbst"), addb_l=view("addb_l"),
                        addb_c=view("addb_c"), suco_off=view("suco_off"),
-                       suco_edges=view("suco_edges"), alf_l=view("alf_l"),
+                       suco_edges=view("suco_edges"),
+                       suco_runs=SucoRuns(view("suco_rows"),
+                                          view("suco_run_off"),
+                                          view("suco_entries"),
+                                          *pf.suco_launch)
+                       if pf.suco else None, alf_l=view("alf_l"),
                        alf_c=view("alf_c"), alf_on=view("alf_on"),
                        coef_y=coef_y, coef_u=coef_u, coef_v=coef_v,
                        packed=pf)

@@ -11,7 +11,8 @@ host->device copies, then `run_frame_device`:
   scan with HTDF (csrc/intra_main.cu), each one persistent launch ->
   deblock (csrc/deblock.cu, with SUCO its ordered chroma pass; with ADDB
   csrc/addb.cu, one launch) -> ALF (csrc/alf.cu, one launch, into new
-  planes) -> pad-expand (Triton) of what ALF returns
+  planes) -> pad-expand (csrc/pad.cu, one launch over Y, U and V) of what
+  ALF returns
 
 The decoded picture planes stay on the device as DPB references
 (DevicePlane); MC reads them there, and they reach the host only when the
@@ -49,8 +50,8 @@ from .intra import intra_scan
 from .intra_main import intra_scan_wave
 from .itdq import itdq
 from .mc import DpbRing, mc_all
-from .recon import pad, recon
-from .tables import BORDER, PAD_C, PAD_L, device_tables
+from .recon import pad_picture, recon
+from .tables import BORDER, device_tables
 
 STAGES = ("pack", "itdq", "mc", "recon", "intra", "deblock", "alf", "pad")
 
@@ -116,7 +117,8 @@ def deblock_stage(df: PK.DeviceFrame, areas):
         addb_frame(*areas, df.addb_l, df.addb_c, pf.bd)
     elif pf.deblock_on:
         deblock_frame(*areas, df.dbst, pf.bd,
-                      (df.suco_off, df.suco_edges) if pf.suco else None)
+                      (df.suco_off, df.suco_edges, df.suco_runs) if pf.suco
+                      else None)
 
 
 def alf_stage(df: PK.DeviceFrame, areas):
@@ -148,14 +150,10 @@ def run_frame_device(df: PK.DeviceFrame, tables: dict, on_stage=None):
     mark("deblock")
     y_area, u_area, v_area = alf_stage(df, areas)
     mark("alf")
-    h, w = pf.geom[0], pf.geom[1]
-    pic_y = pad(y_area, h, w, PAD_L)
-    pic_u = pic_v = None
-    if pf.chroma:
-        pic_u = pad(u_area, h >> 1, w >> 1, PAD_C)
-        pic_v = pad(v_area, h >> 1, w >> 1, PAD_C)
+    pics = pad_picture(y_area, u_area, v_area, pf.geom[0], pf.geom[1],
+                       pf.chroma)
     mark("pad")
-    return pic_y, pic_u, pic_v
+    return pics
 
 
 @dataclass
@@ -172,9 +170,10 @@ def run_frames_device(batch: PK.DeviceBatch, tables: dict, dpb: DpbStep):
     """Device half of the G frames of one time step of a GOP batch: ITDQ
     -> MC (steps with inter blocks) -> recon -> Baseline intra scan ->
     Baseline deblock -> pad-expand into `dpb.out`, each a single launch
-    over the batch (a launch per plane for recon, pad and the chroma
-    passes, as for one frame).  Frames of one step share size, bit depth
-    and frame flags (ops/pack.py `stack_frames`).  Returns dpb.out."""
+    over the batch (a launch per plane for recon and the chroma passes, as
+    for one frame; pad one launch over Y, U and V).  Frames of one step
+    share size, bit depth and frame flags (ops/pack.py `stack_frames`).
+    Returns dpb.out."""
     pb = batch.packed
     bd, chroma = pb.bd, pb.chroma
     if batch.tus.is_cuda:
@@ -202,10 +201,7 @@ def run_frames_device(batch: PK.DeviceBatch, tables: dict, dpb: DpbStep):
         areas += [None, None]
     if pb.deblock_on:
         deblock_frame(*areas, batch.dbst, bd)
-    pad(areas[0], h, w, PAD_L, out=dpb.out[0])
-    if chroma:
-        pad(areas[1], h >> 1, w >> 1, PAD_C, out=dpb.out[1])
-        pad(areas[2], h >> 1, w >> 1, PAD_C, out=dpb.out[2])
+    pad_picture(*areas, h, w, chroma, out=dpb.out)
     return dpb.out
 
 

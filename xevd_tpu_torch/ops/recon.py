@@ -2,15 +2,19 @@
 `_recon_all`, xevd_tpu/ops/pipeline.py:221-238, and K14 `_pad_out`,
 xevd_tpu/ops/pipeline.py:241).
 
-CUDA tensors launch the Triton kernels of ops/recon_triton.py; CPU tensors
-take the `*_ref` plain versions.  Both take the planes of a GOP batch
-(K15) with a leading G, in one launch: recon is elementwise, pad has G in
-its grid."""
+CUDA tensors launch the Triton recon kernel of ops/recon_triton.py and the
+CUDA pad kernel of csrc/pad.cu (`pad_picture`: one launch over a picture's
+Y, U and V); CPU tensors take the `*_ref` plain versions.  Both take the
+planes of a GOP batch (K15) with a leading G, in one launch: recon is
+elementwise, pad has G in its grid."""
 from __future__ import annotations
+
+import array
 
 import torch
 
 from ..kernels import build as K
+from .tables import PAD_C, PAD_L
 
 
 def recon_ref(resid, bd, pred=None, cnt=None):
@@ -58,25 +62,58 @@ def recon(resid, bd, pred=None, cnt=None):
     return out
 
 
-def pad(area, h, w, pad, out=None):
-    """area int16 [H, W], or [G, H, W] for a GOP batch (a view with a row
-    pitch is fine), h <= H, w <= W; returns the int16 [h + 2 pad, w + 2
-    pad] plane(s): `out` (rows contiguous; e.g. DPB slots), or new ones."""
-    if not (0 < h <= area.shape[-2] and 0 < w <= area.shape[-1]) \
-            or area.dim() not in (2, 3):
+def _pad_shape(area, h, w, pad, out):
+    """The output shape (a tuple of ints) of padding area[..., :h, :w] by
+    `pad`; raises on a crop outside the area or an `out` of another
+    shape."""
+    *lead, H, W = area.shape
+    if not (0 < h <= H and 0 < w <= W) or len(lead) > 1:
         raise ValueError(f"pad: crop {h}x{w} outside area {tuple(area.shape)}")
-    shape = area.shape[:-2] + (h + 2 * pad, w + 2 * pad)
-    if out is not None and tuple(out.shape) != tuple(shape):
-        raise ValueError(f"pad: out {tuple(out.shape)} != {tuple(shape)}")
-    if area.device.type == "cpu":
-        if out is None:
-            return pad_ref(area, h, w, pad)
-        return out.copy_(pad_ref(area, h, w, pad))
-    K.require(area, torch.int16, area.dim(), rows_contiguous=True)
-    if out is None:
-        out = torch.empty(shape, dtype=torch.int16, device=area.device)
-    K.require(out, torch.int16, area.dim(), rows_contiguous=True)
-    from . import recon_triton
+    shape = (*lead, h + 2 * pad, w + 2 * pad)
+    if out is not None and out.shape != shape:
+        raise ValueError(f"pad: out {tuple(out.shape)} != {shape}")
+    return shape
+
+
+def pad_picture(y_area, u_area, v_area, h, w, chroma, out=None):
+    """K14, the port of `_pad_out` (xevd_tpu/ops/pipeline.py:241): the
+    picture y_area[..., :h, :w] padded by PAD_L and, with `chroma`, u_area
+    and v_area[..., :h/2, :w/2] by PAD_C; areas int16 [H, W] (views with a
+    row pitch are fine) or the [G, H, W] of a GOP batch step.  `out`: the
+    (y, u, v) planes to write (rows contiguous; the DPB's), or None for new
+    ones.  Returns (pic_y, pic_u, pic_v), u and v None for 4:0:0.  CUDA
+    tensors: one launch of csrc/pad.cu over every plane; a picture's pad
+    takes some 6 us on the card, so the host work is kept to a few tensor
+    calls a plane."""
+    out = out or (None, None, None)
+    planes = [(y_area, h, w, PAD_L, out[0])]
+    if chroma:
+        planes += [(a, h >> 1, w >> 1, PAD_C, o)
+                   for a, o in zip((u_area, v_area), out[1:])]
+    if y_area.device.type == "cpu":
+        for p in planes:
+            _pad_shape(*p)
+        pics = [pad_ref(a, ph, pw, p) if o is None else o.copy_(
+            pad_ref(a, ph, pw, p)) for a, ph, pw, p, o in planes]
+        return tuple(pics) if chroma else (pics[0], None, None)
+    nd = y_area.dim()
+    G = y_area.shape[0] if nd == 3 else 1
+    pics, desc = [], array.array("q")
+    for a, ph, pw, p, o in planes:
+        K.require(a, torch.int16, nd, rows_contiguous=True)
+        shape = _pad_shape(a, ph, pw, p, o)
+        if nd == 3 and shape[0] != G:
+            raise ValueError("pad: planes of different batch sizes")
+        if o is None:
+            o = torch.empty(shape, dtype=torch.int16, device=a.device)
+        else:
+            K.require(o, torch.int16, nd, rows_contiguous=True)
+        pics.append(o)
+        desc.extend((a.data_ptr(), o.data_ptr(), a.stride(-2), o.stride(-2),
+                     a.stride(0) if nd == 3 else 0,
+                     o.stride(0) if nd == 3 else 0, ph, pw, p))
     K.count("pad")
-    recon_triton.launch_pad(area, out, h, w, pad)
-    return out
+    err = K.lib().xevd_pad_picture(desc.buffer_info()[0], len(planes), G,
+                                   K.stream_ptr(y_area.device))
+    K.check(err, "xevd_pad_picture")
+    return tuple(pics) if chroma else (pics[0], None, None)
