@@ -21,11 +21,14 @@
    U and V: a config-3-sized picture, an odd pitch, 4:0:0, a GOP batch
    step of 8 and of 1 picture; beside torch.nn.functional.pad(mode=
    "replicate"), its library yardstick, three calls a picture, or CUDA's
-   refusal of int16), deblock, the SUCO-order chroma deblock (K10: random
-   lists, every edge on, one long run, repeated edges, empty rows; 20
-   launches a case), ADDB on
-   whole 1080p pictures (one launch over Y, U and V: random maps, bs 4
-   everywhere, no edge, 4:0:0, an unaligned pitch) and ALF on whole 1080p
+   refusal of int16), deblock (K8, both luma passes in one launch, on
+   1080p areas with random maps, every edge at strength 12, no edge,
+   vertical or horizontal edges only and a GOP batch of 8, and the
+   single-pass API; 20 launches a case), the SUCO-order chroma deblock
+   (K10: random lists, every edge on, one long run, repeated edges, empty
+   rows; 20 launches a case), ADDB on whole 1080p pictures (one launch
+   over Y, U and V: random maps, bs 4 everywhere, no edge, 4:0:0, an
+   unaligned pitch) and ALF on whole 1080p
    pictures (one launch: CTU 64 and 128, across tiles or not, an unaligned
    pitch), 10 launches a case; ITDQ on a frame of every size class (2x2 to
    64x64, square and rectangular, Baseline beside ATS and all Main, and at
@@ -53,8 +56,9 @@
    and ALF and once without (the Baseline deblock at 10 bit). The Baseline
    intra scan kernel is held to its plain version on every 1080p intra
    frame's own CU table and planes and on the 1080p IPPP stream's P frame
-   with the most intra CUs, K9 on every IPPP frame's own chroma areas and
-   maps (20 launches each; the run lengths of each map printed), ITDQ on
+   with the most intra CUs, K8 and K9 on every IPPP frame's own luma and
+   chroma areas and maps (20 launches each; the edges of each luma map and
+   the run lengths of each chroma map printed), ITDQ on
    every config-3 and IPPP frame's own TU table (10 launches; the TUs of
    each size class and the host time of the class grouping printed), the MC
    kernel on every 1080p P frame's own block table and class order and on
@@ -72,7 +76,8 @@
    the launch counters are reset just before each path and read just after
    it; every kernel the path needs must have launched, and none it must not;
    MC once a reference list with blocks, per frame; ADDB once a picture that
-   has it, ALF once a picture that filters any plane, pad once a
+   has it, ALF once a picture that filters any plane, the luma deblock
+   (K8) once a picture with the Baseline deblock, pad once a
    picture. Each counted decode prints its frames/s and per-stage
    CUDA-event times.
 5. GOP phase (K15, xevd_tpu_torch/parallel/gop.py): 8 independent
@@ -86,7 +91,8 @@
    version on the batch's own step-1 (P) tables and DPB at G = 8 and G =
    1; then all 8 GOPs decode as one batch per time step on the card
    (counted: each batched kernel once a step, the intra scan once a step,
-   not once a frame; pad one launch a step over Y, U and V), twice, and
+   not once a frame; the luma deblock one launch a step; pad one launch a
+   step over Y, U and V), twice, and
    every frame's MD5 must equal the numpy oracle's serial decode; the
    same 8 GOPs then decode serially through Decoder +
    TorchPixelBackend("cuda"), equal too, for the record.  The
@@ -201,10 +207,9 @@ KERNELS = {
             "xevd_tpu/ops/pipeline.py:241"),
     "intra_scan": ("cuda", "xevd_tpu_torch/csrc/intra.cu",
                    "xevd_tpu/ops/jax_intra.py:113"),
-    "deblock_luma_ver": ("cuda", "xevd_tpu_torch/csrc/deblock.cu",
-                         "xevd_tpu/ops/jax_deblock.py:60"),
-    "deblock_luma_hor": ("cuda", "xevd_tpu_torch/csrc/deblock.cu",
-                         "xevd_tpu/ops/jax_deblock.py:78"),
+    # K8: `luma_ver_pass` (:60) and `luma_hor_pass` (:78) in one kernel
+    "deblock_luma": ("cuda", "xevd_tpu_torch/csrc/deblock.cu",
+                     "xevd_tpu/ops/jax_deblock.py:60"),
     "deblock_chroma_ver": ("cuda", "xevd_tpu_torch/csrc/deblock.cu",
                            "xevd_tpu/ops/jax_deblock.py:96"),
     "deblock_chroma_hor": ("cuda", "xevd_tpu_torch/csrc/deblock.cu",
@@ -220,17 +225,15 @@ KERNELS = {
 }
 # the batched kernels of the GOP path (K15), "gop_" + their counter name,
 # and K15's step itself
-GOP_KERNELS = ("itdq", "mc", "recon", "intra_scan", "deblock_luma_ver",
-               "deblock_chroma_ver", "deblock_luma_hor", "deblock_chroma_hor",
-               "pad")
+GOP_KERNELS = ("itdq", "mc", "recon", "intra_scan", "deblock_luma",
+               "deblock_chroma_ver", "deblock_chroma_hor", "pad")
 KERNELS.update({f"gop_{k}": KERNELS[k] for k in GOP_KERNELS})
 KERNELS["gop_step"] = ("cuda", "xevd_tpu_torch/parallel/gop.py",
                        "xevd_tpu/parallel/gop.py:197")
 # the counted path whose launches the kernels line reports, where it is
 # not the main path (the config-3 stream, whose deblock is ADDB)
-PATH_OF = {"intra_scan": "1080p_p", "deblock_luma_ver": "1080p_p",
-           "deblock_luma_hor": "1080p_p", "deblock_chroma_ver": "1080p_p",
-           "deblock_chroma_hor": "1080p_p",
+PATH_OF = {"intra_scan": "1080p_p", "deblock_luma": "1080p_p",
+           "deblock_chroma_ver": "1080p_p", "deblock_chroma_hor": "1080p_p",
            "chroma_ver_ordered": "1080p_main_suco"}
 PATH_OF.update({k: "gop" for k in KERNELS if k.startswith("gop_")})
 MAIN_PATH = "1080p_main_c3"
@@ -349,9 +352,10 @@ def kernel_phases(torch, dev, results):
     scans and MC to their plain versions on the 1080p streams' own
     frames)."""
     import numpy as np
-    from tests.torch_helpers import (CHROMA_MAPS, addb_synth_case,
-                                     alf_synth_case, chroma_map,
-                                     deblock_case, intra_case,
+    from tests.torch_helpers import (CHROMA_MAPS, LUMA_MAPS,
+                                     addb_synth_case, alf_synth_case,
+                                     chroma_map, deblock_case,
+                                     deblock_luma_case, intra_case,
                                      intra_chain_case, intra_wave_case,
                                      itdq_case, itdq_class_case,
                                      itdq_size_case, mc_case, mc_class_case,
@@ -431,15 +435,37 @@ def kernel_phases(torch, dev, results):
                                             seed=500 + bd, htdf=htdf),
                      results, 10, 0)
 
-    log("phase deblock")
+    log(f"phase deblock (K8: both luma passes in one launch on 1080p areas, "
+        f"random maps, every edge at strength 12, no edge, ver or hor only, "
+        f"a GOP batch of 8; the single-pass API; K9 on random maps; "
+        f"{K9_LAUNCHES} launches a case)")
     for bd in (8, 10):
-        for kind in ("luma_ver", "luma_hor", "chroma_ver", "chroma_hor"):
-            chroma = kind.startswith("chroma")
+        r = results.setdefault("deblock_luma", {"max_abs_err": 0})
+        for maps in LUMA_MAPS:
+            run_case(torch, deblock_luma_case(dev, bd, 270, 480, seed=400,
+                                              maps=maps),
+                     results, 20, 1, main=bd == 8 and maps == "random",
+                     launches=K9_LAUNCHES)
+            if bd == 8:
+                r[f"ms_device_{maps}"] = r["last_device_ms"]
+                r[f"ms_device_{maps}_per_call"] = r["last_device_ms_per_call"]
+        run_case(torch, deblock_luma_case(dev, bd, 270, 480, seed=430, G=8),
+                 results, 20 if bd == 8 else 0, 0, launches=K9_LAUNCHES)
+        if bd == 8:
+            r["ms_device_g8"] = r["last_device_ms"]
+            r["ms_device_g8_per_call"] = r["last_device_ms_per_call"]
+        for kind in ("luma_ver", "luma_hor"):
+            run_case(torch, deblock_case(dev, kind, bd, 270, 480, seed=400),
+                     results, 20 if bd == 8 else 0, 1, launches=K9_LAUNCHES)
+            if bd == 8:
+                r[f"ms_device_{kind}"] = r["last_device_ms"]
+                r[f"ms_device_{kind}_per_call"] = r["last_device_ms_per_call"]
+        for kind in ("chroma_ver", "chroma_hor"):
             ms = run_case(torch, deblock_case(dev, kind, bd, 270, 480,
                                               seed=400),
                           results, 20, 3, main=bd == 8,
-                          launches=K9_LAUNCHES if chroma else None)
-            if chroma and bd == 8:
+                          launches=K9_LAUNCHES)
+            if bd == 8:
                 results[f"deblock_{kind}"]["ms_pr6_case"] = ms
     log(f"phase K9 map kinds (1080p chroma; random, every edge on, no "
         f"edge; {K9_LAUNCHES} launches a case)")
@@ -596,19 +622,35 @@ def intra_main_path(torch, dev, packed, results):
 
 
 def deblock_main_path(torch, dev, packed, results):
-    """K9 against its plain version on the 1080p IPPP stream's own frames:
-    the chroma areas before deblock and the strength maps the path hands
-    the two passes, K9_LAUNCHES launches each (the I frame's U plane is
-    the summary's case); the I frame's maps also on 10-bit planes.  Prints
-    each map's run lengths (consecutive edges with a strength)."""
+    """K8 and K9 against their plain versions on the 1080p IPPP stream's
+    own frames: the luma and chroma areas before deblock and the strength
+    maps the path hands the kernels, K9_LAUNCHES launches each (the I
+    frame's U plane is K9's summary case); the I frame's chroma maps also
+    on 10-bit planes.  Prints each luma map pair's shifted blocks with a
+    strength and each chroma map's run lengths (consecutive edges with a
+    strength)."""
     import numpy as np
     from tests.torch_helpers import (deblock_area_case, deblock_case,
+                                     deblock_luma_area_case,
                                      frame_areas_before, run_lengths)
 
-    log("phase K9 (1080p IPPP frames' own chroma areas and maps)")
+    log("phase K8, K9 (1080p IPPP frames' own luma and chroma areas and "
+        "maps)")
+    r = results.setdefault("deblock_luma", {"max_abs_err": 0})
     for i, pf in enumerate(packed):
         areas, df = frame_areas_before(pf, dev, "deblock")
         ftype = "P" if pf.refs else "I"
+        on = [(df.dbst[k] > 0).cpu().numpy() for k in (0, 1)]
+        shape = (f"1080p IPPP frame {i} ({ftype}) Y "
+                 f"{tuple(areas[0].shape)}, edges ver {int(on[0].sum())} "
+                 f"hor {int(on[1].sum())} (of {on[0].size} SCUs)")
+        run_case(torch, deblock_luma_area_case(dev, areas[0], df.dbst[0],
+                                               df.dbst[1], pf.bd, shape),
+                 results, 20, 1, launches=K9_LAUNCHES)
+        if f"ms_device_ippp_{ftype}" not in r:
+            r[f"ms_device_ippp_{ftype}"] = r["last_device_ms"]
+            r[f"ms_device_ippp_{ftype}_per_call"] = r[
+                "last_device_ms_per_call"]
         for kind, k in (("chroma_ver", 2), ("chroma_hor", 3)):
             for plane in (1, 2):
                 st = df.dbst[k + 2 * (plane - 1)]
@@ -967,10 +1009,14 @@ def slice_phase(torch, dev, K, results, prepared):
     # MC launches a decode of each stream makes: one a list with rows
     mc_launches = {name: sum(int(n > 0) for pf in frames for n in pf.mc_lists)
                    for name, frames in packed.items()}
-    # and ADDB's and ALF's: one a picture that has them; pad's: one a
+    # and ADDB's and ALF's: one a picture that has them; the Baseline luma
+    # deblock's (K8, both passes): one a picture that has it; pad's: one a
     # picture
     frame_launches = {name: {"addb_frame": sum(pf.addb for pf in frames),
                              "alf_frame": sum(map(alf_runs, frames)),
+                             "deblock_luma": sum(
+                                 bool(pf.deblock_on and not pf.addb)
+                                 for pf in frames),
                              "pad": len(frames)}
                       for name, frames in packed.items()}
     packed.clear()
@@ -1003,8 +1049,7 @@ def slice_phase(torch, dev, K, results, prepared):
 
     backend = TorchPixelBackend(device=dev, on_stage=on_stage)
     common = ("itdq", "recon", "pad")
-    baseline_db = ("deblock_luma_ver", "deblock_luma_hor",
-                   "deblock_chroma_ver", "deblock_chroma_hor")
+    baseline_db = ("deblock_luma", "deblock_chroma_ver", "deblock_chroma_hor")
     addb, alf = ("addb_frame",), ("alf_frame",)
     runs = {}
     for name, reps, needed, barred in (
@@ -1021,8 +1066,7 @@ def slice_phase(torch, dev, K, results, prepared):
              ("intra_scan", "chroma_ver_ordered") + addb + alf),
             ("1080p_main_suco", 1,
              common + ("mc", "intra_scan_wave", "chroma_ver_ordered",
-                       "deblock_luma_ver", "deblock_luma_hor",
-                       "deblock_chroma_hor"),
+                       "deblock_luma", "deblock_chroma_hor"),
              ("intra_scan",) + addb + alf),
             (MAIN_PATH, TIMED_RUNS,
              common + ("mc", "intra_scan_wave") + addb + alf,
@@ -1212,9 +1256,9 @@ def gop_phase(torch, dev, K, results, workers):
         expect["recon"] += 3
         expect["intra_scan"] += int(pb.layout["icu"][1][0] > 0)
         expect["pad"] += 1
-        for kind in ("luma_ver", "luma_hor", "chroma_ver", "chroma_hor"):
-            expect[f"deblock_{kind}"] += pb.deblock_on * (
-                1 if kind.startswith("luma") else 2)
+        expect["deblock_luma"] += pb.deblock_on
+        for kind in ("chroma_ver", "chroma_hor"):
+            expect[f"deblock_{kind}"] += 2 * pb.deblock_on
     fps, counts, stats = [], None, None
     for rep in range(TIMED_RUNS_GOP):
         torch.cuda.synchronize()

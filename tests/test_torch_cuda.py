@@ -28,9 +28,10 @@ from xevd_tpu_torch.ops import pack as PK
 from xevd_tpu_torch.ops import recon as TR
 from xevd_tpu_torch.ops.tables import PAD_L, device_tables
 
-from .torch_helpers import (CHROMA_MAPS, SUCO_LISTS, addb_synth_case,
-                            alf_synth_case, chroma_map,
-                            compare, deblock_case, eipd_scene,
+from .torch_helpers import (CHROMA_MAPS, LUMA_MAPS, SUCO_LISTS,
+                            addb_synth_case, alf_synth_case, chroma_map,
+                            compare, deblock_case, deblock_luma_case,
+                            eipd_scene,
                             gop_step_cases, intra_batch_case, intra_case,
                             intra_chain_case, intra_wave_case,
                             itdq_case, itdq_class_case, itdq_size_case,
@@ -201,6 +202,45 @@ def test_intra_wave_kernel_matches_plain(dev, bd, chroma, htdf):
 def test_deblock_kernel_matches_plain(dev, kind, bd):
     """On the 1080p SCU grid."""
     _check(deblock_case(dev, kind, bd, 270, 480))
+
+
+@pytest.mark.parametrize("maps", LUMA_MAPS)
+@pytest.mark.parametrize("bd", [8, 10])
+def test_deblock_luma_kernel_map_kinds(dev, bd, maps):
+    """K8, both luma passes in one launch, on a 1080p area with smooth
+    samples against `luma_blocks_ref`: random maps, every edge at the
+    largest strength, no edge, vertical or horizontal edges only; twenty
+    launches from the same inputs."""
+    _check_repeated(deblock_luma_case(dev, bd, 270, 480, seed=bd, maps=maps),
+                    launches=20)
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+def test_deblock_luma_kernel_gop_batch(dev, bd):
+    """K8 on a GOP batch of eight 1080p areas, each with maps of its own,
+    in one launch; twenty launches."""
+    _check_repeated(deblock_luma_case(dev, bd, 270, 480, seed=bd, G=8),
+                    launches=20)
+
+
+def test_deblock_luma_refuses_unaligned_views(dev):
+    """The luma kernel reads 32-bit words: an area at an odd column, or on
+    a plane with an odd row pitch, raises instead of taking another path;
+    a GOP batch with an odd batch stride too."""
+    st = torch.zeros(4, 8, dtype=torch.int32, device=dev)
+    plane = torch.zeros(24, 48, dtype=torch.int16, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        TD.deblock_luma(plane[2:18, 3:35], st, st, 8)
+    odd = torch.zeros(24, 47, dtype=torch.int16, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        TD.deblock_pass("luma_ver", odd[2:18, 2:34], st, 8)
+    batch = torch.zeros(2 * (24 * 48 + 1), dtype=torch.int16, device=dev)
+    areas = batch.as_strided((2, 16, 32), (24 * 48 + 1, 48, 1), 2 * 48 + 2)
+    with pytest.raises(ValueError, match="aligned"):
+        TD.deblock_luma(areas, st.expand(2, 4, 8), None, 8)
+    n = K.launch_counts["deblock_luma"]
+    TD.deblock_luma(plane[2:18, 2:34], st, st, 8)
+    assert K.launch_counts["deblock_luma"] == n + 1
 
 
 @pytest.mark.parametrize("maps", CHROMA_MAPS)

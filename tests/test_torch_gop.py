@@ -94,6 +94,31 @@ def test_gop_batch_beyond_32_ring_slots():
     assert stats["checksum"] == stats["serial_checksum"] > 0
 
 
+def test_gop_batch_finds_references_by_decode_steps_not_poc():
+    """The port's step maps a reference to the DPB ring by the decode
+    steps back to the picture of its POC (parallel/gop.py `_plan`), not by
+    the POC difference: with every captured `poc` and `ref_pocs` doubled
+    (an IPPP GOP whose POC steps by 2), every frame's MD5 is unchanged and
+    still equals the serial oracle's."""
+    use_port_native_library()
+    streams = JG.gen_gop_streams(3, w=64, h=64, frames=3, variable=True)
+    caps = [TG._capture_gop(s) for s in streams]
+    mesh = TG.make_mesh(["cpu"])
+    plain = {}
+    want = TG.decode_gops_sharded(None, mesh=mesh, captures=caps,
+                                  stats=plain)
+    doubled = [[dict(fr, poc=2 * fr["poc"], pack=dataclasses.replace(
+        fr["pack"], ref_pocs=tuple(2 * p for p in fr["pack"].ref_pocs)))
+        for fr in c] for c in caps]
+    assert any(fr["pack"].ref_pocs for c in doubled for fr in c)
+    stats = {}
+    got = TG.decode_gops_sharded(None, mesh=mesh, captures=doubled,
+                                 stats=stats)
+    assert got == want
+    assert got[0] == got[1]
+    assert stats["depth"] == plain["depth"]
+
+
 def _pad(p, pad):
     return np.pad(p, pad, mode="edge")
 

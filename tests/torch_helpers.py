@@ -417,6 +417,30 @@ def run_lengths(st, kind):
     return ends[1] - starts[1]
 
 
+LUMA_MAPS = ("random", "all", "zero", "ver", "hor")
+
+
+def luma_maps(rng, kind, h_scu, w_scu):
+    """The luma strength maps (st_ver, st_hor), int32 [h_scu, w_scu] each,
+    of one kind: "random" (`strengths` both), "all" (every edge the largest
+    strength, 12), "zero" (no edge), "ver" / "hor" (a random map in that
+    direction, no edge in the other)."""
+    def rand():
+        return strengths(rng, h_scu, w_scu)[0]
+    zero = np.zeros((h_scu, w_scu), np.int32)
+    if kind == "random":
+        return rand(), rand()
+    if kind == "all":
+        return np.full_like(zero, 12), np.full_like(zero, 12)
+    if kind == "zero":
+        return zero, zero.copy()
+    if kind == "ver":
+        return rand(), zero
+    if kind == "hor":
+        return zero, rand()
+    raise ValueError(kind)
+
+
 def suco_edges(rng, h_scu, w_scu, max_edges=5):
     """A SUCO chroma edge table as ops/pack.py `chroma_ver_edges` returns it
     (row_off int32 [h_scu + 1], edges int32 [E, 3] = (x, st_u, st_v)): up
@@ -658,6 +682,35 @@ def deblock_work(kind, st):
     on = (s[..., 1:] if kind.endswith("ver") else s[..., 1:, :]).sum() * (
         4 if luma else 2)
     return int(on * (16 if luma else 12) + s.size * 4), int(on * 20)
+
+
+def deblock_luma_work(st_ver, st_hor):
+    """(bytes, ops) of K8's fused luma deblock (ver then hor) on maps
+    [..., h_scu, w_scu] (either None): each sample that an edge with a
+    strength reaches read and written once (int16) -- a shifted block's
+    rows with a vertical strength and its columns with a horizontal one,
+    counted once where they cross -- both maps read; about 20 operations
+    an edge line."""
+    m = [None if s is None else _host(s) for s in (st_ver, st_hor)]
+    shape = next(x.shape for x in m if x is not None)
+    v, h = (np.zeros(shape, bool) if x is None else x > 0 for x in m)
+    v, h = v.copy(), h.copy()
+    v[..., 0] = False                       # x = 0, y = 0: the area's sides
+    h[..., 0, :] = False
+    hs, ws = shape[-2:]
+    # per shifted block (f, e): rows with a ver edge (of 4, by pairs) and
+    # columns with a hor edge
+    rows = np.zeros(shape[:-2] + (hs + 1, ws + 1, 2), np.int64)
+    cols = np.zeros_like(rows)
+    rows[..., 1:, :ws, 0] = v                # SCU row f - 1: rows 0, 1
+    rows[..., :hs, :ws, 1] = v               # SCU row f: rows 2, 3
+    cols[..., :hs, 1:, 0] = h                # SCU column e - 1: cols 0, 1
+    cols[..., :hs, :ws, 1] = h               # SCU column e: cols 2, 3
+    nr, nc = 2 * rows.sum(-1), 2 * cols.sum(-1)
+    samples = int((4 * nr + 4 * nc - nr * nc).sum())
+    lines = int(v.sum() + h.sum()) * 4
+    return (samples * 4 + sum(x.size * 4 for x in m if x is not None),
+            lines * 20)
 
 
 def itdq_order_on(dev, tus, iqt, tu_off=None):
@@ -1039,6 +1092,12 @@ def intra_wave_case(dev, H, W, bd, chroma=True, seed=0, htdf=True):
         f"{len(level_off) - 1} levels")
 
 
+def _deblock_name(kind):
+    """The launch counter of a Baseline deblock pass: a luma pass launches
+    the fused luma kernel (with the other map absent)."""
+    return "deblock_luma" if kind.startswith("luma") else f"deblock_{kind}"
+
+
 def deblock_case(dev, kind, bd, h_scu, w_scu, seed=0, st=None, label=""):
     """One pass in place on the SCU-area view of a bordered plane (as the
     pipeline calls it); each side filters a plane of its own, and `reset`
@@ -1058,9 +1117,10 @@ def deblock_case(dev, kind, bd, h_scu, w_scu, seed=0, st=None, label=""):
     def plain():
         TD._REFS[kind](b[sl], st, bd)
         return [b]
-    return KernelCase(f"deblock_{kind}",
-                      f"{h_scu * u}x{w_scu * u} bd{bd}{label}", kernel, plain,
-                      *deblock_work(kind, st), reset=lambda: a.copy_(src))
+    return KernelCase(_deblock_name(kind),
+                      f"{h_scu * u}x{w_scu * u} bd{bd} {kind}{label}", kernel,
+                      plain, *deblock_work(kind, st),
+                      reset=lambda: a.copy_(src))
 
 
 def deblock_area_case(dev, kind, area, st, bd, shape):
@@ -1075,8 +1135,47 @@ def deblock_area_case(dev, kind, area, st, bd, shape):
     def plain():
         TD._REFS[kind](b, st, bd)
         return [b]
-    return KernelCase(f"deblock_{kind}", shape, kernel, plain,
+    return KernelCase(_deblock_name(kind), shape, kernel, plain,
                       *deblock_work(kind, st), reset=lambda: a.copy_(src))
+
+
+def deblock_luma_area_case(dev, area, st_ver, st_hor, bd, shape):
+    """K8, both luma passes in one launch (`deblock_luma`), on copies of
+    the plane (or GOP batch of planes) that `area` views, through the same
+    view -- the row pitch and border the path gives the kernel -- with the
+    maps st_ver, st_hor (either None: one pass); the plain version is
+    `luma_blocks_ref` in raster order."""
+    x, y, view = _two_copies(area)
+    src = x.clone()
+
+    def kernel():
+        TD.deblock_luma(view(x), st_ver, st_hor, bd)
+        return [x]
+
+    def plain():
+        TD.luma_blocks_ref(view(y), st_ver, st_hor, bd)
+        return [y]
+    return KernelCase("deblock_luma", shape, kernel, plain,
+                      *deblock_luma_work(st_ver, st_hor),
+                      reset=lambda: x.copy_(src))
+
+
+def deblock_luma_case(dev, bd, h_scu, w_scu, seed=0, maps="random", G=None):
+    """K8 on the SCU-area view of bordered planes with smooth samples (the
+    filters decide both ways), one picture or a GOP batch of G, with maps
+    of a kind (`luma_maps`, each picture its own)."""
+    rng = np.random.default_rng(seed + bd + len(maps))
+    H, W = 4 * h_scu, 4 * w_scu
+    n = G or 1
+    planes = _dev(np.stack([_padded(rng, H, W, bd) for _ in range(n)]), dev)
+    st_ver, st_hor = (_dev(np.stack(m), dev) for m in zip(
+        *(luma_maps(rng, maps, h_scu, w_scu) for _ in range(n))))
+    area = planes[:, BORDER:BORDER + H, BORDER:BORDER + W]
+    if G is None:
+        area, st_ver, st_hor = area[0], st_ver[0], st_hor[0]
+    return deblock_luma_area_case(
+        dev, area, st_ver, st_hor, bd,
+        f"{f'G {G} x ' if G else ''}{H}x{W} bd{bd} {maps} maps")
 
 
 def mc_case(dev, H, W, bd, chroma=True, seed=0):
@@ -1438,6 +1537,8 @@ def frame_areas_before(pf, dev, stage):
 # --------------------------------------------------------------------------
 # the GOP batch (K15): the batched kernels on one time step of a batch
 # --------------------------------------------------------------------------
+# the Baseline passes in reference order (xevd_tpu/ops/pipeline.py:
+# 299-309): (pass, plane, map of dbst)
 DEBLOCK_ORDER = (("luma_ver", 0, 0), ("chroma_ver", 1, 2),
                  ("chroma_ver", 2, 4), ("luma_hor", 0, 1),
                  ("chroma_hor", 1, 3), ("chroma_hor", 2, 5))
@@ -1536,16 +1637,22 @@ def gop_step_cases(dev, caps, t=1):
         dev, recs, resids, b.icu, bd, chroma,
         f"{label}, {b.icu.shape[0]} CUs, depth {depth}", icu_off=b.icu_off))
     TI.intra_scan(recs, resids, b.icu, bd, chroma, icu_off=b.icu_off)
-    # each pass on the areas it filters on the path, then run on them
+    # each kernel on the areas it filters on the path, then run on them:
+    # luma (both passes, one launch), then the chroma passes (the reference
+    # order runs luma hor after chroma ver, which touches only U and V)
     areas = _batch_areas(recs, *pb.geom[2:])
+    cases.append(deblock_luma_area_case(
+        dev, areas[0], b.dbst[:, 0], b.dbst[:, 1], bd,
+        f"{label}, Y {tuple(areas[0].shape)}"))
+    TD.deblock_luma(areas[0], b.dbst[:, 0], b.dbst[:, 1], bd)
     for kind, plane, k in DEBLOCK_ORDER:
+        if plane == 0:
+            continue
         st = b.dbst[:, k]
-        if plane < 2:
+        if plane == 1:
             x, y, view = _two_copies(areas[plane])
             cases.append(KernelCase(
-                f"deblock_{kind}",
-                f"{label}, {'Y' if plane == 0 else 'U'} "
-                f"{tuple(areas[plane].shape)}",
+                f"deblock_{kind}", f"{label}, U {tuple(areas[plane].shape)}",
                 lambda x=x, view=view, st=st, kind=kind: (
                     TD.deblock_pass(kind, view(x), st, bd), [x])[1],
                 lambda y=y, view=view, st=st, kind=kind: (

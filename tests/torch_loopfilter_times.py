@@ -1,12 +1,16 @@
 """Device times of the loop-filter and output stages on whole pictures:
-ADDB (`ops/addb.py` `addb_frame`), ALF (`ops/alf.py` `alf_frame`), the
-SUCO-order chroma deblock (K10, `ops/deblock.py` `chroma_ver_ordered`)
-and pad-expand (K14: `ops/recon.py` `pad_picture`, one launch over Y, U
-and V; in a checkout without it, `pad` once a plane).  On a synthetic
-1080p 4:2:0 picture (the smoke's ADDB maps; ALF at CTU 64 with 70 % of
-the CTU flags set; pad), and, given streams, on each picture's own areas,
-maps, coefficients, flags and SUCO edge tables (K10 on every picture that
-has one), pad on each stream's picture 0.  ALF is timed on the whole
+the Baseline luma deblock (K8: `ops/deblock.py` `deblock_luma`, both
+passes in one launch; in a checkout without it, `deblock_pass` once a
+pass), ADDB (`ops/addb.py` `addb_frame`), ALF (`ops/alf.py`
+`alf_frame`), the SUCO-order chroma deblock (K10, `ops/deblock.py`
+`chroma_ver_ordered`) and pad-expand (K14: `ops/recon.py` `pad_picture`,
+one launch over Y, U and V; in a checkout without it, `pad` once a
+plane).  On a synthetic 1080p 4:2:0 picture (random luma deblock maps,
+and a GOP batch of 8 such luma areas; the smoke's ADDB maps; ALF at CTU
+64 with 70 % of the CTU flags set; pad), and, given streams, on each
+picture's own areas, maps, coefficients, flags and SUCO edge tables (K8
+on every picture with the Baseline deblock, K10 on every picture that
+has a SUCO table), pad on each stream's picture 0.  ALF is timed on the whole
 picture, on its luma alone and on one chroma plane alone.  Each case
 gives two times, both by CUDA graphs (every launch the stage makes and
 whatever it allocates or copies, the wrapper's host work left out): the
@@ -25,7 +29,8 @@ versions (K10's run table and `pad_picture` are used where the checkout
 has them), so two commits compare in one call on one card (run the
 script on each in turns).  A STREAM, a Main stream with ADDB and ALF or
 with SUCO (for example the smoke's config-3 and SUCO streams, cached
-under tests/fixtures), adds its pictures.  Prints the card (nvidia-smi
+under tests/fixtures), adds its pictures; so does a Baseline stream
+(the smoke's 1080p IPPP stream).  Prints the card (nvidia-smi
 name and power limit), then one JSON object {case: [ms one-call graph,
 ms a call in 20-call graphs]}.  Needs a CUDA device; imports no JAX."""
 import json
@@ -102,6 +107,37 @@ def pad_times(torch, TR, label, areas, h, w, chroma, out):
     out[f"{label} pad"] = both(torch, call)
 
 
+def luma_times(torch, TD, label, area, st_ver, st_hor, bd, out):
+    """Time K8 on a luma area (or GOP batch of areas) with its maps."""
+    if hasattr(TD, "deblock_luma"):
+        def call():
+            TD.deblock_luma(area, st_ver, st_hor, bd)
+    else:
+        def call():
+            TD.deblock_pass("luma_ver", area, st_ver, bd)
+            TD.deblock_pass("luma_hor", area, st_hor, bd)
+    out[f"{label} deblock_luma"] = both(torch, call)
+
+
+def synthetic_luma(torch, H, dev, G, bd=8, h=1080, w=1920):
+    """(area, st_ver, st_hor): the luma area(s) of G bordered synthetic h x
+    w pictures (G None: one) and random per-SCU maps (`strengths`)."""
+    from xevd_tpu_torch.ops.tables import BORDER
+    rng = np.random.default_rng(400)
+    n = G or 1
+    planes = np.stack([H.bordered(rng, h, w, 0, 1 << bd) for _ in range(n)])
+    for p in planes:
+        p[BORDER:BORDER + h, BORDER:BORDER + w] = H.smooth_plane(rng, h, w,
+                                                                 bd)
+    st = torch.from_numpy(H.strengths(rng, h // 4, w // 4, 2 * n)).to(dev)
+    area = torch.from_numpy(planes).to(dev)[:, BORDER:BORDER + h,
+                                            BORDER:BORDER + w]
+    st_ver, st_hor = st[:n], st[n:]
+    if G is None:
+        return area[0], st_ver[0], st_hor[0]
+    return area, st_ver, st_hor
+
+
 def suco_times(torch, TD, label, areas, df, bd, out):
     """Time K10 on a picture's chroma areas and its own edge table (with
     the run table where the checkout ships one)."""
@@ -135,6 +171,9 @@ def main(argv) -> int:
                 [a.clone() for a in areas], alf_args,
                 ((True, True, True), log2_ctu, True), bd, out)
     pad_times(torch, TR, "synthetic 1080p", areas, 1080, 1920, True, out)
+    for G in (None, 8):
+        luma_times(torch, TD, f"synthetic 1080p{f' G {G}' if G else ''}",
+                   *synthetic_luma(torch, H, dev, G), 8, out)
     for stream in argv[1:]:
         name = Path(stream).stem
         for i, (job, sps, refp, pf) in enumerate(
@@ -150,6 +189,10 @@ def main(argv) -> int:
                 out[f"{label} pack_frame host"] = [min(t), float(np.median(t))]
                 suco_areas, df = H.frame_areas_before(pf, dev, "deblock")
                 suco_times(torch, TD, label, suco_areas, df, pf.bd, out)
+            if pf.deblock_on and not pf.addb:
+                luma_areas, df = H.frame_areas_before(pf, dev, "deblock")
+                luma_times(torch, TD, label, luma_areas[0], df.dbst[0],
+                           df.dbst[1], pf.bd, out)
             if i == 0:
                 pad_areas, df = H.frame_areas_before(pf, dev, "alf")
                 pad_times(torch, TR, label, pad_areas, *pf.geom[:2],

@@ -1,22 +1,35 @@
-// Baseline deblocking passes, in place on the SCU-cropped picture area.
+// Baseline deblocking, in place on the SCU-cropped picture area.
 //
 // Replaces: xevd_tpu/ops/jax_deblock.py `luma_ver_pass`, `luma_hor_pass`
 // (K8, `_luma_filter`), `chroma_ver_pass`, `chroma_hor_pass` (K9,
 // `_chroma_filter`; ref: src_base/xevd_df.c:96-195) and `chroma_ver_ordered`
 // (K10, the SUCO-order chroma vertical edges).  The function that runs
-// them in reference order (luma ver, chroma ver, luma hor, chroma hor) is
-// xevd_tpu_torch/ops/deblock.py `deblock_frame` (K12).
+// them (luma, chroma ver, chroma hor) is xevd_tpu_torch/ops/deblock.py
+// `deblock_frame` (K12).
 //
-// Bound on the H100: memory.  Each pass reads and writes at most 4 samples
-// per edge position, a few bytes per pixel of the plane, and does a dozen
-// integer operations per edge; there is no reuse.
+// Bound on the H100: memory.  Each edge line reads and writes at most 4
+// samples and does a dozen integer operations; there is no reuse.  The
+// kernels read the per-SCU strength maps themselves instead of
+// materialising the repeated maps of the JAX version.  Division is C
+// truncating division (`_div_trunc`), not an arithmetic shift.
 //
-// Design: the kernels read the per-SCU strength map themselves
-// (st[r >> 2] luma, st[r >> 1] chroma) instead of materialising the
-// repeated maps of the JAX version.  Luma edges are 4 px apart and reach
-// +-2 px, so one thread per (line, edge) filters all edges at once.
-// Division is C truncating division (`_div_trunc`), not an arithmetic
-// shift.
+// K8, both luma passes in one launch.  A vertical edge at x = 4e reads
+// and writes columns 4e - 2 .. 4e + 1, a horizontal edge at y = 4f rows
+// 4f - 2 .. 4f + 1.  So the shifted 4x4 block (f, e), rows 4f - 2 .. 4f + 1
+// by columns 4e - 2 .. 4e + 1, is closed under "ver, then hor": every
+// sample a horizontal edge of the block reads was last written by a
+// vertical edge of the same block, and no two blocks share a sample
+// (ops/deblock.py `luma_blocks_ref` is the plain statement).  The chroma
+// passes that run between the two luma passes in the reference order
+// touch only U and V.  `luma_kernel` takes a thread a block, f <= H / 4,
+// e <= W / 4 (the blocks on the area's sides clipped to it), a warp over
+// 32 consecutive blocks of a block row: the block's four strengths are
+// loaded first, and a block without any returns before it loads a sample;
+// else its rows are two 32-bit words each (columns 4e - 2, 4e - 1 and 4e,
+// 4e + 1: a warp's load of a row is 256 contiguous bytes), only the words
+// a strength reaches are loaded, all 16 samples stay in registers through
+// both filters, and the words loaded are stored.  The area must be 4-byte
+// aligned with an even row pitch (the wrapper raises otherwise).
 //
 // K9, the chroma cascade.  Chroma edges are 2 px apart: edge e at 2e reads
 // A, B, C, D at 2e - 2 .. 2e + 1 and writes B and C, and its only input
@@ -55,13 +68,14 @@
 // shared-memory round trip a step, not the longest row list through
 // device memory.
 //
-// GOP batch (K15): the four Baseline passes filter the areas of the G
-// frames of one time step in one launch each, frame g in blockIdx.y, at g
-// times the batch strides of the areas and of the strength maps.
+// GOP batch (K15): K8 and the two K9 passes filter the areas of the G
+// frames of one time step in one launch each, frame g in blockIdx.z (K8)
+// or blockIdx.y (K9), at g times the batch strides of the areas and of the
+// strength maps.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define DB_THREADS 256
+#define LB_ROWS 4          // K8: block rows a CTA (a warp each)
 #define CV_MAX_WARPS 2     // chroma_ver: SCU rows a CTA (at most)
 #define CH_THREADS 256     // chroma_hor: threads a CTA
 #define CH_MIN_CTAS 256    // chroma_hor: CTAs a launch should give
@@ -91,19 +105,18 @@ __device__ __forceinline__ int edge_delta(int A, int B, int C, int D, int st,
   return d < 0 ? -clip : clip;
 }
 
-// p points at C (first sample past the edge); `step` is the distance
-// between samples across the edge (1 vertical edge, stride horizontal edge)
-__device__ __forceinline__ void luma_edge(int16_t* p, long step, int st,
-                                          int maxv) {
-  const int A = p[-2 * step], B = p[-step], C = p[0], D = p[step];
+// One luma edge of strength st > 0 across samples A, B | C, D, in place.
+__device__ __forceinline__ void luma_step(int& A, int& B, int& C, int& D,
+                                          int st, int maxv) {
   int clip;
   const int d1 = edge_delta(A, B, C, D, st, &clip);
   const int clip2 = clip >> 1;
   const int d2 = clampi(div_trunc(A - D, 2), -clip2, clip2);
-  p[-2 * step] = (int16_t)clampi(A - d2, 0, maxv);
-  p[-step] = (int16_t)clampi(B + d1, 0, maxv);
-  p[0] = (int16_t)clampi(C - d1, 0, maxv);
-  p[step] = (int16_t)clampi(D + d2, 0, maxv);
+  const int a = clampi(A - d2, 0, maxv), b = clampi(B + d1, 0, maxv);
+  C = clampi(C - d1, 0, maxv);
+  D = clampi(D + d2, 0, maxv);
+  A = a;
+  B = b;
 }
 
 // One chroma edge of strength st > 0 on samples A, B, C, D: the new B and
@@ -166,34 +179,69 @@ __device__ __forceinline__ int chroma_run(uint32_t* x, int xp,
   }
 }
 
-// area [H, W] with row pitch `stride`; st [H/4, W/4]: strength of the
-// vertical edge left of each 4x4 (0 = none).  Thread per (row, edge).
-__global__ void luma_ver_kernel(int16_t* area, int stride, int H, int W,
-                                const int32_t* __restrict__ st, int maxv,
-                                long long area_bs, long long st_bs) {
-  area += blockIdx.y * area_bs;
-  st += blockIdx.y * st_bs;
-  const int ws = W >> 2, ne = ws - 1;
-  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (ne <= 0 || idx >= (long)H * ne) return;
-  const int r = (int)(idx / ne), e = (int)(idx % ne) + 1;
-  const int s = st[(r >> 2) * ws + e];
-  if (s > 0) luma_edge(area + (long)r * stride + 4 * e, 1, s, maxv);
-}
-
-// st [H/4, W/4]: strength of the horizontal edge above each 4x4.
-// Thread per (edge, column).
-__global__ void luma_hor_kernel(int16_t* area, int stride, int H, int W,
-                                const int32_t* __restrict__ st, int maxv,
-                                long long area_bs, long long st_bs) {
-  area += blockIdx.y * area_bs;
-  st += blockIdx.y * st_bs;
-  const int ws = W >> 2, ne = (H >> 2) - 1;
-  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (ne <= 0 || idx >= (long)ne * W) return;
-  const int e = (int)(idx / W) + 1, c = (int)(idx % W);
-  const int s = st[e * ws + (c >> 2)];
-  if (s > 0) luma_edge(area + (long)(4 * e) * stride + c, stride, s, maxv);
+// K8: area [H, W] with row pitch `stride` (even; the area 4-byte
+// aligned); stv, sth [H/4, W/4]: the strength of the vertical edge left of
+// and of the horizontal edge above each 4x4 (0 = none; a null map: no
+// edge of that direction).  Grid (x: 32 blocks, y: LB_ROWS block rows, z:
+// the frame g of a GOP batch, at g times the batch strides).
+__global__ void __launch_bounds__(32 * LB_ROWS)
+luma_kernel(int16_t* area, int stride, int H, int W,
+            const int32_t* __restrict__ stv, const int32_t* __restrict__ sth,
+            int maxv, long long area_bs, long long stv_bs,
+            long long sth_bs) {
+  const int hs = H >> 2, ws = W >> 2;
+  const int e = blockIdx.x * 32 + threadIdx.x;
+  const int f = blockIdx.y * LB_ROWS + threadIdx.y;
+  if (e > ws || f > hs) return;
+  // ver strengths of the upper two rows (SCU row f - 1) and the lower two
+  // (f); hor strengths of word 0 (SCU column e - 1) and word 1 (e).  The
+  // area's sides are no edges.
+  int sv0 = 0, sv1 = 0, sh0 = 0, sh1 = 0;
+  if (stv != nullptr && e >= 1 && e < ws) {
+    const int32_t* s = stv + blockIdx.z * stv_bs + e;
+    if (f >= 1) sv0 = s[(long)(f - 1) * ws];
+    if (f < hs) sv1 = s[(long)f * ws];
+  }
+  if (sth != nullptr && f >= 1 && f < hs) {
+    const int32_t* s = sth + blockIdx.z * sth_bs + (long)f * ws + e;
+    if (e >= 1) sh0 = s[-1];
+    if (e < ws) sh1 = s[0];
+  }
+  if (sv0 <= 0 && sv1 <= 0 && sh0 <= 0 && sh1 <= 0) return;
+  // word (i, j): row 4f - 2 + i, columns 4e - 2 + 2j, 4e - 1 + 2j; the one
+  // a strength reaches is in the area (a ver strength only where e and
+  // the row are inside, a hor one only where f is, and word j's column)
+  uint32_t* p = (uint32_t*)(area + blockIdx.z * area_bs
+                            + (long)(4 * f - 2) * stride + 4 * e - 2);
+  const long pw = stride >> 1;   // row pitch in words
+  bool on[4][2];
+  int x[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const bool v = (i < 2 ? sv0 : sv1) > 0;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      on[i][j] = v || (j ? sh1 : sh0) > 0;
+      const uint32_t w = on[i][j] ? p[i * pw + j] : 0u;
+      x[i][2 * j] = lo16(w);
+      x[i][2 * j + 1] = hi16(w);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int s = i < 2 ? sv0 : sv1;
+    if (s > 0) luma_step(x[i][0], x[i][1], x[i][2], x[i][3], s, maxv);
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int s = c < 2 ? sh0 : sh1;
+    if (s > 0) luma_step(x[0][c], x[1][c], x[2][c], x[3][c], s, maxv);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      if (on[i][j]) p[i * pw + j] = pack16(x[i][2 * j], x[i][2 * j + 1]);
 }
 
 // chroma area [H, W]; st [H/2, W/2] per SCU.  A warp per SCU row: its two
@@ -363,38 +411,29 @@ chroma_ver_runs_kernel(int16_t* u, int16_t* v, int stride, int W,
   }
 }
 
-inline int blocks(long n) { return (int)((n + DB_THREADS - 1) / DB_THREADS); }
-
 }  // namespace
+
+// K8 over G frames (G 1: one frame), the areas area_bs and the maps
+// stv_bs, sth_bs elements apart; stv or sth may be null (no edge of that
+// direction).  H and W multiples of 4, the area 4-byte aligned, the row
+// pitch and area_bs even: else refused.
+extern "C" int xevd_deblock_luma(void* area, int stride, int H, int W,
+                                 const void* stv, const void* sth, int bd,
+                                 int G, long long area_bs, long long stv_bs,
+                                 long long sth_bs, void* stream) {
+  if ((H | W) & 3 || (stride | area_bs) & 1 || (uintptr_t)area & 3)
+    return (int)cudaErrorInvalidValue;
+  if (H > 0 && W > 0 && G > 0 && (stv != nullptr || sth != nullptr))
+    luma_kernel<<<dim3(((W >> 2) + 32) / 32,
+                       ((H >> 2) + LB_ROWS) / LB_ROWS, G),
+                  dim3(32, LB_ROWS), 0, (cudaStream_t)stream>>>(
+        (int16_t*)area, stride, H, W, (const int32_t*)stv,
+        (const int32_t*)sth, (1 << bd) - 1, area_bs, stv_bs, sth_bs);
+  return (int)cudaGetLastError();
+}
 
 // G frames (blockIdx.y), the areas area_bs and the strength maps st_bs
 // elements apart; G 1 is one frame.
-extern "C" int xevd_deblock_luma_ver(void* area, int stride, int H, int W,
-                                     const void* st, int bd, int G,
-                                     long long area_bs, long long st_bs,
-                                     void* stream) {
-  const long n = (long)H * ((W >> 2) - 1);
-  if (n > 0 && G > 0)
-    luma_ver_kernel<<<dim3(blocks(n), G), DB_THREADS, 0,
-                      (cudaStream_t)stream>>>(
-        (int16_t*)area, stride, H, W, (const int32_t*)st, (1 << bd) - 1,
-        area_bs, st_bs);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int xevd_deblock_luma_hor(void* area, int stride, int H, int W,
-                                     const void* st, int bd, int G,
-                                     long long area_bs, long long st_bs,
-                                     void* stream) {
-  const long n = (long)((H >> 2) - 1) * W;
-  if (n > 0 && G > 0)
-    luma_hor_kernel<<<dim3(blocks(n), G), DB_THREADS, 0,
-                      (cudaStream_t)stream>>>(
-        (int16_t*)area, stride, H, W, (const int32_t*)st, (1 << bd) - 1,
-        area_bs, st_bs);
-  return (int)cudaGetLastError();
-}
-
 // The chroma passes take H and W even (2 x the SCU grid); a line (a
 // column) too long for DB_SMEM of staging is refused.
 extern "C" int xevd_deblock_chroma_ver(void* area, int stride, int H, int W,

@@ -46,8 +46,7 @@ SIGNATURES = {
     "xevd_intra_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _P,
                         _I, _L, _L, _P, _I, _I, _P),
     "xevd_intra_scan_grid": (_P,),
-    "xevd_deblock_luma_ver": (_P, _I, _I, _I, _P, _I, *_DB, _P),
-    "xevd_deblock_luma_hor": (_P, _I, _I, _I, _P, _I, *_DB, _P),
+    "xevd_deblock_luma": (_P, _I, _I, _I, _P, _P, _I, _I, _L, _L, _L, _P),
     "xevd_deblock_chroma_ver": (_P, _I, _I, _I, _P, _I, *_DB, _P),
     "xevd_deblock_chroma_hor": (_P, _I, _I, _I, _P, _I, *_DB, _P),
     "xevd_mc": (_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
@@ -67,10 +66,10 @@ SIGNATURES = {
 }
 
 launch_counts = {"itdq": 0, "recon": 0, "pad": 0, "intra_scan": 0,
-                 "deblock_luma_ver": 0, "deblock_luma_hor": 0,
-                 "deblock_chroma_ver": 0, "deblock_chroma_hor": 0, "mc": 0,
-                 "intra_scan_wave": 0, "chroma_ver_ordered": 0,
-                 "addb_frame": 0, "alf_frame": 0, "gop_step": 0}
+                 "deblock_luma": 0, "deblock_chroma_ver": 0,
+                 "deblock_chroma_hor": 0, "mc": 0, "intra_scan_wave": 0,
+                 "chroma_ver_ordered": 0, "addb_frame": 0, "alf_frame": 0,
+                 "gop_step": 0}
 
 _LIB = None
 build_seconds = None

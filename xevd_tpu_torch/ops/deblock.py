@@ -6,9 +6,10 @@ xevd_tpu/ops/pipeline.py:285, which sequences them).
 Every pass filters an SCU-cropped area in place (a strided view into the
 bordered picture plane).  `st` is the per-SCU strength map
 int32 [h_scu, w_scu] (0 = no edge).  CUDA tensors launch the kernels of
-csrc/deblock.cu; CPU tensors take the `*_ref` plain versions.  The four
-Baseline passes also filter the areas [G, H, W] of a GOP batch (K15) with
-strengths [G, ...], in one launch each (plain: frame by frame)."""
+csrc/deblock.cu -- both luma passes as one kernel (`deblock_luma`) --
+CPU tensors take the `*_ref` plain versions.  Luma and the chroma passes
+also filter the areas [G, H, W] of a GOP batch (K15) with strengths [G,
+...], in one launch each (plain: frame by frame)."""
 from __future__ import annotations
 
 import torch
@@ -68,6 +69,67 @@ def luma_hor_ref(area, st, bd):
                        p4[1:, 1, :], s, (1 << bd) - 1)
     p4[:-1, 2, :], p4[:-1, 3, :], p4[1:, 0, :], p4[1:, 1, :] = out
     area.copy_(p4.reshape(H, W))
+
+
+def _block_strengths(st_ver, st_hor, hs, ws, device):
+    """Per shifted 4x4 block (f, e), f <= hs, e <= ws: the strength of the
+    vertical edge on each of its four rows and of the horizontal edge on
+    each of its four columns, int32 [hs + 1, ws + 1, 4] each (0 where the
+    block has no such edge: the area's sides, or a map that is None)."""
+    rows = torch.zeros(hs + 1, ws + 1, 4, dtype=torch.int32, device=device)
+    cols = torch.zeros_like(rows)
+    if st_ver is not None:        # rows 0, 1: SCU row f - 1; 2, 3: row f
+        rows[1:, 1:ws, :2] = st_ver[:, 1:, None]
+        rows[:hs, 1:ws, 2:] = st_ver[:, 1:, None]
+    if st_hor is not None:        # columns 0, 1: SCU column e - 1; 2, 3: e
+        cols[1:hs, 1:, :2] = st_hor[1:, :, None]
+        cols[1:hs, :ws, 2:] = st_hor[1:, :, None]
+    return rows, cols
+
+
+def _filter_blocks(b, srow, scol, maxv):
+    """In place on blocks b int32 [..., 4, 4]: the vertical edge of each
+    row (strengths srow [..., 4]), then the horizontal edge of each column
+    (scol [..., 4])."""
+    b[..., 0], b[..., 1], b[..., 2], b[..., 3] = _luma_filter(
+        b[..., 0], b[..., 1], b[..., 2], b[..., 3], srow, maxv)
+    b[..., 0, :], b[..., 1, :], b[..., 2, :], b[..., 3, :] = _luma_filter(
+        b[..., 0, :], b[..., 1, :], b[..., 2, :], b[..., 3, :], scol, maxv)
+
+
+def luma_blocks_ref(area, st_ver, st_hor, bd, rng=None):
+    """K8 in the order of its kernel (csrc/deblock.cu `luma_kernel`): each
+    shifted 4x4 block (f, e), rows 4f - 2 .. 4f + 1 by columns 4e - 2 ..
+    4e + 1 clipped to the area, filtered vertical edge, then horizontal
+    edge; the blocks in raster order, eight block rows a step (blocks
+    share no sample, so a step takes them at once), or one at a time in a
+    random order drawn from `rng` (a numpy Generator).  Equal to
+    `luma_ver_ref` then `luma_hor_ref` for every order: the statement that
+    the shifted blocks are independent and closed under "ver, then hor".
+    Either map may be None (no edge of that direction); areas [G, H, W]
+    with maps [G, ...] frame by frame."""
+    if area.dim() == 3:
+        for g in range(area.shape[0]):
+            luma_blocks_ref(area[g], None if st_ver is None else st_ver[g],
+                            None if st_hor is None else st_hor[g], bd, rng)
+        return area
+    H, W = area.shape
+    hs, ws = H // 4, W // 4
+    p = torch.zeros(H + 4, W + 4, dtype=torch.int32, device=area.device)
+    p[2:H + 2, 2:W + 2] = area
+    blocks = p.view(hs + 1, 4, ws + 1, 4).permute(0, 2, 1, 3)
+    srow, scol = _block_strengths(st_ver, st_hor, hs, ws, area.device)
+    maxv = (1 << bd) - 1
+    if rng is None:
+        for f in range(0, hs + 1, 8):
+            _filter_blocks(blocks[f:f + 8], srow[f:f + 8], scol[f:f + 8],
+                           maxv)
+    else:
+        for k in rng.permutation((hs + 1) * (ws + 1)).tolist():
+            f, e = divmod(k, ws + 1)
+            _filter_blocks(blocks[f, e], srow[f, e], scol[f, e], maxv)
+    area.copy_(p[2:H + 2, 2:W + 2])
+    return area
 
 
 def chroma_ver_ref(area, st, bd):
@@ -132,8 +194,6 @@ def chroma_runs_ref(kind, area, st, bd, rng=None):
 
 _REFS = {"luma_ver": luma_ver_ref, "luma_hor": luma_hor_ref,
          "chroma_ver": chroma_ver_ref, "chroma_hor": chroma_hor_ref}
-# SCU size in samples of the plane each pass filters
-_SCU = {"luma_ver": 4, "luma_hor": 4, "chroma_ver": 2, "chroma_hor": 2}
 
 
 def deblock_pass_ref(kind: str, area: torch.Tensor, st: torch.Tensor,
@@ -152,11 +212,17 @@ def deblock_pass(kind: str, area: torch.Tensor, st: torch.Tensor, bd: int):
     """One pass ("luma_ver", "luma_hor", "chroma_ver", "chroma_hor") in
     place on `area` [H, W] int16 with strengths `st` [H/u, W/u] (u = 4
     luma, 2 chroma), or on the areas [G, H, W] of a GOP batch with
-    strengths [G, H/u, W/u] (each map's rows contiguous)."""
-    u = _SCU[kind]
+    strengths [G, H/u, W/u] (each map's rows contiguous).  A luma pass on
+    the card is `deblock_luma` with the other map absent."""
+    if kind == "luma_ver":
+        return deblock_luma(area, st, None, bd)
+    if kind == "luma_hor":
+        return deblock_luma(area, None, st, bd)
+    if kind not in ("chroma_ver", "chroma_hor"):
+        raise ValueError(f"deblock pass {kind!r}")
     H, W = area.shape[-2:]
     lead = tuple(area.shape[:-2])
-    if tuple(st.shape) != lead + (H // u, W // u) or H % u or W % u \
+    if tuple(st.shape) != lead + (H // 2, W // 2) or H % 2 or W % 2 \
             or len(lead) > 1:
         raise ValueError(f"deblock {kind}: area {tuple(area.shape)} does not "
                          f"match strength map {tuple(st.shape)}")
@@ -165,7 +231,7 @@ def deblock_pass(kind: str, area: torch.Tensor, st: torch.Tensor, bd: int):
     nd = area.dim()
     K.require(area, torch.int16, nd, rows_contiguous=True)
     K.require(st, torch.int32, nd)
-    if st.stride()[-2:] != (W // u, 1):
+    if st.stride()[-2:] != (W // 2, 1):
         raise ValueError(f"deblock {kind}: strength map rows not contiguous")
     G = lead[0] if lead else 1
     fn = getattr(K.lib(), f"xevd_deblock_{kind}")
@@ -174,6 +240,53 @@ def deblock_pass(kind: str, area: torch.Tensor, st: torch.Tensor, bd: int):
              area.stride(0) if lead else 0, st.stride(0) if lead else 0,
              K.stream_ptr(area.device))
     K.check(err, f"xevd_deblock_{kind}")
+    return area
+
+
+def deblock_luma(area, st_ver, st_hor, bd):
+    """K8: both luma passes (vertical edges, then horizontal) in place on
+    `area` [H, W] int16 with the per-SCU strength maps st_ver, st_hor
+    int32 [H/4, W/4], or on the areas [G, H, W] of a GOP batch with maps
+    [G, H/4, W/4] (each map's rows contiguous); either map may be None (no
+    edge of that direction).  CUDA tensors: one launch of csrc/deblock.cu
+    `luma_kernel`, which reads the area as aligned 32-bit words -- an area
+    that is not 4-byte aligned with an even row pitch (and batch stride)
+    raises; CPU tensors: `luma_ver_ref`, then `luma_hor_ref`."""
+    H, W = area.shape[-2:]
+    lead = tuple(area.shape[:-2])
+    maps = [m for m in (st_ver, st_hor) if m is not None]
+    if not maps or len(lead) > 1 or H % 4 or W % 4 or any(
+            tuple(m.shape) != lead + (H // 4, W // 4) for m in maps):
+        raise ValueError(f"deblock_luma: area {tuple(area.shape)} does not "
+                         f"match strength maps "
+                         f"{[tuple(m.shape) for m in maps]}")
+    if area.device.type == "cpu":
+        for kind, st in (("luma_ver", st_ver), ("luma_hor", st_hor)):
+            if st is not None:
+                deblock_pass_ref(kind, area, st, bd)
+        return area
+    nd = area.dim()
+    K.require(area, torch.int16, nd, rows_contiguous=True)
+    for m in maps:
+        K.require(m, torch.int32, nd)
+        if m.stride()[-2:] != (W // 4, 1):
+            raise ValueError("deblock_luma: strength map rows not contiguous")
+    if area.data_ptr() % 4 or area.stride(-2) % 2 or (
+            lead and area.stride(0) % 2):
+        raise ValueError(f"deblock_luma: the area must be 4-byte aligned "
+                         f"with an even row pitch (pitch "
+                         f"{area.stride(-2)}, address {area.data_ptr():#x})")
+    G = lead[0] if lead else 1
+
+    def arg(m):
+        return (None, 0) if m is None else (m.data_ptr(),
+                                            m.stride(0) if lead else 0)
+    (pv, bv), (ph, bh) = arg(st_ver), arg(st_hor)
+    K.count("deblock_luma")
+    err = K.lib().xevd_deblock_luma(
+        area.data_ptr(), area.stride(-2), H, W, pv, ph, bd, G,
+        area.stride(0) if lead else 0, bv, bh, K.stream_ptr(area.device))
+    K.check(err, "xevd_deblock_luma")
     return area
 
 
@@ -290,8 +403,10 @@ def chroma_ver_ordered(u, v, row_off, edges, bd, runs=None):
 
 
 def deblock_frame(y_area, u_area, v_area, st, bd, suco=None):
-    """K12: the passes in reference order -- luma ver, chroma ver (u, v),
-    luma hor, chroma hor (u, v) (ref: xevd_tpu/ops/pipeline.py:299-309).
+    """K12: luma (both passes, `deblock_luma`), chroma ver (u, v), chroma
+    hor (u, v).  The reference order (xevd_tpu/ops/pipeline.py:299-309)
+    runs luma ver, chroma ver, luma hor, chroma hor; chroma ver touches
+    only U and V, so luma hor may run before it.
     st: int32 [6, h_scu, w_scu] = ver_y, hor_y, ver_u, hor_u, ver_v, hor_v.
     suco: (row_off, edges, runs) of a SUCO frame's chroma vertical edges
     (ops/pack.py `chroma_ver_edges`, `suco_runs`), which then run in that
@@ -301,14 +416,13 @@ def deblock_frame(y_area, u_area, v_area, st, bd, suco=None):
     if st.dim() == 4 and suco is not None:
         raise ValueError("deblock_frame: no SUCO order in a GOP batch")
     m = st.movedim(-3, 0)           # the six maps first, batch or not
-    deblock_pass("luma_ver", y_area, m[0], bd)
+    deblock_luma(y_area, m[0], m[1], bd)
     if u_area is not None and suco is not None:
         row_off, edges, runs = suco
         chroma_ver_ordered(u_area, v_area, row_off, edges, bd, runs=runs)
     elif u_area is not None:
         deblock_pass("chroma_ver", u_area, m[2], bd)
         deblock_pass("chroma_ver", v_area, m[4], bd)
-    deblock_pass("luma_hor", y_area, m[1], bd)
     if u_area is not None:
         deblock_pass("chroma_hor", u_area, m[3], bd)
         deblock_pass("chroma_hor", v_area, m[5], bd)
