@@ -42,7 +42,9 @@
    scans are persistent dataflow kernels: each of their cases, here and in
    steps 4 and 5, runs the plain version once and the kernel 20 times from
    the same inputs, every launch equal (a race shows as a difference between
-   launches).
+   launches).  Then the graft entry's step (xevd_tpu_torch/entry.py: ITDQ,
+   recon and K8 on a 128x128 picture, one launch each) on the card, equal
+   to its plain versions' on the CPU.
 4. Slice phase: nine streams are decoded with Decoder(backend=
    TorchPixelBackend("cuda")); each 10-bit YUV must equal the numpy
    oracle's: 1920x1080 Baseline all-intra (2 frames), 352x288 10-bit
@@ -107,7 +109,12 @@
    writes the streams; captured here): every batched kernel held on step
    1 at G = 8 and G = 1 (MC in 10 launches, timed), every MD5 of the
    batch equal to the oracle's.
-6. Prints each scan case's time with the DAG depth (K5) or level count
+6. Bench phase, once every worker has ended: the benchmark's functions
+   (xevd_tpu_torch/bench.py) with two timed runs on the 1080p IPPP and
+   config-3 streams (its configs 2 and 3, cut as above) and the 8 1080p
+   GOPs, every decode held to the oracle's frame MD5s; bench.py's keys are
+   checked and the report logged with the phase's seconds.
+7. Prints each scan case's time with the DAG depth (K5) or level count
    (K6) of its frame and the persistent grids, then {"kernels": [...]}
    (launches from the config-3 path; the Baseline intra scan's and
    deblock's from the IPPP path, the SUCO order's from the SUCO path, the
@@ -914,6 +921,11 @@ def decode_to_yuv(data: bytes, backend, out: Path) -> int:
     return n
 
 
+# the stage marks timed by the host clock: the pack, and the upload, whose
+# pageable copies wait for the card (ops/pipeline.py STAGES)
+HOST_STAGES = ("pack", "upload")
+
+
 def counted_run(torch, K, backend, name, reps, marks, stages):
     """Decode stream `name` `reps` times through the main path with the
     launch counters reset just before; each run's output must equal the
@@ -939,17 +951,19 @@ def counted_run(torch, K, backend, name, reps, marks, stages):
             if stage == "start":
                 continue
             _, prev_ev, prev_t = marks[i - 1]
-            stage_ms[stage] += ((t - prev_t) * 1e3 if stage == "pack"
+            stage_ms[stage] += ((t - prev_t) * 1e3 if stage in HOST_STAGES
                                 else prev_ev.elapsed_time(ev))
         stage_ms = {k: v / n for k, v in stage_ms.items()}
-        device_ms = sum(v for k, v in stage_ms.items() if k != "pack")
+        device_ms = sum(v for k, v in stage_ms.items()
+                        if k not in HOST_STAGES)
         runs.append(n / wall)
         log(f"  {name} timed run {rep}: {n} frames in {wall:.4f} s = "
             f"{n / wall:.3f} frames/s (host entropy + pack + device + 10-bit "
             f"write); device stages {device_ms:.3f} of {wall * 1e3 / n:.3f} "
             f"ms a frame ({100 * device_ms * n / (wall * 1e3):.1f} %)")
-        log("    per frame, ms (pack: host clock incl. copies; others: CUDA "
-            "events between stage marks): " +
+        log("    per frame, ms (pack, upload: host clock, the upload its "
+            "two pageable copies; others: CUDA events between stage "
+            "marks): " +
             ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items()))
     counts = dict(K.launch_counts)
     log(f"  launch counts during the {name} runs: {counts}")
@@ -1092,10 +1106,10 @@ def slice_phase(torch, dev, K, results, prepared):
 
 def device_ms(marks):
     """Device milliseconds between the stage marks of decodes (CUDA events;
-    pack, host work, left out)."""
+    the pack and the upload's pageable copies, host work, left out)."""
     return sum(marks[i - 1][1].elapsed_time(ev)
                for i, (stage, ev, _) in enumerate(marks)
-               if stage not in ("start", "pack"))
+               if stage not in ("start",) + HOST_STAGES)
 
 
 def big_gop_phase(torch, dev, K, results, worker):
@@ -1317,6 +1331,62 @@ def gop_phase(torch, dev, K, results, workers):
     return counts, fps, {"batched": stats, "serial": serial}
 
 
+def entry_phase(torch, K):
+    """The graft entry (xevd_tpu_torch/entry.py): its step on the card --
+    ITDQ, recon and K8, one launch each -- equal to its plain versions' on
+    the CPU."""
+    from xevd_tpu_torch.entry import entry
+    fn, args = entry("cuda")
+    names = ("itdq", "recon", "deblock_luma")
+    before = {k: K.launch_counts[k] for k in names}
+    got = fn(*args).cpu()
+    launches = {k: K.launch_counts[k] - before[k] for k in names}
+    fn_c, args_c = entry("cpu")
+    if launches != dict.fromkeys(names, 1) or not torch.equal(
+            got, fn_c(*args_c)):
+        raise AssertionError(f"entry('cuda') != entry('cpu') or launches "
+                             f"{launches}")
+    log(f"phase entry: entry('cuda') step equal to entry('cpu'), "
+        f"{tuple(got.shape)}; launches {launches}")
+
+
+def bench_phase(torch, dev):
+    """The port's benchmark functions (xevd_tpu_torch/bench.py), two timed
+    runs each, once every worker has ended: the 1080p IPPP and config-3
+    streams (as its configs 2 and 3) against their oracle MD5s, and the 8
+    1080p GOPs; every decode equal to the oracle (the functions raise
+    otherwise), and bench.py's keys in the report, which is logged.
+    Returns the phase's seconds."""
+    from xevd_tpu_torch import bench as B
+    t0 = time.perf_counter()
+    configs = {}
+    for key, name in (("c2", "1080p_p"), ("c3", MAIN_PATH)):
+        w, h = STREAMS[name][:2]
+        md5s = B.yuv_md5s((WORK / f"{name}_np.yuv").read_bytes(), w, h)
+        configs[key] = B.run_config(
+            (STREAM_DIR / f"torch_smoke_{name}.evc").read_bytes(), md5s, dev,
+            runs=2)
+    caps = [pickle.loads((WORK / f"gop{g}.pkl").read_bytes())
+            for g in range(len(GOP_SPECS))]
+    gop = B.run_gop(caps, [dev], runs=2)
+    out = B.report(configs, gop, card=gpu_line())
+    missing = [k for k in B.KEYS if k not in out]
+    empty = [k for k in B.KEYS if out[k] is None
+             and not k.startswith(("vs_", "ref_"))]
+    if missing or empty or out["device"] != "cuda" or \
+            len(out["value_runs"]) != 2 or len(gop["fps_runs"]) != 2:
+        raise AssertionError(f"bench report: keys missing {missing}, empty "
+                             f"{empty}")
+    seconds = time.perf_counter() - t0
+    log(json.dumps(out))
+    log(f"phase bench: configs 2 and 3 (the smoke's streams) and the GOP "
+        f"batch, 2 timed runs each, every frame equal to the oracle; "
+        f"frames/s c2 {out['value_runs']}, c3 {out['fps_main_runs']}, GOP "
+        f"{gop['fps_runs']}; busy share c3 "
+        f"{configs['c3']['traced']['busy_share']}; {seconds:.1f} s")
+    return seconds
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1348,10 +1418,12 @@ def main() -> int:
 
         results = {}
         kernel_phases(torch, dev, results)
+        entry_phase(torch, K)
         runs = slice_phase(torch, dev, K, results, prepared)
         runs["gop"] = gop_phase(torch, dev, K, results, gop_workers)
         big_gop = big_gop_phase(torch, dev, K, results, big_gop_worker)
         main_gop = main_gop_phase(torch, dev, K, results, main_gop_worker)
+        bench_s = bench_phase(torch, dev)
     finally:
         for p in (list(prepared.values()) + gop_workers
                   + [big_gop_worker, main_gop_worker]):
@@ -1395,6 +1467,7 @@ def main() -> int:
             f"{json.dumps(stage_ms, default=str)}")
     log(f"GOP batch past 32 ring pictures: {json.dumps(big_gop)}")
     log(f"GOP batch with the Main taps: {json.dumps(main_gop)}")
+    log(f"bench phase {bench_s:.1f} s")
     log(f"total smoke time {time.perf_counter() - t_start:.1f} s")
     log(gpu_line())
     print(json.dumps({"kernels": kernels}))

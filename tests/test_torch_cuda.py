@@ -487,3 +487,17 @@ def test_wrappers_refuse_cpu_operands_mixed_with_cuda(dev):
                                             device=dev),
                      torch.zeros(7, dtype=torch.int32, device=dev), on.cpu(),
                      16, 32, ((True, False, False), 6, True), 8)
+
+
+def test_entry_step_equals_plain(dev):
+    """The graft entry's step on the card (ITDQ, recon and K8 kernels, one
+    launch each) equals its plain versions' on the CPU, byte for byte."""
+    from xevd_tpu_torch.entry import entry
+    fn, args = entry(str(dev))
+    before = {k: K.launch_counts[k] for k in ("itdq", "recon",
+                                              "deblock_luma")}
+    got = fn(*args).cpu()
+    assert {k: K.launch_counts[k] - n for k, n in before.items()} == {
+        "itdq": 1, "recon": 1, "deblock_luma": 1}
+    fn_c, args_c = entry("cpu")
+    assert torch.equal(got, fn_c(*args_c))

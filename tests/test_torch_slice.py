@@ -173,21 +173,24 @@ import xevd_tpu_torch
 for m in pkgutil.walk_packages(xevd_tpu_torch.__path__, "xevd_tpu_torch."):
     importlib.import_module(m.name)
 import xevd_tpu_torch.app, xevd_tpu_torch.profile, tests.torch_helpers
+import xevd_tpu_torch.bench, xevd_tpu_torch.diff, xevd_tpu_torch.entry
 import chip_smoke
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "xevd_tpu")]
 assert not bad, bad
 assert "xevd_tpu_torch.host.decoder" in sys.modules
-assert {"xevd_tpu_torch.parallel.gop", "xevd_tpu_torch.native_build"} <= set(
-    sys.modules)
+assert {"xevd_tpu_torch.parallel.gop", "xevd_tpu_torch.native_build",
+        "xevd_tpu_torch.bench", "xevd_tpu_torch.diff",
+        "xevd_tpu_torch.entry"} <= set(sys.modules)
 print(len([m for m in sys.modules if m.startswith("xevd_tpu_torch.")]))
 """
 
 
 def test_import_leaves_jax_out():
     """In a fresh interpreter (this one has jax loaded by conftest), the
-    port with every submodule, its CLI and profile tool, the shared test
-    helpers and chip_smoke.py (imported, not run) load neither JAX nor any
-    module of `xevd_tpu`: the port runs on its own host copy."""
+    port with every submodule, its CLI, profile tool, benchmark, diff tool
+    and graft entry, the shared test helpers and chip_smoke.py (imported,
+    not run) load neither JAX nor any module of `xevd_tpu`: the port runs
+    on its own host copy."""
     r = subprocess.run([sys.executable, "-c", _CUT_LOOSE], cwd=REPO,
                        capture_output=True, text=True)
     assert r.returncode == 0, r.stderr

@@ -21,7 +21,13 @@ would.  It needs no JAX.
 
 With --streams, SPECS is a JSON list of SPECs: the worker writes stream i
 to OUT_DIR/<i>.evc (kept when it exists), all in one process, and prints
-{"streams", "gen_s"}."""
+{"streams", "gen_s"}.
+
+    python tests/torch_reference.py --decode IN_EVC OUT_YUV
+
+decodes an existing stream with the numpy oracle to 10-bit YUV (the
+oracle side of `python -m xevd_tpu_torch.diff`) and prints {"bytes",
+"numpy_s"}."""
 from __future__ import annotations
 
 import json
@@ -47,9 +53,28 @@ def write_stream(spec, evc: Path):
     tmp.replace(evc)
 
 
+def numpy_decode(evc: Path, yuv: Path) -> float:
+    """Decode `evc` with xevd_tpu's numpy oracle backend to 10-bit YUV in
+    `yuv`; returns the seconds it took."""
+    from tests.torch_helpers import use_port_native_library
+    from xevd_tpu.app import main as xevd_main
+    use_port_native_library()
+    t0 = time.perf_counter()
+    rc = xevd_main(["-i", str(evc), "-o", str(yuv), "--output-bit-depth",
+                    "10", "-v", "0", "--backend", "numpy"])
+    if rc != 0:
+        raise RuntimeError(f"numpy oracle decode of {evc} failed: rc {rc}")
+    return time.perf_counter() - t0
+
+
 def main(argv) -> int:
     sys.path.insert(0, str(REPO))
     sys.path.insert(0, str(REPO / "tools"))
+    if argv[0] == "--decode":
+        yuv = Path(argv[2])
+        t_np = numpy_decode(Path(argv[1]), yuv)
+        print(json.dumps({"bytes": yuv.stat().st_size, "numpy_s": t_np}))
+        return 0
     if argv[0] == "--streams":
         specs, out = json.loads(argv[1]), Path(argv[2])
         t0 = time.perf_counter()
@@ -67,16 +92,7 @@ def main(argv) -> int:
     if yuv is None:
         print(json.dumps({"frames": None, "gen_s": t_gen, "numpy_s": None}))
         return 0
-    from tests.torch_helpers import use_port_native_library
-    from xevd_tpu.app import main as xevd_main
-    use_port_native_library()
-    t0 = time.perf_counter()
-    rc = xevd_main(["-i", str(evc), "-o", str(yuv), "--output-bit-depth",
-                    "10", "-v", "0", "--backend", "numpy"])
-    t_np = time.perf_counter() - t0
-    if rc != 0:
-        print(f"numpy oracle decode failed: rc {rc}", file=sys.stderr)
-        return 1
+    t_np = numpy_decode(evc, yuv)
     frames = yuv.stat().st_size // (w * h * 3)    # 4:2:0, 2 bytes a sample
     print(json.dumps({"frames": frames, "gen_s": t_gen, "numpy_s": t_np}))
     return 0

@@ -1,0 +1,664 @@
+"""The port's benchmark: decoded frames/s of `Decoder(backend=
+TorchPixelBackend(device))` on bench.py's 1080p configs 2 and 3 and of the
+GOP batch, every timed frame held to the numpy oracle, with the host's
+time split apart.  The counterpart of bench.py:80-219.
+
+    python -m xevd_tpu_torch.bench [--device cuda|cpu] [--runs N]
+        [--only c2,c3,gop]
+
+Run it alone, on a host where nothing else has started: the frames/s are
+host-bound.  It prints one JSON object as its last line, with bench.py's
+keys (`value` and `fps_main_1080p_ra` the median of the runs) and the
+card's name and power limit.
+
+Streams.  Config 2 is bench.py's 1080p Baseline IPPP stream (16 frames,
+bench.py:22), config 3 its 1080p Main RA stream with the 14 tools
+(9 frames, bench.py:28-31), the GOP batch chip_smoke.py's 8 1080p IPPP
+GOPs.  `tests/torch_reference.py`, run as a program of its own, writes
+each stream (tools/evc_enc, seeded) under tests/fixtures/torch_bench_*.evc
+and decodes it with `xevd_tpu`'s numpy oracle backend; the oracle's
+per-frame MD5s are kept beside the stream (.md5.json).  Each GOP is
+generated and then captured (`python -m xevd_tpu_torch.parallel.gop
+--capture`: the serial oracle decode with each frame's pack) under
+build/bench/.  All of it runs in parallel worker processes, once, and is
+cached; no timed run starts before every worker has exited.
+
+A config runs one warm-up decode, `runs` timed decodes, one decode with
+the host split and one under torch.profiler.  A decode feeds the stream
+NAL by NAL, as bench.py does, and brings every output frame's Y, U and V
+to the host as numpy arrays (the D2H copy a user pays for) behind the
+CLI's lookahead (app.py `LOOKAHEAD_DEPTH`).  The card is synchronised
+before each clock starts and before it stops.  Every decode is held frame
+by frame to the oracle's MD5s after its clock stops: a difference raises
+`OracleMismatch` before any number is printed.
+
+The host split (one more decode, checked, not part of `value`): entropy
+(`host/native.py` `decode_slice_native`, or `decode_slice_native_main`),
+derive (`host/derive.py` `job_from_native`, or `derive_frame_native_main`),
+the pack and the two H2D copies by the host clock between the backend's
+stage marks, the copies' and every device stage's time by CUDA events at
+the marks (`ops/pipeline.py` STAGES; an interval also holds the host's gaps
+between launches), and the output's D2H copies after a synchronise (the
+wait for the card apart).  Entropy runs on the decoder's worker thread
+beside pack and dispatch, so the shares overlap and do not add up to the
+wall.  The device's busy share comes from the traced decode, read by
+`profile.device_activity`.
+
+The GOP batch: `runs` timed `decode_gops_sharded` calls on the captures
+(frames/s from the first upload to the last output), each frame's MD5 held
+to the serial oracle's, then one call with each step's upload (host clock
+and events), `run_frames_device` (events) and output copies (events) timed
+apart.
+
+`--device cpu` runs the plain PyTorch versions on the CPU, for the tests;
+its JSON says "device": "cpu" and holds no device time.  Reference frames/s
+(`vs_baseline`, ...) are measured only where refbin/ holds the reference
+decoders (bench.py's recipe); else they are null.  Nothing is fetched."""
+from __future__ import annotations
+
+import argparse
+import collections
+import contextlib
+import hashlib
+import json
+import os
+import pickle
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .app import LOOKAHEAD_DEPTH
+from .device import resolve_device
+from .host import Decoder
+from .host import derive as host_derive
+from .host.decoder import _LazyPlane
+from .host import native as host_native
+from .ops.pipeline import STAGES, TorchPixelBackend
+from .parallel import gop as TG
+from .profile import device_activity
+
+REPO = Path(__file__).resolve().parent.parent
+FIXTURES = REPO / "tests" / "fixtures"      # gitignored stream cache
+WORK = REPO / "build" / "bench"             # gitignored
+REFERENCE = REPO / "tests" / "torch_reference.py"
+RUNS = 5
+# bench.py's config-3 tools (bench.py:28-30)
+MAIN_TOOLS = ("eipd", "cm_init", "btt", "suco", "adcc", "admvp", "hmvp",
+              "mmvd", "amvr", "iqt", "ats", "addb", "htdf", "alf")
+# tools/evc_enc.encode_stream arguments (w, h, frames, qp, seed, gop,
+# density, bd, profile, tools, intra_frac), as bench.py calls it
+CONFIGS = {
+    "c2": (1920, 1080, 16, 32, 777, "IPPP", 0.3, 8, 0, (), 0.35),
+    "c3": (1920, 1080, 9, 32, 779, "RA", 0.3, 8, 1, MAIN_TOOLS, 0.1),
+}
+# chip_smoke.py GOP_SPECS: xevd_tpu/parallel/gop.py gen_gop_streams(8, 1920,
+# 1080, frames=2, qp=30, variable=True), 2 + g % 3 frames each
+GOP_SPECS = [(1920, 1080, 2 + g % 3, 30, 1000 + 7 * g, "IPPP", 0.5, 8, 0,
+              (), 0.35) for g in range(8)]
+# bench.py's keys, every one in the last line
+KEYS = ("metric", "value", "unit", "vs_baseline", "ref_fps_best", "frames",
+        "total_ms_per_frame", "host_ms_per_frame", "entropy_ms_per_frame",
+        "pack_ms_per_frame", "fps_main_1080p_ra", "ref_fps_main_best",
+        "vs_ref_main", "frames_main")
+OVERLAP = ("entropy runs on the decoder's worker thread beside pack and "
+           "dispatch: the shares overlap and do not add up to the wall")
+
+
+class OracleMismatch(AssertionError):
+    """A decoded frame differs from the numpy oracle's."""
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def nvidia_smi(query: str) -> str:
+    """The first card's answer to `nvidia-smi --query-gpu=QUERY`."""
+    r = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60, check=True)
+    return r.stdout.strip().splitlines()[0]
+
+
+def _smi_sample(dev) -> str | None:
+    return (nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")
+            if dev.type == "cuda" else None)
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def frame_md5(planes) -> str:
+    """MD5 of a frame's planes as the 10-bit YUV writer writes them
+    (uint16 LE samples, Y then U then V)."""
+    m = hashlib.md5()
+    for p in planes:
+        if p is not None:
+            m.update(np.ascontiguousarray(np.asarray(p).astype("<u2"))
+                     .tobytes())
+    return m.hexdigest()
+
+
+def yuv_md5s(yuv: bytes, w: int, h: int, chroma: bool = True) -> list[str]:
+    """Per-frame MD5s of a 10-bit 4:2:0 (or 4:0:0) YUV file's bytes."""
+    fsz = w * h * (3 if chroma else 2)
+    if len(yuv) % fsz:
+        raise ValueError(f"{len(yuv)} B is not a whole number of {w}x{h} "
+                         "frames")
+    return [hashlib.md5(yuv[i:i + fsz]).hexdigest()
+            for i in range(0, len(yuv), fsz)]
+
+
+def check_frames(frames, md5s, what):
+    """Raise OracleMismatch unless the frames' MD5s equal the oracle's."""
+    got = [frame_md5(f) for f in frames]
+    if len(got) != len(md5s):
+        raise OracleMismatch(f"{what}: {len(got)} frames decoded, the oracle "
+                             f"has {len(md5s)}")
+    bad = [i for i, (a, b) in enumerate(zip(got, md5s)) if a != b]
+    if bad:
+        raise OracleMismatch(f"{what}: frames {bad} differ from the numpy "
+                             "oracle")
+
+
+class StageMarks:
+    """The `on_stage` callback: (name, CUDA event or None, host clock) a
+    mark; events only on a CUDA device."""
+
+    def __init__(self, dev):
+        self.cuda = dev.type == "cuda"
+        self.marks = []
+
+    def __call__(self, name):
+        ev = None
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+        self.marks.append((name, ev, time.perf_counter()))
+
+    def intervals(self):
+        """(name, host ms, device ms or None) of each interval that ends at
+        a mark other than "start"."""
+        return [(name, (t - pt) * 1e3,
+                 pev.elapsed_time(ev) if self.cuda else None)
+                for (_, pev, pt), (name, ev, t) in zip(self.marks,
+                                                       self.marks[1:])
+                if name != "start"]
+
+
+class _Timer:
+    """Wraps a module function, adding each call's host seconds to
+    `total`."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.orig = getattr(module, name)
+        self.total = 0.0
+
+    def __call__(self, *a, **k):
+        t0 = time.perf_counter()
+        try:
+            return self.orig(*a, **k)
+        finally:
+            self.total += time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _timed_host_calls():
+    """Times the entropy and derive entry points the decoder imports at
+    call time (host/decoder.py:699-757) while the block runs."""
+    timers = {
+        "entropy": [_Timer(host_native, "decode_slice_native"),
+                    _Timer(host_native, "decode_slice_native_main")],
+        "derive": [_Timer(host_derive, "job_from_native"),
+                   _Timer(host_native, "derive_frame_native_main")]}
+    for ts in timers.values():
+        for t in ts:
+            setattr(t.module, t.name, t)
+    try:
+        yield timers
+    finally:
+        for ts in timers.values():
+            for t in ts:
+                setattr(t.module, t.name, t.orig)
+
+
+def _release(dec):
+    """Finish a decoder's deferred frame and end its entropy thread, so
+    that nothing of one decode runs into the next one's clock."""
+    dec._drain_pipeline()
+    if dec._entropy_pool is not None:
+        dec._entropy_pool.shutdown(wait=True)
+        dec._entropy_pool = None
+
+
+def decode(data: bytes, backend, on_output=None):
+    """Decode a length-prefixed NAL unit stream through `Decoder`, NAL by
+    NAL (bench.py:135-155); every output frame's planes reach the host as
+    numpy arrays, LOOKAHEAD_DEPTH frames behind the decoder (the CLI's
+    order: reading a frame that is still deferred runs its pack and
+    dispatch).  `on_output(frame)`, if given, does the read instead.
+    Returns ([(y, u, v) per frame], host seconds inside `Decoder.decode`,
+    the decoder's entropy engine)."""
+    read = on_output or (lambda f: tuple(
+        None if p is None else np.asarray(p) for p in (f.y, f.u, f.v)))
+    dec = Decoder(backend=backend)
+    pending, frames, host = collections.deque(), [], 0.0
+    try:
+        for nalu in TG._nalu_walk(data):
+            t0 = time.perf_counter()
+            stat = dec.decode(nalu)
+            host += time.perf_counter() - t0
+            if stat.fnum >= 0:
+                f, _ = dec.pull()
+                if f is not None:
+                    pending.append(f)
+                    if len(pending) > LOOKAHEAD_DEPTH:
+                        frames.append(read(pending.popleft()))
+        while True:
+            f, _ = dec.pull()
+            if f is None:
+                break
+            pending.append(f)
+        frames.extend(read(f) for f in pending)
+    finally:
+        _release(dec)
+    engine = "native C" if dec.use_native_entropy else "python"
+    return frames, host, engine
+
+
+def split_decode(data: bytes, md5s, dev) -> dict:
+    """One decode, checked, with the host's time split apart (ms a frame):
+    see the module docstring."""
+    marks = StageMarks(dev)
+    backend = TorchPixelBackend(device=dev, on_stage=marks)
+    wait = copy = 0.0
+
+    def read(f):
+        # a frame still deferred runs its pack and dispatch first (timed
+        # by the marks), then the card finishes what is queued before the
+        # copies (the wait), then the copies
+        nonlocal wait, copy
+        planes = [p._resolve() if isinstance(p, _LazyPlane) else p
+                  for p in (f.y, f.u, f.v)]
+        t0 = time.perf_counter()
+        _sync(dev)
+        t1 = time.perf_counter()
+        planes = tuple(None if p is None else np.asarray(p) for p in planes)
+        wait += t1 - t0
+        copy += time.perf_counter() - t1
+        return planes
+
+    with _timed_host_calls() as timers:
+        _sync(dev)
+        t0 = time.perf_counter()
+        frames, host, _ = decode(data, backend, read)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    check_frames(frames, md5s, "host-split decode")
+    n = len(frames)
+    host_ms = dict.fromkeys(STAGES, 0.0)
+    dev_ms = dict.fromkeys(STAGES, 0.0)
+    for name, h, d in marks.intervals():
+        host_ms[name] += h
+        if d is not None:
+            dev_ms[name] += d
+    cuda = dev.type == "cuda"
+    device_stages = STAGES[2:]
+    return {
+        "wall_ms": wall * 1e3 / n,
+        "decoder_host_ms": host * 1e3 / n,
+        "entropy_ms": sum(t.total for t in timers["entropy"]) * 1e3 / n,
+        "derive_ms": sum(t.total for t in timers["derive"]) * 1e3 / n,
+        "pack_ms": host_ms["pack"] / n,
+        "upload_host_ms": host_ms["upload"] / n,
+        "upload_device_ms": dev_ms["upload"] / n if cuda else None,
+        # host clock spent issuing each device stage
+        "issue_ms": {s: host_ms[s] / n for s in device_stages},
+        "device_ms": ({s: dev_ms[s] / n for s in device_stages} if cuda
+                      else None),
+        "device_stages_ms": (sum(dev_ms[s] for s in device_stages) / n
+                             if cuda else None),
+        "d2h_wait_ms": wait * 1e3 / n if cuda else None,
+        "d2h_ms": copy * 1e3 / n,
+        "note": OVERLAP,
+    }
+
+
+def traced_decode(data: bytes, md5s, dev) -> dict:
+    """One decode, checked, under torch.profiler: the device's busy share
+    of the traced wall (union of kernel, copy and memset spans,
+    `profile.device_activity`), the copies' device ms, and the device
+    time by name (the top 8)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    backend = TorchPixelBackend(device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        with torch.profiler.profile(activities=acts) as prof:
+            _sync(dev)
+            t0 = time.perf_counter()
+            frames, _, _ = decode(data, backend)
+            _sync(dev)
+            traced = (time.perf_counter() - t0) * 1e3
+        check_frames(frames, md5s, "traced decode")
+        prof.export_chrome_trace(path)
+        active, by_name = device_activity(path)
+    out = {"traced_ms": traced, "device_active_ms": None, "busy_share": None,
+           "h2d_ms": None, "d2h_ms": None, "top": None}
+    if active <= 0:
+        out["note"] = ("the profiler's trace holds no device activity on "
+                       "this machine: busy share not measured")
+        return out
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    out.update(device_active_ms=active, busy_share=active / traced,
+               h2d_ms=sum(ms for k, (ms, _) in by_name.items()
+                          if k.startswith("Memcpy HtoD")),
+               d2h_ms=sum(ms for k, (ms, _) in by_name.items()
+                          if k.startswith("Memcpy DtoH")),
+               top=[{"name": k[:80], "ms": ms, "count": c}
+                    for k, (ms, c) in top[:8]])
+    return out
+
+
+def _spread(values) -> dict:
+    med = statistics.median(values)
+    return {"median": med, "min": min(values), "max": max(values),
+            "spread": (max(values) - min(values)) / med if med else None}
+
+
+def run_config(data: bytes, md5s, device="cuda", runs=RUNS) -> dict:
+    """One config: a warm-up decode, `runs` timed decodes, the host split
+    and (on a card) the traced decode, each held to the oracle's per-frame
+    MD5s; raises OracleMismatch on any difference.  Prints nothing."""
+    dev = resolve_device(device)
+    backend = TorchPixelBackend(device=dev)
+    frames, _, engine = decode(data, backend)
+    check_frames(frames, md5s, "warm-up decode")
+    del frames
+    fps, total, host = [], [], []
+    load0, smi0 = os.getloadavg(), _smi_sample(dev)
+    for r in range(runs):
+        _sync(dev)
+        t0 = time.perf_counter()
+        frames, h, _ = decode(data, backend)
+        _sync(dev)
+        el = time.perf_counter() - t0
+        check_frames(frames, md5s, f"timed decode {r}")
+        n = len(frames)
+        del frames
+        fps.append(n / el)
+        total.append(el * 1e3 / n)
+        host.append(h * 1e3 / n)
+    load1, smi1 = os.getloadavg(), _smi_sample(dev)
+    split = split_decode(data, md5s, dev)
+    traced = traced_decode(data, md5s, dev) if dev.type == "cuda" else None
+    return {"device": dev.type, "frames": len(md5s), "entropy_engine": engine,
+            "fps_runs": fps, **{f"fps_{k}": v for k, v in
+                                _spread(fps).items()},
+            "total_ms_per_frame_runs": total,
+            "host_ms_per_frame_runs": host,
+            "loadavg_before": load0, "loadavg_after": load1,
+            "smi_before": smi0, "smi_after": smi1,
+            "split": split, "traced": traced}
+
+
+def run_gop(captures, mesh, runs=RUNS) -> dict:
+    """The GOP batch on `captures` (`parallel/gop.py` `_capture_gop`
+    results): a warm-up call, `runs` timed `decode_gops_sharded` calls and
+    one with each step's upload, `run_frames_device` and output copies
+    timed apart; every call's frame MD5s and checksum held to the serial
+    oracle's (OracleMismatch).  Prints nothing."""
+    def call(on_stage=None):
+        stats = {}
+        dmd5, smd5 = TG.decode_gops_sharded(None, mesh=mesh,
+                                            captures=captures, stats=stats,
+                                            on_stage=on_stage)
+        if dmd5 != smd5 or stats["checksum"] != stats["serial_checksum"]:
+            raise OracleMismatch("GOP batch: a frame's MD5 differs from the "
+                                 "serial numpy oracle's")
+        return stats
+
+    stats = call()
+    fps, ms = [], []
+    load0, smi0 = os.getloadavg(), _smi_sample(mesh[0])
+    for _ in range(runs):
+        s = call()
+        fps.append(s["frames"] / s["seconds"])
+        ms.append(s["seconds"] * 1e3)
+    load1, smi1 = os.getloadavg(), _smi_sample(mesh[0])
+    marks = StageMarks(mesh[0])
+    call(marks)
+    cuda = marks.cuda
+    # the marks come step by step, each step device by device
+    steps, batches = [], [b[t] for t in range(stats["steps"])
+                          for b in stats["batches"] if t < len(b)]
+    names = ("upload", "step", "output")
+    iv = marks.intervals()
+    for i, G in enumerate(batches):
+        part = {name: (h, d) for name, h, d in iv[3 * i:3 * i + 3]}
+        steps.append({"G": G, "upload_host_ms": part["upload"][0],
+                      "step_issue_ms": part["step"][0],
+                      **{f"{k}_device_ms": part[k][1] if cuda else None
+                         for k in names}})
+    return {"device": mesh[0].type, "devices": len(mesh),
+            "gops": len(captures), "frames": stats["frames"],
+            "steps": stats["steps"], "batches": stats["batches"],
+            "fps_runs": fps, **{f"fps_{k}": v for k, v in
+                                _spread(fps).items()},
+            "ms_runs": ms, "loadavg_before": load0, "loadavg_after": load1,
+            "smi_before": smi0, "smi_after": smi1, "step_split": steps,
+            "equal": True}
+
+
+def reference_fps(ref_bin: Path, stream: Path) -> float:
+    """The reference decoder's best frames/s of -m 1 and -m 8 on `stream`
+    (bench.py:70-78)."""
+    best = 0.0
+    with tempfile.TemporaryDirectory() as tmp:
+        for threads in (1, 8):
+            r = subprocess.run([str(ref_bin), "-i", str(stream), "-o",
+                                os.path.join(tmp, "ref.yuv"), "-m",
+                                str(threads)], capture_output=True, text=True,
+                               timeout=600)
+            fps = [float(line.split("=")[-1].split()[0])
+                   for line in r.stdout.splitlines() if "frames/sec" in line]
+            if r.returncode != 0 or not fps:
+                raise RuntimeError(f"reference decode failed:\n{r.stdout}\n"
+                                   f"{r.stderr}")
+            best = max(best, fps[-1])
+    return best
+
+
+def report(configs: dict, gop: dict | None, ref: dict | None = None,
+           card: str | None = None) -> dict:
+    """The last line: bench.py's keys from configs "c2" and "c3" (either
+    may be absent: its keys are null), the reference's frames/s where
+    `ref` holds them ({"c2": fps, "c3": fps}), and everything measured."""
+    ref = ref or {}
+    c2, c3 = configs.get("c2"), configs.get("c3")
+
+    def ratio(c, key):
+        return (c["fps_median"] / ref[key]) if c and ref.get(key) else None
+    first = c2 or c3 or gop or {}
+    out = {
+        "metric": "decoded_frames_per_sec_1080p_ippp",
+        "value": c2["fps_median"] if c2 else None,
+        "unit": "frames/s",
+        "vs_baseline": ratio(c2, "c2"),
+        "ref_fps_best": ref.get("c2"),
+        "frames": c2["frames"] if c2 else None,
+        "total_ms_per_frame": 1e3 / c2["fps_median"] if c2 else None,
+        "host_ms_per_frame": (statistics.median(
+            c2["host_ms_per_frame_runs"]) if c2 else None),
+        "entropy_ms_per_frame": c2["split"]["entropy_ms"] if c2 else None,
+        "pack_ms_per_frame": c2["split"]["pack_ms"] if c2 else None,
+        "fps_main_1080p_ra": c3["fps_median"] if c3 else None,
+        "ref_fps_main_best": ref.get("c3"),
+        "vs_ref_main": ratio(c3, "c3"),
+        "frames_main": c3["frames"] if c3 else None,
+        "value_runs": c2["fps_runs"] if c2 else None,
+        "value_min": c2["fps_min"] if c2 else None,
+        "value_max": c2["fps_max"] if c2 else None,
+        "fps_main_runs": c3["fps_runs"] if c3 else None,
+        "fps_main_min": c3["fps_min"] if c3 else None,
+        "fps_main_max": c3["fps_max"] if c3 else None,
+        "fps_gop": gop["fps_median"] if gop else None,
+        "device": first.get("device"),
+        "card": card,
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+        "entropy_engine": (c2 or c3 or {}).get("entropy_engine"),
+        "configs": configs,
+        "gop": gop,
+    }
+    return out
+
+
+def _run_worker(cmd, what):
+    """Start a worker process (cwd: the repo)."""
+    return (what, subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                                   stderr=subprocess.PIPE, text=True))
+
+
+def _port_digest() -> str:
+    """A digest of the port's Python sources: a GOP capture (a pickle of
+    the port's pack) is reused only by the same code."""
+    h = hashlib.sha1()
+    for p in sorted((REPO / "xevd_tpu_torch").rglob("*.py")):
+        h.update(p.relative_to(REPO).as_posix().encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:12]
+
+
+def prepare(names) -> tuple[dict, list | None, dict]:
+    """Generate (or find cached) the streams of `names` ("c2", "c3",
+    "gop") and their oracle results, every worker in parallel, and wait
+    for all of them.  Returns ({config: (stream bytes, oracle MD5s)}, the
+    GOP captures or None, {what: the workers' gen_s / numpy_s /
+    capture seconds, or "cached"})."""
+    WORK.mkdir(parents=True, exist_ok=True)
+    FIXTURES.mkdir(parents=True, exist_ok=True)
+    workers, info = [], {}
+    for name in (n for n in names if n in CONFIGS):
+        spec = json.loads(json.dumps(CONFIGS[name]))
+        evc = FIXTURES / f"torch_bench_{name}.evc"
+        md5 = evc.with_suffix(".md5.json")
+        if evc.exists() and md5.exists() and \
+                json.loads(md5.read_text())["spec"] == spec:
+            info[name] = "cached"
+            continue
+        workers.append(_run_worker(
+            [sys.executable, str(REFERENCE), json.dumps(spec), str(evc),
+             str(WORK / f"{name}_np.yuv")], name))
+    caps = None
+    if "gop" in names:
+        digest = _port_digest()
+        pkls = [WORK / f"gop{g}-{digest}.pkl" for g in range(len(GOP_SPECS))]
+        script = ('"$0" tests/torch_reference.py "$1" "$2" && '
+                  '"$0" -m xevd_tpu_torch.parallel.gop --capture "$2" "$3"')
+        for g, pkl in enumerate(pkls):
+            if pkl.exists():
+                info[f"gop{g}"] = "cached"
+                continue
+            workers.append(_run_worker(
+                ["sh", "-c", script, sys.executable,
+                 json.dumps(GOP_SPECS[g]),
+                 str(FIXTURES / f"torch_bench_gop{g}.evc"), str(pkl)],
+                f"gop{g}"))
+    failed = []
+    for what, proc in workers:          # every worker ends before any clock
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{what} (rc {proc.returncode}): {err[-2000:]}")
+            continue
+        info[what] = [json.loads(x) for x in out.splitlines()
+                      if x.startswith("{")]
+    if failed:
+        raise RuntimeError("stream workers failed:\n" + "\n".join(failed))
+    streams = {}
+    for name in (n for n in names if n in CONFIGS):
+        spec = json.loads(json.dumps(CONFIGS[name]))
+        evc = FIXTURES / f"torch_bench_{name}.evc"
+        md5 = evc.with_suffix(".md5.json")
+        if info[name] != "cached":
+            yuv = WORK / f"{name}_np.yuv"
+            md5.write_text(json.dumps({"spec": spec, "md5s": yuv_md5s(
+                yuv.read_bytes(), *spec[:2])}))
+            yuv.unlink()
+        streams[name] = (evc.read_bytes(), json.loads(md5.read_text())["md5s"])
+    if "gop" in names:
+        # the pickles are this program's own workers' output
+        caps = [pickle.loads(p.read_bytes()) for p in pkls]
+        short = [g for g, c in enumerate(caps) if len(c) != GOP_SPECS[g][2]]
+        if short:
+            raise RuntimeError(f"GOP captures {short}: fewer frames than "
+                               "encoded")
+    return streams, caps, info
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m xevd_tpu_torch.bench")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="cuda: the hand-written kernels; cpu: the plain "
+                    "PyTorch versions (tests)")
+    ap.add_argument("--runs", type=int, default=RUNS,
+                    help="timed decodes a config (default %(default)s)")
+    ap.add_argument("--only", default="c2,c3,gop",
+                    help="comma list of c2, c3, gop (default all)")
+    a = ap.parse_args(argv)
+    names = [n for n in a.only.split(",") if n]
+    if not names or set(names) - {"c2", "c3", "gop"} or a.runs < 1:
+        ap.error("--only takes c2, c3 and gop; --runs at least 1")
+    dev = resolve_device(a.device)      # no card: raises before any work
+    card = nvidia_smi("name,power.limit") if dev.type == "cuda" else None
+    if card:
+        log(card)
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device "
+        f"{dev}, native entropy engine: {host_native.available()}")
+    t0 = time.perf_counter()
+    streams, caps, info = prepare(names)
+    log(f"streams ready in {time.perf_counter() - t0:.1f} s (workers: "
+        f"{json.dumps(info)}); every worker has exited")
+    load0 = os.getloadavg()
+    configs = {name: run_config(*streams[name], dev, a.runs)
+               for name in names if name in CONFIGS}
+    gop = run_gop(caps, [dev], a.runs) if caps is not None else None
+    load1 = os.getloadavg()
+    ref = {}
+    for name, binary in (("c2", "xevdb_app"), ("c3", "xevd_app")):
+        ref_bin = REPO / "refbin" / binary
+        if name in configs and ref_bin.exists():
+            ref[name] = reference_fps(ref_bin, FIXTURES /
+                                      f"torch_bench_{name}.evc")
+    out = report(configs, gop, ref, card)
+    out.update(loadavg_before=load0, loadavg_after=load1, workers=info)
+    # every decode has been held to the oracle: the numbers may be shown
+    for name, c in configs.items():
+        s = c["split"]
+        log(f"{name}: {c['frames']} frames, frames/s runs "
+            f"{[round(f, 3) for f in c['fps_runs']]} (median "
+            f"{c['fps_median']:.3f}, spread {c['fps_spread']:.3f}); split "
+            f"ms a frame: entropy {s['entropy_ms']:.3f}, derive "
+            f"{s['derive_ms']:.3f}, pack {s['pack_ms']:.3f}, upload host "
+            f"{s['upload_host_ms']:.3f}, D2H {s['d2h_ms']:.3f}; busy share "
+            f"{(c['traced'] or {}).get('busy_share')}")
+    if gop:
+        log(f"gop: {gop['frames']} frames in {gop['steps']} steps, frames/s "
+            f"runs {[round(f, 3) for f in gop['fps_runs']]}")
+    if card:
+        log(nvidia_smi("name,power.limit"))
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

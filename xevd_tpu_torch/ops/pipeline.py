@@ -53,7 +53,7 @@ from .mc import DpbRing, mc_all
 from .recon import pad_picture, recon
 from .tables import BORDER, device_tables
 
-STAGES = ("pack", "itdq", "mc", "recon", "intra", "deblock", "alf", "pad")
+STAGES = ("pack", "upload", "itdq", "mc", "recon", "intra", "deblock", "alf", "pad")
 
 
 def residuals_and_recon(df: PK.DeviceFrame, tables: dict, mark=None):
@@ -211,7 +211,8 @@ class TorchPixelBackend:
 
     device: "cuda" (kernels) or "cpu" (plain PyTorch versions; tests).
     on_stage: optional callback, called with "start" when a frame begins
-    and with each name of STAGES when that stage has been issued."""
+    and with each name of STAGES when that stage has been issued ("pack"
+    after the host pack, "upload" after its two host->device copies)."""
 
     name = "torch"
     device_resident = True
@@ -256,8 +257,10 @@ class TorchPixelBackend:
     def decode_frame(self, job, sps, refp):
         mark = self.on_stage or (lambda name: None)
         mark("start")
-        df = PK.upload(self.pack_frame(job, sps, refp), self.device)
+        pf = self.pack_frame(job, sps, refp)
         mark("pack")
+        df = PK.upload(pf, self.device)
+        mark("upload")
         return run_frame_device(df, self.tables, self.on_stage)
 
     def make_picture_planes(self, rec_planes, fs, sps):

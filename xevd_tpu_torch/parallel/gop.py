@@ -245,17 +245,26 @@ class _DeviceRun:
         return DpbStep(refs=DpbRing(self.ring, t),
                        out=tuple(p[t % self.D][:G] for p in self.ring))
 
-    def step(self, t):
+    def step(self, t, mark=None):
+        """Issue step t on this device's stream; `mark(name)` is called,
+        with this device and stream current, at "start", after the upload
+        ("upload"), after `run_frames_device` ("step") and after the
+        checksum and the output copies ("output")."""
+        mark = mark or (lambda name: None)
         with self._on():
+            mark("start")
             pb = self.steps[t]
             batch = PK.upload_batch(pb, self.dev)
+            mark("upload")
             out = run_frames_device(batch, self.tables, self.dpb(t, pb.G))
+            mark("step")
             crops = [o[:, P:P + (self.h >> s), P:P + (self.w >> s)]
                      for o, P, s in zip(out, (PAD_L, PAD_C, PAD_C),
                                         (0, 1, 1))]
             self.checksum += crops[0].sum(dtype=torch.int64)
             for host, c in zip(self.host[t], crops):
                 host.copy_(c, non_blocking=self.cuda)
+            mark("output")
 
     def finish(self):
         if self.cuda:
@@ -272,7 +281,8 @@ class _DeviceRun:
 
 def decode_gops_sharded(streams: list[bytes], mesh=None,
                         n_devices: int | None = None, verbose=False,
-                        captures=None, stats: dict | None = None):
+                        captures=None, stats: dict | None = None,
+                        on_stage=None):
     """Decode `streams` (one independent IDR-led GOP each), or `captures`
     made elsewhere by `_capture_gop`, as one batch per time step on each
     device of `mesh` (`make_mesh(n_devices)` by default).  Returns
@@ -281,7 +291,8 @@ def decode_gops_sharded(streams: list[bytes], mesh=None,
     `stats`, if given, receives the checksum (device), the serial one,
     the step count, the DPB depth, the batch size of each step, the
     frames, and `seconds`, the host clock from the first upload to the last
-    output on the host."""
+    output on the host.  `on_stage(name)`, if given, marks each step of
+    each device (`_DeviceRun.step`)."""
     if mesh is None:
         mesh = make_mesh(n_devices)
     caps = (list(captures) if captures is not None
@@ -297,7 +308,7 @@ def decode_gops_sharded(streams: list[bytes], mesh=None,
     for t in range(max(len(r.steps) for r in runs)):
         for r in runs:             # the devices' streams run side by side
             if t < len(r.steps):
-                r.step(t)
+                r.step(t, on_stage)
     for r in runs:
         r.finish()
     seconds = time.perf_counter() - t0
