@@ -81,7 +81,14 @@
    has it, ALF once a picture that filters any plane, the luma deblock
    (K8) once a picture with the Baseline deblock, pad once a
    picture. Each counted decode prints its frames/s and per-stage
-   CUDA-event times.
+   CUDA-event times, with the H2D copies' events apart.
+   Staging phase (ops/staging.py): the config-3 and 1080p IPPP streams
+   again, first with torch.cuda.set_sync_debug_mode("error") around each
+   `TorchPixelBackend.decode_frame` (any synchronising call in it
+   raises), then at ring depth 2 with a long torch.cuda._sleep before
+   each frame's copies (the pack two frames later finds its slot's copies
+   queued: the ring must wait at least once); each output equal to the
+   numpy oracle.
 5. GOP phase (K15, xevd_tpu_torch/parallel/gop.py): 8 independent
    1920x1080 Baseline IPPP GOPs of 2, 3 or 4 frames (xevd_tpu/parallel/
    gop.py `gen_gop_streams(8, 1920, 1080, frames=2, variable=True)`'s
@@ -95,7 +102,10 @@
    (counted: each batched kernel once a step, the intra scan once a step,
    not once a frame; the luma deblock one launch a step; pad one launch a
    step over Y, U and V), twice, and
-   every frame's MD5 must equal the numpy oracle's serial decode; the
+   every frame's MD5 must equal the numpy oracle's serial decode, then
+   once more with each step's split printed (the copy into its pinned
+   slot, the issue of its copies, the copies on the upload stream, the
+   kernel stream's wait, the kernels, the output copies); the
    same 8 GOPs then decode serially through Decoder +
    TorchPixelBackend("cuda"), equal too, for the record.  The
    pad kernel (K14) is timed a second time, on a 1080p picture, once every
@@ -921,9 +931,15 @@ def decode_to_yuv(data: bytes, backend, out: Path) -> int:
     return n
 
 
-# the stage marks timed by the host clock: the pack, and the upload, whose
-# pageable copies wait for the card (ops/pipeline.py STAGES)
+# the stage marks timed by the host clock (ops/pipeline.py STAGES): the
+# pack into a staging slot, and the upload, the issue of its two copies
+# from the pinned slot (their device time: events before and after them)
 HOST_STAGES = ("pack", "upload")
+# torch.cuda._sleep cycles put on the stream before each frame's copies in
+# the staging pressure phase: some 0.25 s at the H100's 1.98 GHz, several
+# frames' host time, so a frame's copies are still queued when the pack
+# two frames later asks for their slot
+PRESSURE_SLEEP_CYCLES = 500_000_000
 
 
 def counted_run(torch, K, backend, name, reps, marks, stages):
@@ -947,23 +963,28 @@ def counted_run(torch, K, backend, name, reps, marks, stages):
             raise AssertionError(f"{name} timed run: output differs from "
                                  "numpy")
         stage_ms = {s: 0.0 for s in stages}
+        h2d = 0.0
         for i, (stage, ev, t) in enumerate(marks):
             if stage == "start":
                 continue
             _, prev_ev, prev_t = marks[i - 1]
             stage_ms[stage] += ((t - prev_t) * 1e3 if stage in HOST_STAGES
                                 else prev_ev.elapsed_time(ev))
+            if stage == "upload":
+                h2d += prev_ev.elapsed_time(ev)
         stage_ms = {k: v / n for k, v in stage_ms.items()}
         device_ms = sum(v for k, v in stage_ms.items()
                         if k not in HOST_STAGES)
+        stage_ms["h2d_events"] = h2d / n
         runs.append(n / wall)
         log(f"  {name} timed run {rep}: {n} frames in {wall:.4f} s = "
             f"{n / wall:.3f} frames/s (host entropy + pack + device + 10-bit "
             f"write); device stages {device_ms:.3f} of {wall * 1e3 / n:.3f} "
             f"ms a frame ({100 * device_ms * n / (wall * 1e3):.1f} %)")
-        log("    per frame, ms (pack, upload: host clock, the upload its "
-            "two pageable copies; others: CUDA events between stage "
-            "marks): " +
+        log("    per frame, ms (pack into the staging slot, upload: host "
+            "clock, the upload the issue of its two copies from the pinned "
+            "slot; h2d_events: the copies by CUDA events before and after "
+            "them; others: CUDA events between stage marks): " +
             ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items()))
     counts = dict(K.launch_counts)
     log(f"  launch counts during the {name} runs: {counts}")
@@ -983,8 +1004,9 @@ def slice_phase(torch, dev, K, results, prepared):
             self.packed = []
 
         def pack_frame(self, job, sps, refp):
+            # the frame views a staging slot that later frames rewrite
             pf = super().pack_frame(job, sps, refp)
-            self.packed.append(pf)
+            self.packed.append(pf.copy())
             return pf
 
     log("phase slice: streams (numpy oracle decodes in worker processes)")
@@ -1104,9 +1126,65 @@ def slice_phase(torch, dev, K, results, prepared):
     return runs
 
 
+def staging_phase(torch, dev):
+    """The staging ring (ops/staging.py) on the config-3 cut and the 1080p
+    IPPP cut, each decode equal to the numpy oracle: first with
+    torch.cuda.set_sync_debug_mode("error") around every
+    `TorchPixelBackend.decode_frame` (not around the reads), so any call
+    in it that synchronises the host with the card raises; then at depth
+    2 with a long torch.cuda._sleep on the stream before each frame's
+    copies, so the pack two frames later finds its slot's copies still
+    queued: the ring must have waited on a slot's event (`waits` > 0).
+    Returns {stream: waits}."""
+    from xevd_tpu_torch import TorchPixelBackend
+
+    class NoSyncBackend(TorchPixelBackend):
+        """Raises on a synchronising call inside decode_frame."""
+
+        def decode_frame(self, job, sps, refp):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return super().decode_frame(job, sps, refp)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+    def sleep_before_copies(stage):
+        if stage == "pack":             # after the pack, before the copies
+            torch.cuda._sleep(PRESSURE_SLEEP_CYCLES)
+
+    log("phase staging: decode_frame under sync debug mode \"error\", then "
+        "the ring at depth 2 under copies held back by sleeps")
+    waits = {}
+    for name in (MAIN_PATH, "1080p_p"):
+        data = (STREAM_DIR / f"torch_smoke_{name}.evc").read_bytes()
+        want = (WORK / f"{name}_np.yuv").read_bytes()
+        for kind, backend in (
+                ("sync debug", NoSyncBackend(dev)),
+                ("pressure", TorchPixelBackend(
+                    dev, on_stage=sleep_before_copies))):
+            out = WORK / f"{name}_staging.yuv"
+            t0 = time.perf_counter()
+            n = decode_to_yuv(data, backend, out)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if out.read_bytes() != want:
+                raise AssertionError(f"{name} {kind} decode differs from "
+                                     "the numpy oracle")
+            ring = backend.staging
+            log(f"  {name} {kind}: {n} frames equal to the numpy oracle in "
+                f"{wall:.3f} s; the ring ({len(ring.slots)} slots) waited "
+                f"{ring.waits} times, {ring.wait_seconds * 1e3:.3f} ms")
+            if kind == "pressure":
+                if ring.waits == 0:
+                    raise AssertionError(f"{name}: the ring never waited on "
+                                         "a slot's event under pressure")
+                waits[name] = ring.waits
+    return waits
+
+
 def device_ms(marks):
     """Device milliseconds between the stage marks of decodes (CUDA events;
-    the pack and the upload's pageable copies, host work, left out)."""
+    the pack and the upload's issue, host work, left out)."""
     return sum(marks[i - 1][1].elapsed_time(ev)
                for i, (stage, ev, _) in enumerate(marks)
                if stage not in ("start",) + HOST_STAGES)
@@ -1297,6 +1375,21 @@ def gop_phase(torch, dev, K, results, workers):
             f"every MD5 equal to the numpy oracle; checksum "
             f"{stats['checksum']}")
     log(f"  launch counts during a batched run: {counts}")
+    from xevd_tpu_torch import bench as B
+    marks = B.StageMarks(dev)
+    split_stats = {}
+    dmd5, _ = TG.decode_gops_sharded(None, mesh=[dev], captures=caps,
+                                     stats=split_stats, on_stage=marks)
+    if dmd5 != smd5:
+        raise AssertionError("GOP batch (marked run): a frame's MD5 differs "
+                             "from the numpy oracle's")
+    log(f"  marked run in {split_stats['seconds'] * 1e3:.3f} ms; step split "
+        "(ms; the copy into its pinned slot, issue of its copies, upload "
+        "from the step's start until its kernels could be issued: host "
+        "clock; the copies on the upload stream, the kernel stream's wait "
+        "for them, run_frames_device, output: CUDA events):")
+    for t, st in enumerate(B.gop_step_split(marks, split_stats["batches"][0])):
+        log(f"    step {t}: {json.dumps(st)}")
 
     # the same GOPs serially, frame by frame, for the record
     marks = []
@@ -1420,6 +1513,7 @@ def main() -> int:
         kernel_phases(torch, dev, results)
         entry_phase(torch, K)
         runs = slice_phase(torch, dev, K, results, prepared)
+        ring_waits = staging_phase(torch, dev)
         runs["gop"] = gop_phase(torch, dev, K, results, gop_workers)
         big_gop = big_gop_phase(torch, dev, K, results, big_gop_worker)
         main_gop = main_gop_phase(torch, dev, K, results, main_gop_worker)
@@ -1467,6 +1561,7 @@ def main() -> int:
             f"{json.dumps(stage_ms, default=str)}")
     log(f"GOP batch past 32 ring pictures: {json.dumps(big_gop)}")
     log(f"GOP batch with the Main taps: {json.dumps(main_gop)}")
+    log(f"staging ring waits under pressure: {json.dumps(ring_waits)}")
     log(f"bench phase {bench_s:.1f} s")
     log(f"total smoke time {time.perf_counter() - t_start:.1f} s")
     log(gpu_line())

@@ -27,9 +27,12 @@ STREAMS = {
                           "hmvp")),
 }
 SPLIT_KEYS = ("wall_ms", "decoder_host_ms", "entropy_ms", "derive_ms",
-              "pack_ms", "upload_host_ms", "upload_device_ms", "issue_ms",
-              "device_ms", "device_stages_ms", "d2h_wait_ms", "d2h_ms",
-              "note")
+              "pack_ms", "slot_wait_ms", "slot_waits", "upload_host_ms",
+              "upload_device_ms", "issue_ms", "device_ms",
+              "device_stages_ms", "d2h_wait_ms", "d2h_ms", "note")
+STEP_KEYS = ("G", "stage_ms", "copy_issue_ms", "upload_host_ms",
+             "step_issue_ms", "upload_device_ms", "wait_device_ms",
+             "step_device_ms", "output_device_ms")
 
 
 def _stream_and_md5s(fixtures_dir, tmp_path, key):
@@ -67,6 +70,8 @@ def test_bench_config_on_cpu_equals_jax(fixtures_dir, tmp_path, key, capsys):
     assert set(s["issue_ms"]) == set(STAGES[2:])
     for k in ("wall_ms", "pack_ms", "upload_host_ms", "d2h_ms"):
         assert s[k] > 0, k
+    # the CPU ring has no event to wait on
+    assert s["slot_wait_ms"] == 0 and s["slot_waits"] == 0
     # the native engine times its entropy (and Main derive) apart
     assert s["entropy_ms"] > 0 and s["derive_ms"] > 0
     out = B.report({"c3" if STREAMS[key][7] else "c2": r}, None)
@@ -98,8 +103,9 @@ def test_bench_refuses_an_altered_md5(fixtures_dir, tmp_path, capsys):
 def test_bench_gop_batch_on_cpu_mesh(fixtures_dir):
     """run_gop on two 64x64 IPPP GOPs (2 and 3 frames) on make_mesh(["cpu"]):
     every call equal to the serial oracle, each step's split (G, the
+    copy into its staging slot, the issue of its copies and the
     upload's host time; no device time on the CPU)."""
-    caps = [TG._capture_gop(_stream(fixtures_dir, f"bench_gop{g}", 64, 64,
+    caps = [TG._capture_gop(_stream(fixtures_dir, f"bench_cpu_gop{g}", 64, 64,
                                     2 + g, 30, 1000 + 7 * g, "IPPP")
                             .read_bytes()) for g in range(2)]
     r = B.run_gop(caps, TG.make_mesh(["cpu"]), runs=1)
@@ -108,10 +114,12 @@ def test_bench_gop_batch_on_cpu_mesh(fixtures_dir):
     assert r["batches"] == [[2, 2, 1]]
     assert [s["G"] for s in r["step_split"]] == [2, 2, 1]
     for s in r["step_split"]:
-        assert s["upload_host_ms"] > 0
+        assert set(s) == set(STEP_KEYS)
+        assert s["upload_host_ms"] >= s["stage_ms"] + s["copy_issue_ms"]
+        assert s["stage_ms"] > 0 and s["copy_issue_ms"] > 0
         assert s["step_issue_ms"] > 0
         assert s["upload_device_ms"] is s["step_device_ms"] is None
-        assert s["output_device_ms"] is None
+        assert s["output_device_ms"] is s["wait_device_ms"] is None
     assert len(r["fps_runs"]) == 1 and r["fps_median"] > 0
     out = B.report({}, r)
     assert out["fps_gop"] == r["fps_median"] and out["value"] is None

@@ -489,6 +489,87 @@ def test_wrappers_refuse_cpu_operands_mixed_with_cuda(dev):
                      16, 32, ((True, False, False), 6, True), 8)
 
 
+@pytest.fixture(scope="module")
+def staging_streams():
+    """Two 176x144 streams (tools/evc_enc): Baseline IPPP (4 frames) and
+    Main RA with SUCO, ADDB, ALF and the config-3 tools (5 pictures)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
+    import evc_enc
+    tools = evc_enc.Tools(**{k: 1 for k in (
+        "alf", "addb", "htdf", "eipd", "cm_init", "iqt", "ats", "admvp",
+        "hmvp", "mmvd", "amvr", "btt", "suco", "adcc")})
+    return {"ippp": evc_enc.encode_stream(176, 144, 4, 35, 7, "IPPP", 0.5),
+            "main": evc_enc.encode_stream(176, 144, 5, 31, 713, "RA", 0.5,
+                                          profile=1, tools=tools)}
+
+
+def _frame_md5s(data, backend):
+    from xevd_tpu_torch import bench as B
+    return [B.frame_md5(f) for f in B.decode(data, backend)[0]]
+
+
+def test_staging_slots_are_pinned(dev):
+    """A staging slot's buffers are pinned, also once grown; the upload
+    from a slot copies without blocking and records the slot's event; a
+    slot whose buffer is not pinned raises at the upload."""
+    from xevd_tpu_torch.ops.staging import HostStaging
+    ring = HostStaging(dev, 2)
+    slot = ring.acquire(payload_words=1 << 20, coef_count=1 << 20)
+    for s in ring.slots:
+        assert s.payload.is_pinned() and s.coefs.is_pinned()
+    assert slot.payload.numel() >= 1 << 20
+    slot.payload_np[:6] = np.arange(6)
+    slot.coefs_np[:4] = -np.arange(4)
+    payload, coefs = PK._copies(slot.payload_np[:6], slot.coefs_np[:4], slot,
+                                dev)
+    slot.event.synchronize()
+    assert payload.is_cuda and payload.cpu().tolist() == list(range(6))
+    assert coefs.cpu().tolist() == [0, -1, -2, -3]
+    slot.payload = torch.zeros(6, dtype=torch.int32)    # pageable
+    with pytest.raises(RuntimeError, match="not pinned"):
+        PK._copies(slot.payload_np[:6], slot.coefs_np[:4], slot, dev)
+
+
+@pytest.mark.parametrize("key", ["ippp", "main"])
+def test_decode_frame_never_synchronises(dev, staging_streams, key):
+    """Under torch.cuda.set_sync_debug_mode("error") around each
+    `decode_frame` (not around the reads), a decode on the card raises on
+    no synchronising call and equals the plain versions' decode."""
+    from xevd_tpu_torch import TorchPixelBackend
+
+    class NoSync(TorchPixelBackend):
+        def decode_frame(self, job, sps, refp):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return super().decode_frame(job, sps, refp)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+    data = staging_streams[key]
+    want = _frame_md5s(data, TorchPixelBackend("cpu"))
+    assert _frame_md5s(data, TorchPixelBackend(dev)) == want   # warm-up
+    assert _frame_md5s(data, NoSync(dev)) == want
+
+
+@pytest.mark.parametrize("key", ["ippp", "main"])
+def test_ring_under_pressure_equals_plain(dev, staging_streams, key):
+    """A ring of 2 slots with a long torch.cuda._sleep on the stream before
+    each frame's copies: the pack two frames later finds its slot's
+    copies queued and waits on the slot's event; the decode equals the
+    plain versions' decode."""
+    from xevd_tpu_torch import TorchPixelBackend
+
+    def sleep_before_copies(stage):
+        if stage == "pack":
+            torch.cuda._sleep(200_000_000)
+
+    data = staging_streams[key]
+    backend = TorchPixelBackend(dev, on_stage=sleep_before_copies)
+    assert _frame_md5s(data, backend) == _frame_md5s(
+        data, TorchPixelBackend("cpu"))
+    assert backend.staging.waits > 0
+
+
 def test_entry_step_equals_plain(dev):
     """The graft entry's step on the card (ITDQ, recon and K8 kernels, one
     launch each) equals its plain versions' on the CPU, byte for byte."""

@@ -288,8 +288,9 @@ def captured_frames(stream, device="cpu"):
             self.frames = []
 
         def pack_frame(self, job, sps, refp):
+            # the frame views a staging slot that later frames rewrite
             pf = super().pack_frame(job, sps, refp)
-            self.frames.append((job, sps, refp, pf))
+            self.frames.append((job, sps, refp, pf.copy()))
             return pf
 
     backend = Capture()

@@ -32,7 +32,7 @@ def frames_packed(path):
 
         def decode_frame(self, job, sps, refp):
             pf = self.pack_frame(job, sps, refp)
-            self.packed.append(pf)
+            self.packed.append(pf.copy())   # detached from its slot
             h, w = pf.geom[:2]
 
             def blank(hh, ww, pad):

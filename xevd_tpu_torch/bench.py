@@ -35,20 +35,25 @@ by frame to the oracle's MD5s after its clock stops: a difference raises
 The host split (one more decode, checked, not part of `value`): entropy
 (`host/native.py` `decode_slice_native`, or `decode_slice_native_main`),
 derive (`host/derive.py` `job_from_native`, or `derive_frame_native_main`),
-the pack and the two H2D copies by the host clock between the backend's
-stage marks, the copies' and every device stage's time by CUDA events at
-the marks (`ops/pipeline.py` STAGES; an interval also holds the host's gaps
-between launches), and the output's D2H copies after a synchronise (the
-wait for the card apart).  Entropy runs on the decoder's worker thread
-beside pack and dispatch, so the shares overlap and do not add up to the
-wall.  The device's busy share comes from the traced decode, read by
-`profile.device_activity`.
+the pack into a staging slot (ops/staging.py) and the issue of the two
+H2D copies by the host clock between the backend's stage marks, the
+host's wait for a slot whose copies were still in flight apart (the
+ring's own clock, `HostStaging.wait_seconds`; 0 when the ring never
+waits), the copies' and every device stage's time by CUDA events at the
+marks (`ops/pipeline.py` STAGES: events before and after the copies; an
+interval also holds the host's gaps between launches), and the output's
+D2H copies after a synchronise (the wait for the card apart).  Entropy
+runs on the decoder's worker thread beside pack and dispatch, so the
+shares overlap and do not add up to the wall.  The device's busy share
+comes from the traced decode, read by `profile.device_activity`.
 
 The GOP batch: `runs` timed `decode_gops_sharded` calls on the captures
-(frames/s from the first upload to the last output), each frame's MD5 held
-to the serial oracle's, then one call with each step's upload (host clock
-and events), `run_frames_device` (events) and output copies (events) timed
-apart.
+(frames/s from the first upload to the last output), each frame's MD5
+held to the serial oracle's, then one call with each step's marks
+(`parallel/gop.py` `_DeviceRun.step`) read apart: the copy of its stacked
+arrays into its pinned slot and the issue of its copies (host clock), the
+copies on the upload stream and the kernel stream's wait for them
+(events), `run_frames_device` and the output copies (events).
 
 `--device cpu` runs the plain PyTorch versions on the CPU, for the tests;
 its JSON says "device": "cpu" and holds no device time.  Reference frames/s
@@ -280,6 +285,7 @@ def split_decode(data: bytes, md5s, dev) -> dict:
     see the module docstring."""
     marks = StageMarks(dev)
     backend = TorchPixelBackend(device=dev, on_stage=marks)
+    ring = backend.staging
     wait = copy = 0.0
 
     def read(f):
@@ -313,12 +319,18 @@ def split_decode(data: bytes, md5s, dev) -> dict:
             dev_ms[name] += d
     cuda = dev.type == "cuda"
     device_stages = STAGES[2:]
+    slot_wait = ring.wait_seconds * 1e3
     return {
         "wall_ms": wall * 1e3 / n,
         "decoder_host_ms": host * 1e3 / n,
         "entropy_ms": sum(t.total for t in timers["entropy"]) * 1e3 / n,
         "derive_ms": sum(t.total for t in timers["derive"]) * 1e3 / n,
-        "pack_ms": host_ms["pack"] / n,
+        # the pack into the slot, the wait for the slot apart
+        "pack_ms": (host_ms["pack"] - slot_wait) / n,
+        "slot_wait_ms": slot_wait / n,
+        "slot_waits": ring.waits,
+        # the issue of the two copies (non-blocking from the pinned slot on
+        # a card); their device time by events before and after them
         "upload_host_ms": host_ms["upload"] / n,
         "upload_device_ms": dev_ms["upload"] / n if cuda else None,
         # host clock spent issuing each device stage
@@ -411,12 +423,51 @@ def run_config(data: bytes, md5s, device="cuda", runs=RUNS) -> dict:
             "split": split, "traced": traced}
 
 
+def gop_step_split(marks: StageMarks, batches) -> list[dict]:
+    """Each step's split from the marks of one `decode_gops_sharded` call
+    (step by step, each step device by device, as `_DeviceRun.step` marks
+    it): G; `stage_ms`, the copy of its stacked arrays into its pinned
+    slot, and `copy_issue_ms`, the issue of its two copies (host clock);
+    `upload_host_ms`, from the step's start until its kernels could be
+    issued (the two, and the issue of the kernel stream's wait); with
+    events, `upload_device_ms`, the copies on the upload stream,
+    `wait_device_ms`, the kernel stream's wait from the step's start (the
+    end of the previous step's work on it) until the copies had landed,
+    `step_device_ms` (`run_frames_device`) and `output_device_ms` (the
+    checksum and the output copies); `step_issue_ms`, the host's issue of
+    `run_frames_device`."""
+    groups = []
+    for name, ev, t in marks.marks:
+        if name == "start":
+            groups.append({})
+        groups[-1][name] = (ev, t)
+    if len(groups) != len(batches):
+        raise AssertionError(f"{len(groups)} marked steps, {len(batches)} "
+                             "batches")
+
+    def host(g, a, b):
+        return (g[b][1] - g[a][1]) * 1e3
+
+    def device(g, a, b):
+        return g[a][0].elapsed_time(g[b][0]) if marks.cuda else None
+    return [{"G": G, "stage_ms": host(g, "start", "stage"),
+             "copy_issue_ms": host(g, "stage", "copy"),
+             "upload_host_ms": host(g, "start", "wait"),
+             "step_issue_ms": host(g, "wait", "step"),
+             "upload_device_ms": device(g, "stage", "copy"),
+             "wait_device_ms": device(g, "start", "wait"),
+             "step_device_ms": device(g, "wait", "step"),
+             "output_device_ms": device(g, "step", "output")}
+            for G, g in zip(batches, groups)]
+
+
 def run_gop(captures, mesh, runs=RUNS) -> dict:
     """The GOP batch on `captures` (`parallel/gop.py` `_capture_gop`
     results): a warm-up call, `runs` timed `decode_gops_sharded` calls and
-    one with each step's upload, `run_frames_device` and output copies
-    timed apart; every call's frame MD5s and checksum held to the serial
-    oracle's (OracleMismatch).  Prints nothing."""
+    one with each step's staging, copies, wait, `run_frames_device` and
+    output copies timed apart (`gop_step_split`; its batch ms `split_ms`,
+    the marks' own cost included); every call's frame MD5s and checksum
+    held to the serial oracle's (OracleMismatch).  Prints nothing."""
     def call(on_stage=None):
         stats = {}
         dmd5, smd5 = TG.decode_gops_sharded(None, mesh=mesh,
@@ -436,19 +487,10 @@ def run_gop(captures, mesh, runs=RUNS) -> dict:
         ms.append(s["seconds"] * 1e3)
     load1, smi1 = os.getloadavg(), _smi_sample(mesh[0])
     marks = StageMarks(mesh[0])
-    call(marks)
-    cuda = marks.cuda
+    split_ms = call(marks)["seconds"] * 1e3
     # the marks come step by step, each step device by device
-    steps, batches = [], [b[t] for t in range(stats["steps"])
-                          for b in stats["batches"] if t < len(b)]
-    names = ("upload", "step", "output")
-    iv = marks.intervals()
-    for i, G in enumerate(batches):
-        part = {name: (h, d) for name, h, d in iv[3 * i:3 * i + 3]}
-        steps.append({"G": G, "upload_host_ms": part["upload"][0],
-                      "step_issue_ms": part["step"][0],
-                      **{f"{k}_device_ms": part[k][1] if cuda else None
-                         for k in names}})
+    steps = gop_step_split(marks, [b[t] for t in range(stats["steps"])
+                                   for b in stats["batches"] if t < len(b)])
     return {"device": mesh[0].type, "devices": len(mesh),
             "gops": len(captures), "frames": stats["frames"],
             "steps": stats["steps"], "batches": stats["batches"],
@@ -456,7 +498,7 @@ def run_gop(captures, mesh, runs=RUNS) -> dict:
                                 _spread(fps).items()},
             "ms_runs": ms, "loadavg_before": load0, "loadavg_after": load1,
             "smi_before": smi0, "smi_after": smi1, "step_split": steps,
-            "equal": True}
+            "split_ms": split_ms, "equal": True}
 
 
 def reference_fps(ref_bin: Path, stream: Path) -> float:
@@ -648,8 +690,10 @@ def main(argv=None) -> int:
             f"{[round(f, 3) for f in c['fps_runs']]} (median "
             f"{c['fps_median']:.3f}, spread {c['fps_spread']:.3f}); split "
             f"ms a frame: entropy {s['entropy_ms']:.3f}, derive "
-            f"{s['derive_ms']:.3f}, pack {s['pack_ms']:.3f}, upload host "
-            f"{s['upload_host_ms']:.3f}, D2H {s['d2h_ms']:.3f}; busy share "
+            f"{s['derive_ms']:.3f}, pack {s['pack_ms']:.3f}, slot wait "
+            f"{s['slot_wait_ms']:.3f}, upload issue "
+            f"{s['upload_host_ms']:.3f} (device "
+            f"{s['upload_device_ms']}), D2H {s['d2h_ms']:.3f}; busy share "
             f"{(c['traced'] or {}).get('busy_share')}")
     if gop:
         log(f"gop: {gop['frames']} frames in {gop['steps']} steps, frames/s "

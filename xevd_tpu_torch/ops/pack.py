@@ -19,11 +19,19 @@ walks (`suco_runs`).
 into one such payload, with per-frame row offsets.
 
 Per frame there is one int32 payload and one int16 coefficient buffer, so
-two host->device copies.  Both are fresh host arrays: the native entropy
-engine reuses its coefficient scratch two slices later
-(xevd_tpu/ops/pipeline.py:483-488), and `torch.from_numpy` aliases."""
+two host->device copies.  The backend packs both into a slot of its
+staging ring (ops/staging.py, the counterpart of the JAX backend's reused
+payload buffers): every table is written straight into the slot's payload
+(`Packer(buf)`), and the coefficient planes are copied once into its
+coefficient buffer -- a copy that stays, since the native entropy engine
+reuses its coefficient scratch two slices later (xevd_tpu/ops/
+pipeline.py:483-488).  On the card the slot is pinned and `upload` copies
+without blocking the host; on the CPU it clones.  Without a slot (the
+tests, the kernel cases) both are fresh host arrays and the copies are
+blocking ones."""
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -62,23 +70,49 @@ SE_COL, SE_ST_U, SE_ST_V = range(3)
 
 
 class Packer:
-    """Flat int32 payload assembler; `layout` maps name -> (offset, shape)."""
+    """Flat int32 payload assembler; `layout` maps name -> (offset, shape).
+    The port of `_Packer` (xevd_tpu/ops/pipeline.py:79-113): with a
+    backing buffer `buf` (int32, 1-D), `alloc` returns views into it and
+    `finish` copies nothing; once the tables outgrow it (`overflow`),
+    every later table is a fresh array and `finish` concatenates them
+    all."""
 
-    def __init__(self):
+    def __init__(self, buf: np.ndarray | None = None):
+        self.buf = buf
         self.chunks = []
         self.layout = {}
         self.off = 0
+        self.overflow = False
+
+    def alloc(self, name: str, shape) -> np.ndarray:
+        """The int32 array of table `name`, to be filled in place."""
+        shape = tuple(int(d) for d in shape)
+        size = int(np.prod(shape))
+        if (self.buf is not None and not self.overflow
+                and self.off + size <= self.buf.size):
+            arr = self.buf[self.off:self.off + size].reshape(shape)
+        else:
+            self.overflow = True
+            arr = np.empty(shape, np.int32)
+        self.layout[name] = (self.off, shape)
+        self.chunks.append(arr)
+        self.off += size
+        return arr
 
     def add(self, name: str, arr: np.ndarray):
-        arr = np.ascontiguousarray(arr, dtype=np.int32)
-        self.layout[name] = (self.off, arr.shape)
-        self.chunks.append(arr.ravel())
-        self.off += arr.size
+        arr = np.asarray(arr)
+        self.alloc(name, arr.shape)[...] = arr
 
     def finish(self):
+        """(payload, layout): the head of `buf`, or with no buffer or
+        after an overflow the tables concatenated (`overflow` says
+        which)."""
+        if self.buf is not None and not self.overflow:
+            return self.buf[:self.off], dict(self.layout)
         if not self.chunks:
             return np.zeros(0, np.int32), dict(self.layout)
-        return np.concatenate(self.chunks), dict(self.layout)
+        return (np.concatenate([c.ravel() for c in self.chunks]),
+                dict(self.layout))
 
 
 def _ats_trs(a_cu, a_mode):
@@ -425,19 +459,21 @@ def suco_runs(row_off: np.ndarray, edges: np.ndarray) -> SucoRuns:
         row_entries_max=int(ents_row.max()) if h_scu else 0)
 
 
-def addb_maps(fs, job):
-    """(luma [2, hs2, ws2, 4], chroma [2, hs2, ws2, 7]) int32: the per-SCU
-    ADDB parameter maps ([0] vertical, [1] horizontal edges; luma (bs,
-    alpha, beta, c1), chroma (bs, alpha, beta, c0 of U, alpha, beta, c0 of
-    V)), padded to an even SCU count with bs = 0 so the covered area is a
-    multiple of 8 px (xevd_tpu/ops/pipeline.py:505-517)."""
-    hs2 = (fs.h_scu + 1) & ~1
-    ws2 = (fs.w_scu + 1) & ~1
-    luma = np.zeros((2, hs2, ws2, 4), np.int32)
-    luma[:, :fs.h_scu, :fs.w_scu] = job.addb_luma
-    chroma = np.zeros((2, hs2, ws2, 7), np.int32)
-    chroma[:, :fs.h_scu, :fs.w_scu] = job.addb_chroma
-    return luma, chroma
+def add_addb_maps(pk: Packer, fs, job):
+    """Add the per-SCU ADDB parameter maps to `pk`, filled in place:
+    "addb_l" int32 [2, hs2, ws2, 4] and "addb_c" [2, hs2, ws2, 7] ([0]
+    vertical, [1] horizontal edges; luma (bs, alpha, beta, c1), chroma
+    (bs, alpha, beta, c0 of U, alpha, beta, c0 of V)), padded to an even
+    SCU count with bs = 0 so the covered area is a multiple of 8 px
+    (xevd_tpu/ops/pipeline.py:505-517)."""
+    h, w = fs.h_scu, fs.w_scu
+    hs2, ws2 = (h + 1) & ~1, (w + 1) & ~1
+    for name, src, k in (("addb_l", job.addb_luma, 4),
+                         ("addb_c", job.addb_chroma, 7)):
+        m = pk.alloc(name, (2, hs2, ws2, k))
+        m[:, :h, :w] = src
+        m[:, h:] = 0
+        m[:, :h, w:] = 0
 
 
 def alf_params(fs, job):
@@ -713,6 +749,15 @@ class PackedFrame:
     tu_launch: tuple = (0, 0)    # ItdqOrder's (n_cta, smem)
     mc_launch: tuple = ((0, 0, 0), (0, 0, 0))   # McOrder's lists
     suco_launch: tuple = (0, 0)  # SucoRuns' (row_runs_max, row_entries_max)
+    slot: object = None          # the staging slot (ops/staging.py
+    #                              HostSlot) that payload and coefs view
+
+    def copy(self) -> "PackedFrame":
+        """This frame with its own host arrays, detached from its slot (a
+        slot is rewritten when the ring comes round to it again): for
+        whoever keeps a frame to replay its kernels later."""
+        return dataclasses.replace(self, payload=self.payload.copy(),
+                                   coefs=self.coefs.copy(), slot=None)
 
 
 @dataclass
@@ -740,11 +785,21 @@ class DeviceFrame:
     packed: PackedFrame
 
 
-def pack_frame(job, sps, refp, plane=None) -> PackedFrame:
+def coef_count(fs, chroma: bool) -> int:
+    """The coefficients of a frame's planes (luma, then chroma)."""
+    return fs.coef_y.size + (fs.coef_u.size + fs.coef_v.size if chroma
+                             else 0)
+
+
+def pack_frame(job, sps, refp, plane=None, slot=None) -> PackedFrame:
     """Build the payload of one frame (intra, P or B, Baseline or Main,
     with SUCO, ADDB and ALF as the JAX backend packs them).
     `refp[refi][list]` are the reference pictures (host/dpb.py); `plane`
-    as in `pack_mc`."""
+    as in `pack_mc`.  `slot`: a staging slot (ops/staging.py `HostSlot`)
+    to pack into -- every table written straight into its payload buffer
+    (ADDB's and the Baseline strength maps filled in place), the
+    coefficient planes copied into its coefficient buffer; without one,
+    fresh host arrays.  The bytes are the same either way."""
     fs = job.fs
     bd = sps.bit_depth_luma_minus8 + 8
     cfi = sps.chroma_format_idc
@@ -757,7 +812,7 @@ def pack_frame(job, sps, refp, plane=None) -> PackedFrame:
     iqt = bool(is_main and sps.tool_iqt)
     eipd = bool(is_main and sps.tool_eipd)
 
-    pk = Packer()
+    pk = Packer(None if slot is None else slot.payload_np)
     tus = pack_itdq(fs, bd, chroma, iqt, main=is_main)
     tu_order = itdq_order(tus, iqt)
     pk.add("tus", tus)
@@ -778,16 +833,17 @@ def pack_frame(job, sps, refp, plane=None) -> PackedFrame:
     suco, suco_launch = False, (0, 0)
     if addb:
         # ADDB takes precedence over the SUCO order (pipeline.py:525)
-        luma_p, chroma_p = addb_maps(fs, job)
-        pk.add("addb_l", luma_p)
-        pk.add("addb_c", chroma_p)
+        add_addb_maps(pk, fs, job)
     elif deblock_on:
-        dbst = np.stack([job.db_ver_y, job.db_hor_y, job.db_ver_u,
-                         job.db_hor_u, job.db_ver_v, job.db_hor_v])
-        if dbst.shape[1:] != (fs.h_scu, fs.w_scu):
-            raise ValueError(f"deblock strength maps {dbst.shape[1:]} != "
+        maps = (job.db_ver_y, job.db_hor_y, job.db_ver_u, job.db_hor_u,
+                job.db_ver_v, job.db_hor_v)
+        shapes = {np.shape(m) for m in maps}
+        if shapes != {(fs.h_scu, fs.w_scu)}:
+            raise ValueError(f"deblock strength maps {shapes} != "
                              f"SCU grid {(fs.h_scu, fs.w_scu)}")
-        pk.add("dbst", dbst)
+        dbst = pk.alloc("dbst", (6, fs.h_scu, fs.w_scu))
+        for d, m in zip(dbst, maps):
+            d[...] = m
         if chroma and is_main and getattr(sps, "sps_suco_flag", 0):
             sched = chroma_ver_edges(fs, job)
             if sched is not None:     # else the plain raster order (:301)
@@ -806,9 +862,20 @@ def pack_frame(job, sps, refp, plane=None) -> PackedFrame:
         pk.add("alf_c", coef_c)
         pk.add("alf_on", ctu_on)
     payload, layout = pk.finish()
+    if slot is not None and pk.overflow:
+        payload = slot.keep_payload(payload)
 
     planes = [fs.coef_y] + ([fs.coef_u, fs.coef_v] if chroma else [])
-    coefs = np.concatenate([np.asarray(p, np.int16).ravel() for p in planes])
+    n = coef_count(fs, chroma)
+    if slot is None:
+        coefs = np.empty(n, np.int16)
+    else:
+        slot.reserve(coef_count=n)
+        coefs = slot.coefs_np[:n]
+    off = 0
+    for p in planes:
+        coefs[off:off + p.size] = np.asarray(p).reshape(-1)
+        off += p.size
     shp_y = (BORDER + fs.h_pad + PAD_R, BORDER + fs.w_pad + PAD_R)
     shp_c = ((BORDER + (fs.h_pad >> 1) + PAD_R,
               BORDER + (fs.w_pad >> 1) + PAD_R) if chroma else None)
@@ -822,13 +889,47 @@ def pack_frame(job, sps, refp, plane=None) -> PackedFrame:
         geom=(fs.h, fs.w, fs.h_scu, fs.w_scu), shp_y=shp_y, shp_c=shp_c,
         mc_lists=mc_lists, refs=refs, ref_pocs=ref_pocs,
         tu_launch=(tu_order.n_cta, tu_order.smem), mc_launch=mc_ord.lists,
-        suco_launch=suco_launch)
+        suco_launch=suco_launch, slot=slot)
+
+
+def _copies(payload, coefs, slot, device, reader=None):
+    """The payload and the coefficients on `device`: two host->device
+    copies.  From a staging slot: on a CUDA device each copy is issued
+    without blocking the host (the slot must be pinned: from pageable
+    memory a non_blocking copy still blocks), on the current stream into
+    buffers allocated on it, and the slot's event is recorded after them;
+    `reader`, a stream other than the current one that will read the
+    buffers, waits for that event and keeps the buffers from reuse until
+    its work is done.  For the CPU a slot's arrays are cloned: a device
+    tensor never aliases a slot that a later frame rewrites.  Without a
+    slot, blocking copies of fresh arrays."""
+    if slot is None:
+        return (torch.from_numpy(payload).to(device),
+                torch.from_numpy(coefs).to(device))
+    srcs = slot.sources(payload.size, coefs.size)
+    if device.type != "cuda":
+        return tuple(s.clone() for s in srcs)
+    if not all(s.is_pinned() for s in srcs):
+        raise RuntimeError("upload: the staging slot is not pinned; a "
+                           "non_blocking copy from pageable memory blocks "
+                           "the host")
+    dsts = tuple(torch.empty(s.shape, dtype=s.dtype, device=device)
+                 for s in srcs)
+    for d, s in zip(dsts, srcs):
+        d.copy_(s, non_blocking=True)
+    slot.event.record(torch.cuda.current_stream(device))
+    if reader is not None:
+        for d in dsts:
+            d.record_stream(reader)
+        reader.wait_event(slot.event)
+    return dsts
 
 
 def upload(pf: PackedFrame, device: torch.device) -> DeviceFrame:
-    """Two host->device copies; every table is a view into them."""
-    payload = torch.from_numpy(pf.payload).to(device)
-    coefs = torch.from_numpy(pf.coefs).to(device)
+    """Two host->device copies (`_copies`; from the frame's slot, if it
+    has one, without blocking the host on a card); every table is a view
+    into them."""
+    payload, coefs = _copies(pf.payload, pf.coefs, pf.slot, device)
 
     def view(name):
         if name not in pf.layout:
@@ -890,6 +991,7 @@ class PackedBatch:
     mc_lists: tuple              # MC rows of list 0, of list 1 (all frames)
     tu_launch: tuple = (0, 0)    # ItdqOrder's (n_cta, smem)
     mc_launch: tuple = ((0, 0, 0), (0, 0, 0))   # McOrder's lists
+    slot: object = None          # the staging slot (ops/staging.py)
 
 
 @dataclass
@@ -987,11 +1089,28 @@ def stack_frames(frames, slots) -> PackedBatch:
         tu_launch=(tu_order.n_cta, tu_order.smem), mc_launch=mc_ord.lists)
 
 
-def upload_batch(pb: PackedBatch, device: torch.device) -> DeviceBatch:
-    """Two host->device copies; every table and plane is a view into
-    them."""
-    payload = torch.from_numpy(pb.payload).to(device)
-    coefs = torch.from_numpy(pb.coefs).to(device)
+def stage_batch(pb: PackedBatch, slot) -> PackedBatch:
+    """`pb` with its payload and coefficients copied into a staging slot
+    (ops/staging.py `HostSlot`, grown if need be; pinned on a card), from
+    which `upload_batch` copies without blocking the host: the host's part
+    of a GOP step's upload."""
+    slot.reserve(pb.payload.size, pb.coefs.size)
+    for name, src in (("payload", pb.payload), ("coefs", pb.coefs)):
+        getattr(slot, name)[:src.size].copy_(torch.from_numpy(src).view(-1))
+    return dataclasses.replace(
+        pb, payload=slot.payload_np[:pb.payload.size],
+        coefs=slot.coefs_np[:pb.coefs.size].reshape(pb.coefs.shape),
+        slot=slot)
+
+
+def upload_batch(pb: PackedBatch, device: torch.device,
+                 reader=None) -> DeviceBatch:
+    """Two host->device copies (`_copies`: from the batch's slot, if it
+    has one, without blocking the host on a card; `reader`, the stream
+    the kernels will read the batch on when the copies are issued on
+    another); every table and plane is a view into them."""
+    payload, coefs = _copies(pb.payload, pb.coefs, pb.slot, device, reader)
+    coefs = coefs.view(pb.coefs.shape)
 
     def view(name):
         if name not in pb.layout:

@@ -2,8 +2,9 @@
 
 `TorchPixelBackend` plugs into `host.decoder.Decoder(backend=...)` at
 the same seam as the JAX package's `JaxPixelBackend`
-(xevd_tpu/ops/pipeline.py:392).  Per frame: host pack (ops/pack.py), two
-host->device copies, then `run_frame_device`:
+(xevd_tpu/ops/pipeline.py:392).  Per frame: host pack (ops/pack.py) into
+a slot of the backend's staging ring (ops/staging.py), two host->device
+copies issued from it, then `run_frame_device`:
 
   ITDQ (kernel: csrc/itdq.cu; Main iqt and ATS bases) -> MC of the inter
   CUs (csrc/mc.cu; Main ADMVP taps) -> recon with the prediction (Triton)
@@ -16,9 +17,14 @@ host->device copies, then `run_frame_device`:
 
 The decoded picture planes stay on the device as DPB references
 (DevicePlane); MC reads them there, and they reach the host only when the
-writer reads them.  All of a frame's work is issued on the current CUDA
-stream, so a frame's MC reads its references after the frames that wrote
-them.
+writer reads them.  All of a frame's work, its copies included, is issued
+on the current CUDA stream, so a frame's MC reads its references after
+the frames that wrote them.  On the card `decode_frame` issues and
+returns, as the JAX backend's does under asynchronous dispatch
+(xevd_tpu/ops/pipeline.py:563-570): nothing in it waits for the device
+(no blocking copy, no read of a device value; every launch size comes
+from the pack), except `HostStaging.acquire` when the slot it hands out
+still feeds a copy in flight.
 
 `run_frames_device` is the same pipeline over the G frames of one time
 step of a GOP batch (K15, the `jax.vmap` of xevd_tpu/parallel/gop.py:215-
@@ -51,6 +57,7 @@ from .intra_main import intra_scan_wave
 from .itdq import itdq
 from .mc import DpbRing, mc_all
 from .recon import pad_picture, recon
+from .staging import HostStaging
 from .tables import BORDER, device_tables
 
 STAGES = ("pack", "upload", "itdq", "mc", "recon", "intra", "deblock", "alf", "pad")
@@ -212,7 +219,10 @@ class TorchPixelBackend:
     device: "cuda" (kernels) or "cpu" (plain PyTorch versions; tests).
     on_stage: optional callback, called with "start" when a frame begins
     and with each name of STAGES when that stage has been issued ("pack"
-    after the host pack, "upload" after its two host->device copies)."""
+    after the host pack into a staging slot, the wait for the slot
+    included; "upload" after its two host->device copies were issued).
+    `staging`: the ring of host buffers each frame is packed into
+    (ops/staging.py; two slots, the JAX backend's double buffer)."""
 
     name = "torch"
     device_resident = True
@@ -221,6 +231,7 @@ class TorchPixelBackend:
         self.device = resolve_device(device)
         self.tables = device_tables(self.device)
         self.on_stage = on_stage
+        self.staging = HostStaging(self.device)
 
     def check_caps(self, sps):
         """Refuse, at the SPS, every stream the port cannot decode
@@ -251,10 +262,18 @@ class TorchPixelBackend:
                                     "with equal luma/chroma depth only")
 
     def pack_frame(self, job, sps, refp):
-        """Host half of decode_frame."""
-        return PK.pack_frame(job, sps, refp)
+        """Host half of decode_frame: the pack into the next slot of the
+        staging ring, once the copies it last fed have ended.  The frame
+        views its slot until the ring comes round to it again: whoever
+        keeps it keeps `pf.copy()`."""
+        slot = self.staging.acquire(coef_count=PK.coef_count(
+            job.fs, sps.chroma_format_idc == 1))
+        return PK.pack_frame(job, sps, refp, slot=slot)
 
     def decode_frame(self, job, sps, refp):
+        """Pack the frame into a staging slot, issue its copies and its
+        device half, and return its padded picture planes (device
+        tensors, still being computed on a card)."""
         mark = self.on_stage or (lambda name: None)
         mark("start")
         pf = self.pack_frame(job, sps, refp)

@@ -13,17 +13,25 @@ checksum.  Here:
           dropped -- the device DPB supplies them), the oracle's planes and
           the POC;
   device  the GOPs are split over the mesh's devices in equal blocks, as
-          JAX shards them; each device works on a CUDA stream of its own.
-          Time step t of a device runs the t-th frames of its GOPs as ONE
-          batch through `ops/pipeline.run_frames_device`: one launch per
-          kernel per step, whatever the batch -- the GOP axis is a batch
-          axis of the kernels (csrc/batch.cuh).  The DPB is a carry on the
-          device, int16 [D, G_dev, h + 2 PAD, w + 2 PAD] a plane, written
-          as a ring (step t into slot t % D; no picture is copied), and MC
-          addresses a step's references, picture (d, g) with d the steps
-          back from the reference's POC, by the ring's strides (ops/mc.py
-          `DpbRing`), so a device takes any D x G_dev, as JAX's step
-          does.
+          JAX shards them; each device works on a CUDA stream of its own,
+          and uploads on a second one.  Every step is stacked first
+          (ops/pack.py `stack_frames`), as JAX stacks every step before its
+          one transfer (xevd_tpu/parallel/gop.py:192-199, 221).  Time step
+          t of a device then copies its stacked arrays into a pinned
+          staging slot of its own (ops/staging.py) and issues their two
+          copies on the upload stream; the kernel stream waits for them
+          (an event, not the host) and runs the t-th frames of the
+          device's GOPs as ONE batch through `ops/pipeline.
+          run_frames_device`: one launch per kernel per step, whatever the
+          batch -- the GOP axis is a batch axis of the kernels
+          (csrc/batch.cuh).  No upload waits for a kernel: step t + 1 is
+          staged and copied while step t's kernels run.  The DPB is a
+          carry on the device, int16 [D, G_dev, h + 2 PAD, w + 2 PAD] a
+          plane, written as a ring (step t into slot t % D; no picture is
+          copied), and MC addresses a step's references, picture (d, g)
+          with d the steps back from the reference's POC, by the ring's
+          strides (ops/mc.py `DpbRing`), so a device takes any D x G_dev,
+          as JAX's step does.
 
 A GOP that has ended leaves the batch of the later steps (JAX pads it with
 inert copies of its last frame, gop.py:113-124): a device's GOPs are
@@ -73,6 +81,7 @@ from ..host.syntax import UnsupportedStream
 from ..ops import pack as PK
 from ..ops.mc import DpbRing
 from ..ops.pipeline import DpbStep, TorchPixelBackend, run_frames_device
+from ..ops.staging import HostStaging
 from ..ops.tables import device_tables
 
 PAD_L, PAD_C = T.PIC_PAD_SIZE_L, T.PIC_PAD_SIZE_C
@@ -204,16 +213,35 @@ def _plan(caps, n_dev):
     return D, plan
 
 
+_STREAMS = {}
+
+
+def _streams(dev) -> tuple:
+    """(kernel stream, upload stream) of CUDA device `dev`, the same for
+    every batch: the caching allocator keeps a freed block for the stream
+    that allocated it, so a batch on new streams would allocate every
+    device buffer anew (cudaMalloc) inside its clock."""
+    if dev not in _STREAMS:
+        _STREAMS[dev] = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
+    return _STREAMS[dev]
+
+
 class _DeviceRun:
     """One device's part: its GOPs, their steps, the DPB ring, the
-    checksum and the host buffers of the outputs."""
+    checksum, a staging slot a step (pinned on a card, sized here: no step
+    waits for a slot, and no pinned buffer is allocated while the batch's
+    clock runs) and the host buffers of the outputs."""
 
     def __init__(self, dev, gops, steps, D, h, w):
         self.dev, self.gops, self.steps, self.D = dev, gops, steps, D
         self.h, self.w = h, w
         self.cuda = dev.type == "cuda"
-        self.stream = torch.cuda.Stream(dev) if self.cuda else None
+        self.stream, self.copy_stream = (_streams(dev) if self.cuda
+                                         else (None, None))
         with self._on():
+            self.staging = HostStaging(dev, len(steps))
+            for slot, pb in zip(self.staging.slots, steps):
+                slot.reserve(pb.payload.size, pb.coefs.size)
             self.tables = device_tables(dev)
             shapes = ((h + 2 * PAD_L, w + 2 * PAD_L),
                       ((h >> 1) + 2 * PAD_C, (w >> 1) + 2 * PAD_C),
@@ -245,17 +273,31 @@ class _DeviceRun:
         return DpbStep(refs=DpbRing(self.ring, t),
                        out=tuple(p[t % self.D][:G] for p in self.ring))
 
+    def _copying(self):
+        """The upload stream as the current one."""
+        return (torch.cuda.stream(self.copy_stream) if self.cuda
+                else contextlib.nullcontext())
+
     def step(self, t, mark=None):
-        """Issue step t on this device's stream; `mark(name)` is called,
-        with this device and stream current, at "start", after the upload
-        ("upload"), after `run_frames_device` ("step") and after the
-        checksum and the output copies ("output")."""
+        """Issue step t: copy its stacked arrays into its staging slot and
+        issue their copies on the upload stream, then its kernels on this
+        device's stream, which waits for the copies by an event (the host
+        does not).  `mark(name)` is called with this device current: at
+        "start" (its stream current), after the copy into the slot
+        ("stage") and after the copies to the card were issued ("copy"),
+        both with the upload stream current, after the kernel stream's
+        wait was issued ("wait"), after `run_frames_device` ("step") and
+        after the checksum and the output copies ("output")."""
         mark = mark or (lambda name: None)
         with self._on():
             mark("start")
-            pb = self.steps[t]
-            batch = PK.upload_batch(pb, self.dev)
-            mark("upload")
+            slot = self.staging.acquire()
+            with self._copying():
+                pb = PK.stage_batch(self.steps[t], slot)
+                mark("stage")
+                batch = PK.upload_batch(pb, self.dev, reader=self.stream)
+                mark("copy")
+            mark("wait")
             out = run_frames_device(batch, self.tables, self.dpb(t, pb.G))
             mark("step")
             crops = [o[:, P:P + (self.h >> s), P:P + (self.w >> s)]
@@ -268,6 +310,7 @@ class _DeviceRun:
 
     def finish(self):
         if self.cuda:
+            self.copy_stream.synchronize()
             self.stream.synchronize()
 
     def outputs(self):
