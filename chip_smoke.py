@@ -98,14 +98,20 @@
    xevd_tpu_torch.parallel.gop --capture`).  Every batched
    kernel, and the whole batched step, is held to its batched plain
    version on the batch's own step-1 (P) tables and DPB at G = 8 and G =
-   1; then all 8 GOPs decode as one batch per time step on the card
+   1, and on step 0 (the 8 I pictures: no MC) at G = 8 and G = 1; step
+   0's batched intra scan, whose rows the pack's ticket order interleaves
+   over the frames, is timed beside each of its pictures scanned alone
+   (the same kernel at G = 1) with the batch's DAG depth, and must take
+   at most 3x the slowest; then all 8 GOPs decode as one batch per time
+   step on the card
    (counted: each batched kernel once a step, the intra scan once a step,
    not once a frame; the luma deblock one launch a step; pad one launch a
    step over Y, U and V), twice, and
    every frame's MD5 must equal the numpy oracle's serial decode, then
    once more with each step's split printed (the copy into its pinned
    slot, the issue of its copies, the copies on the upload stream, the
-   kernel stream's wait, the kernels, the output copies); the
+   kernel stream's wait, the kernels and each of their stages -- ITDQ,
+   MC, recon, intra, deblock, pad -- the output copies); the
    same 8 GOPs then decode serially through Decoder +
    TorchPixelBackend("cuda"), equal too, for the record.  The
    pad kernel (K14) is timed a second time, on a 1080p picture, once every
@@ -140,8 +146,11 @@
    picture's luma alone and one chroma plane alone (ALF's phase lines
    also give the bytes of the unflagged luma CTUs it copies); K14 and
    `gop_pad` with `library_ms` and `library_ms_device`, F.pad's times on
-   the same planes (three calls), or `library_refused`) and, as the last
-   line, {"ok": true, "device": {...}}.
+   the same planes (three calls), or `library_refused`; `gop_intra_scan`
+   and `gop_step` with `ms_step0` and `ms_device_step0`, their times on
+   step 0, and `gop_intra_scan` with `depth_step0` and
+   `ms_device_step0_alone(_max)`, step 0's DAG depth and its pictures'
+   scans alone) and, as the last line, {"ok": true, "device": {...}}.
 
 Any failure raises and the exit code is non-zero.  Imports neither JAX
 nor `xevd_tpu`: the reference runs in its own processes.
@@ -1285,8 +1294,10 @@ def main_gop_phase(torch, dev, K, results, worker):
 def gop_phase(torch, dev, K, results, workers):
     """K15: the 8 1080p GOPs as one batch per time step (parallel/gop.py),
     after each batched kernel and the batched step against its plain
-    version on step 1 at G = 8 and G = 1.  Returns (counts, frames/s per
-    batched run, record)."""
+    version on step 1 and on step 0 (the I pictures) at G = 8 and G = 1,
+    and step 0's batched scan against each of its pictures scanned alone
+    (at most 3x the slowest).  Returns (counts, frames/s per batched run,
+    record)."""
     from tests.torch_helpers import gop_step_cases
     from xevd_tpu_torch import TorchPixelBackend
     from xevd_tpu_torch.parallel import gop as TG
@@ -1315,6 +1326,8 @@ def gop_phase(torch, dev, K, results, workers):
         torch, pad_picture_case(dev, 8, 1080, 1920, seed=210), {}, 50, 50)
 
     from tests.torch_helpers import mc_class_histogram
+    from tests.torch_mc_times import graph_ms
+    from xevd_tpu_torch.ops import intra as TI
     from xevd_tpu_torch.ops import pack as PK
     _, [(_, steps)] = TG._plan(caps, 1)
     table = PK._table(steps[1], "mc", 10)
@@ -1337,6 +1350,53 @@ def gop_phase(torch, dev, K, results, workers):
                           0 if slow else 3, main=G > 1, key=key)
             if G == 1:
                 results[key]["ms_g1"] = ms
+
+    # step 0, the 8 I pictures: the batched scan interleaves the frames'
+    # CU rows (ops/pack.py icu_order), so it must cost about its slowest
+    # frame's scan alone (the same kernel at G = 1), not their sum
+    p0 = steps[0]
+    icu0, off0 = PK._table(p0, "icu", 8), PK._table(p0, "icu_off", 0)
+    tabs0 = [icu0[lo:hi] for lo, hi in zip(off0[:-1], off0[1:])]
+    t = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        PK.icu_order(tabs0, *p0.geom[2:])
+        t.append(time.perf_counter() - t0)
+    depth0 = TI.intra_dag_depth(icu0, *p0.geom[2:], icu_off=off0)
+    log(f"phase gop step 0 (the {p0.G} I pictures, {len(icu0)} CUs, DAG "
+        f"depth {depth0}; icu_order {min(t) * 1e3:.3f} ms of host time, "
+        "best of 3: each batched kernel and the batched step at G = 8 and "
+        "G = 1, then each picture's scan alone)")
+    scan0, alone = None, []
+    for G in (len(caps), 1):
+        for case in gop_step_cases(dev, caps[:G], t=0):
+            key = case.name if case.name == "gop_step" else f"gop_{case.name}"
+            slow = case.name in ("intra_scan", "gop_step")
+            ms = run_case(torch, case, results, 5 if slow else 20,
+                          0 if slow else 3, key=key)
+            r = results[key]
+            if G > 1:
+                r["ms_step0"] = ms
+                r["ms_device_step0"] = r["last_device_ms"]
+            if case.name == "intra_scan":
+                if G > 1:
+                    scan0 = r["last_device_ms"]
+                else:
+                    alone.append(r["last_device_ms"])
+    for c in caps[1:]:
+        case, = (x for x in gop_step_cases(dev, [c], t=0)
+                 if x.name == "intra_scan")
+        alone.append(graph_ms(torch, case.kernel, 10))
+    r = results["gop_intra_scan"]
+    r.update(depth_step0=depth0, ms_device_step0_alone=alone,
+             ms_device_step0_alone_max=max(alone))
+    log(f"  step 0's batched scan {scan0:.4f} ms (device) at DAG depth "
+        f"{depth0}; its pictures alone {[round(a, 4) for a in alone]} ms, "
+        f"slowest {max(alone):.4f}: {scan0 / max(alone):.3f}x")
+    if scan0 > 3 * max(alone):
+        raise AssertionError(f"step 0's batched scan {scan0:.4f} ms > 3x its "
+                             f"slowest picture alone ({max(alone):.4f} ms): "
+                             "the frames' chains do not overlap")
 
     # launches a batched run must make: one a step for each kernel (a
     # plane each for recon and the chroma passes), MC once per list
@@ -1533,7 +1593,8 @@ def main() -> int:
         counter = name[4:] if name in (f"gop_{k}" for k in GOP_KERNELS) \
             else name
         extra = {k: r[k] for k in r
-                 if k.startswith(("ms_", "library_")) and k != "library_ms"}
+                 if k.startswith(("ms_", "library_", "depth_"))
+                 and k != "library_ms"}
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces,
                         "launches": runs[PATH_OF.get(name, MAIN_PATH)][0][

@@ -32,7 +32,9 @@ SPLIT_KEYS = ("wall_ms", "decoder_host_ms", "entropy_ms", "derive_ms",
               "device_stages_ms", "d2h_wait_ms", "d2h_ms", "note")
 STEP_KEYS = ("G", "stage_ms", "copy_issue_ms", "upload_host_ms",
              "step_issue_ms", "upload_device_ms", "wait_device_ms",
-             "step_device_ms", "output_device_ms")
+             "step_device_ms", "output_device_ms", "itdq_device_ms",
+             "mc_device_ms", "recon_device_ms", "intra_device_ms",
+             "deblock_device_ms", "pad_device_ms")
 
 
 def _stream_and_md5s(fixtures_dir, tmp_path, key):
@@ -104,7 +106,8 @@ def test_bench_gop_batch_on_cpu_mesh(fixtures_dir):
     """run_gop on two 64x64 IPPP GOPs (2 and 3 frames) on make_mesh(["cpu"]):
     every call equal to the serial oracle, each step's split (G, the
     copy into its staging slot, the issue of its copies and the
-    upload's host time; no device time on the CPU)."""
+    upload's host time; no device time on the CPU, for the step or for
+    any of its stages)."""
     caps = [TG._capture_gop(_stream(fixtures_dir, f"bench_cpu_gop{g}", 64, 64,
                                     2 + g, 30, 1000 + 7 * g, "IPPP")
                             .read_bytes()) for g in range(2)]
@@ -120,6 +123,7 @@ def test_bench_gop_batch_on_cpu_mesh(fixtures_dir):
         assert s["step_issue_ms"] > 0
         assert s["upload_device_ms"] is s["step_device_ms"] is None
         assert s["output_device_ms"] is s["wait_device_ms"] is None
+        assert all(s[f"{k}_device_ms"] is None for k in B.GOP_STAGES)
     assert len(r["fps_runs"]) == 1 and r["fps_median"] > 0
     out = B.report({}, r)
     assert out["fps_gop"] == r["fps_median"] and out["value"] is None

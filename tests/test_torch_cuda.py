@@ -176,10 +176,26 @@ def test_intra_kernel_matches_plain(dev, bd, chroma):
     _check_repeated(intra_case(dev, 288, 352, bd, chroma, seed=bd))
 
 
-@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("G", [1, 3, 8])
 def test_intra_kernel_batched_matches_plain(dev, G):
-    """The GOP batch's launch (icu_off) over G causal CIF scenes."""
+    """The GOP batch's launch (icu_off) over G causal CIF scenes, its rows
+    taken in the pack's ticket order (ops/pack.py `icu_order`), against
+    the frame-after-frame plain version."""
     _check_repeated(intra_batch_case(dev, G, 288, 352, 8, seed=40))
+
+
+def test_intra_kernel_batched_refuses_a_missing_order(dev):
+    """A batched launch without the ticket order raises (no launch)."""
+    case = intra_batch_case(dev, 2, 64, 64, 8, seed=3)
+    planes = [torch.zeros(2, 160, 160, dtype=torch.int16, device=dev)
+              for _ in range(3)]
+    icu = torch.zeros(4, 8, dtype=torch.int32, device=dev)
+    off = torch.tensor([0, 2, 4], dtype=torch.int32, device=dev)
+    n = K.launch_counts["intra_scan"]
+    with pytest.raises(ValueError, match="ticket order"):
+        TI.intra_scan(planes, planes, icu, 8, True, icu_off=off)
+    assert K.launch_counts["intra_scan"] == n
+    assert compare(case) == 0
 
 
 def test_intra_kernel_4x4_chain_matches_plain(dev):
@@ -315,18 +331,21 @@ def gop_captures():
         192, 128, 2 + g, 30, 1000 + 7 * g, "IPPP", 0.5)) for g in range(3)]
 
 
+@pytest.mark.parametrize("t", [0, 1])
 @pytest.mark.parametrize("G", [1, 3])
-def test_gop_batched_kernels_match_plain(dev, gop_captures, G):
-    """K15: every batched kernel, and the whole batched step, on step 1 of
-    a batch of G GOPs (its own tables and DPB), one launch each."""
-    for case in gop_step_cases(dev, gop_captures[:G]):
+def test_gop_batched_kernels_match_plain(dev, gop_captures, G, t):
+    """K15: every batched kernel, and the whole batched step, on step t of
+    a batch of G GOPs (its own tables and DPB; step 0 the I pictures, no
+    MC), one launch each."""
+    for case in gop_step_cases(dev, gop_captures[:G], t=t):
         _check(case)
 
 
+@pytest.mark.parametrize("t", [0, 1])
 @pytest.mark.parametrize("G", [1, 3])
-def test_gop_intra_scan_repeated(dev, gop_captures, G):
-    """The batched intra scan on step 1 of the GOP batch, ten launches."""
-    case, = (c for c in gop_step_cases(dev, gop_captures[:G])
+def test_gop_intra_scan_repeated(dev, gop_captures, G, t):
+    """The batched intra scan on step t of the GOP batch, ten launches."""
+    case, = (c for c in gop_step_cases(dev, gop_captures[:G], t=t)
              if c.name == "intra_scan")
     _check_repeated(case)
 

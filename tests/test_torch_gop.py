@@ -145,14 +145,16 @@ def _assert_equal(got, want, what):
                                           err_msg=f"{what} plane {i}")
 
 
+@pytest.mark.parametrize("t", [0, 1])
 @pytest.mark.parametrize("G", [2, 4])
-def test_batched_plain_stages_equal_jax_vmap(G, step_frames):
-    """The P frames of step 1 of G GOPs, stage by stage: ITDQ, MC, recon,
-    the Baseline intra scan (K5), deblock and pad, each batched plain
-    version against `jax.vmap` of its JAX function on the same inputs
-    (JAX's stage outputs feed both sides' next stage)."""
+def test_batched_plain_stages_equal_jax_vmap(G, t, step_frames):
+    """Time step t of G GOPs -- the I pictures of step 0 (no MC: recon
+    with no prediction) or the P frames of step 1 -- stage by stage: ITDQ,
+    MC, recon, the Baseline intra scan (K5, walking the batch's ticket
+    order), deblock and pad, each batched plain version against
+    `jax.vmap` of its JAX function on the same inputs (JAX's stage
+    outputs feed both sides' next stage)."""
     pcaps, jcaps = (c[:G] for c in step_frames)
-    t = 1
     D, [(gops, steps)] = TG._plan(pcaps, 1)
     assert gops == list(range(G))
     pb = steps[t]
@@ -163,7 +165,7 @@ def test_batched_plain_stages_equal_jax_vmap(G, step_frames):
     # JAX: the frames' payloads with the slot fields remapped onto the union
     # of POC deltas, and the references stacked by delta (gop.py:142-218)
     frames = [jcaps[g][t] for g in range(G)]
-    st = dict(frames[0]["pack"]["static"], has_inter=True)
+    st = dict(frames[0]["pack"]["static"], has_inter=t > 0)
     per_gop = [[fr["poc"] - s[2] for s in fr["pack"]["slots"]]
                for fr in frames]
     union = sorted({d for ds in per_gop for d in ds})
@@ -171,7 +173,7 @@ def test_batched_plain_stages_equal_jax_vmap(G, step_frames):
     for fr, ds in zip(frames, per_gop):
         pay = fr["pack"]["payload"].copy()
         lut = np.array([union.index(d) for d in ds], np.int32)
-        for _, off, shape in st["sig_m"]:
+        for _, off, shape in st["sig_m"] if ds else ():
             rows = pay[off:off + shape[0] * shape[1]].reshape(shape)
             rows[:, 0] = lut[np.clip(rows[:, 0], 0, len(lut) - 1)]
         payloads.append(pay)
@@ -179,16 +181,17 @@ def test_batched_plain_stages_equal_jax_vmap(G, step_frames):
     coefs = tuple(jnp.asarray(np.stack([fr["pack"]["coefs"][c]
                                         for fr in frames])) for c in range(3))
     pads = (PAD_L, PAD_C, PAD_C)
+    assert bool(union) == (t > 0)
     jrefs = tuple(jnp.asarray(np.stack([np.stack(
         [_pad(jcaps[g][t - d]["rec"][c][:h >> bool(c), :w >> bool(c)],
               pads[c]) for g in range(G)]) for d in union]))
-        for c in range(3))
+        for c in range(3)) if union else None
     # the port: the DPB ring [D, G, ...] a plane, GOP g's picture d steps
     # back in entry (t - d) % D
     ring = [torch.zeros((D, G) + _pad(pcaps[0][0]["rec"][c][
         :h >> bool(c), :w >> bool(c)], pads[c]).shape, dtype=torch.int16)
         for c in range(3)]
-    for d in range(1, D + 1):
+    for d in range(1, D + 1 if t else 1):
         for g in range(G):
             for c in range(3):
                 ring[c][(t - d) % D, g] = torch.from_numpy(_pad(
@@ -204,19 +207,27 @@ def test_batched_plain_stages_equal_jax_vmap(G, step_frames):
                   shp_y, shp_c, bd, TAB, pb.iqt, tu_off=batch.tu_off)
     _assert_equal(res, jres, "itdq")
 
-    jpred = jax.vmap(lambda p, r: PL._mc_all(
-        p, r, st["sig_m"], shp_y, shp_c, bd, st["main_taps"]),
-        in_axes=(0, 1))(payloads, jrefs)
-    assert batch.mc.shape[0] > 0
-    pred = TM.mc_all(batch.mc, pb.mc_lists, prefs, shp_y, shp_c, bd, TAB,
-                     pb.main_taps, mc_off=batch.mc_off)
-    _assert_equal(pred, jpred, "mc")
+    if t:
+        jpred = jax.vmap(lambda p, r: PL._mc_all(
+            p, r, st["sig_m"], shp_y, shp_c, bd, st["main_taps"]),
+            in_axes=(0, 1))(payloads, jrefs)
+        assert batch.mc.shape[0] > 0
+        pred = TM.mc_all(batch.mc, pb.mc_lists, prefs, shp_y, shp_c, bd,
+                         TAB, pb.main_taps, mc_off=batch.mc_off)
+        _assert_equal(pred, jpred, "mc")
+    else:
+        # an intra step: JAX's recon reads zero predictions
+        # (xevd_tpu/ops/pipeline.py:345-353), the port's reads none
+        assert batch.mc.shape[0] == 0
+        jpred = tuple(jnp.zeros((G,) + s_, dt) for s_, dt in (
+            (shp_y, jnp.int32), (shp_y, jnp.int8), (shp_c, jnp.int32),
+            (shp_c, jnp.int32), (shp_c, jnp.int8)))
 
     t_ = [torch.from_numpy(np.array(x)) for x in (*jres, *jpred)]
     jrecs = tuple(jax.vmap(PL._recon_plane, in_axes=(0, 0, 0, None))(
         jpred[p], jpred[c], jres[r], bd) for p, c, r in ((0, 1, 0), (2, 4, 1),
                                                           (3, 4, 2)))
-    recs = [TR.recon(t_[r], bd, t_[3 + p], t_[3 + c])
+    recs = [TR.recon(t_[r], bd, *((t_[3 + p], t_[3 + c]) if t else ()))
             for p, c, r in ((0, 1, 0), (2, 4, 1), (3, 4, 2))]
     _assert_equal(recs, jrecs, "recon")
 
@@ -232,7 +243,8 @@ def test_batched_plain_stages_equal_jax_vmap(G, step_frames):
     jintra = jax.vmap(lambda r, s, c: JI.intra_scan(   # donates its planes
         r, s, {k: c[:, i] for i, k in enumerate(keys)}, bd, True))(
         tuple(jnp.asarray(r.numpy().copy()) for r in recs), jres, icu)
-    TI.intra_scan(recs, t_[:3], batch.icu, bd, True, icu_off=batch.icu_off)
+    TI.intra_scan(recs, t_[:3], batch.icu, bd, True, icu_off=batch.icu_off,
+                  order=batch.icu_order)
     _assert_equal(recs, jintra, "intra_scan")
 
     dbst = jnp.asarray(np.stack([fr["pack"]["dbst"] for fr in frames]))

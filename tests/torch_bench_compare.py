@@ -17,8 +17,11 @@ skip their generation in a later call).  Each run's log goes to
 chiprun_out/bench_compare_<i>_<tree>.log; one JSON line a run gives its
 headline numbers (frames/s of configs 2 and 3 and of the GOP batch, the
 median of the bench's 5 runs with every run, config 3's pack, slot wait,
-upload and H2D split, the GOP steps' upload split), and the last line
-holds them all with the card's name and power limit."""
+upload and H2D split, the GOP steps' upload split).  With the GOP batch,
+each tree then decodes it 5 more times with CUDA events around every
+step's Baseline intra scan (`ops/pipeline.py` `intra_scan`, wrapped: the
+same cut in either tree, whatever its own marks), one JSON line a tree.
+The last line holds them all with the card's name and power limit."""
 from __future__ import annotations
 
 import argparse
@@ -51,6 +54,41 @@ def bench(tree: Path, log: Path, only: str) -> dict:
                         "--only", only], cwd=tree, stdout=f,
                        stderr=subprocess.STDOUT, check=True)
     return json.loads(log.read_text().strip().splitlines()[-1])
+
+
+# run in a tree: its own port decodes the bench's GOP batch 5 times with
+# CUDA events around each step's intra scan; prints [[ms a step] a run]
+SCAN_TIMES = r"""
+import json, torch
+from xevd_tpu_torch import bench as B
+from xevd_tpu_torch.ops import pipeline as P
+from xevd_tpu_torch.parallel import gop as TG
+_, caps, _ = B.prepare(["gop"])
+dev = torch.device("cuda", 0)
+events, scan = [], P.intra_scan
+def timed(*a, **k):
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    out = scan(*a, **k)
+    ev[1].record()
+    events.append(ev)
+    return out
+P.intra_scan = timed
+runs = []
+for _ in range(5):
+    events.clear()
+    dmd5, smd5 = TG.decode_gops_sharded(None, mesh=[dev], captures=caps)
+    torch.cuda.synchronize()
+    assert dmd5 == smd5, "a GOP frame differs from the serial oracle"
+    runs.append([a.elapsed_time(b) for a, b in events])
+print(json.dumps(runs))
+"""
+
+
+def scan_times(tree: Path) -> list:
+    out = subprocess.run([sys.executable, "-c", SCAN_TIMES], cwd=tree,
+                         capture_output=True, text=True, check=True).stdout
+    return json.loads(out.strip().splitlines()[-1])
 
 
 def summary(r: dict) -> dict:
@@ -107,8 +145,17 @@ def main(argv) -> int:
                           a.only))
         runs.append({"run": i, "tree": name, **r})
         print(json.dumps(runs[-1]), flush=True)
+    scans = {}
+    if "gop" in names:
+        for name, tree in pair:
+            runs_ms = scan_times(tree)
+            scans[name] = {"ms_runs": runs_ms, "step_median_ms": [
+                sorted(r[t] for r in runs_ms)[len(runs_ms) // 2]
+                for t in range(len(runs_ms[0]))]}
+            print(json.dumps({"tree": name, "intra_scan": scans[name]}),
+                  flush=True)
     print(smi(), flush=True)
-    print(json.dumps({"card": card, "runs": runs}))
+    print(json.dumps({"card": card, "runs": runs, "intra_scan": scans}))
     return 0
 
 

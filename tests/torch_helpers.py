@@ -1011,10 +1011,12 @@ def pad_picture_case(dev, bd, h, w, chroma=True, G=None, unaligned=False,
         f" bd{bd}{' unaligned pitch' if unaligned else ''}")
 
 
-def intra_planes_case(dev, recs, res, icu, bd, chroma, shape, icu_off=None):
+def intra_planes_case(dev, recs, res, icu, bd, chroma, shape, icu_off=None,
+                      order=None):
     """The intra scan on device planes `recs` (left untouched: each side
     scans a copy of its own) with residuals `res` and CU table `icu`; a
-    GOP batch with `icu_off`."""
+    GOP batch with `icu_off` and the ticket order `order` (the kernel's
+    walk), held to the frame-after-frame plain version."""
     a, b, reset = _copies(recs)
 
     def plain():
@@ -1023,7 +1025,8 @@ def intra_planes_case(dev, recs, res, icu, bd, chroma, shape, icu_off=None):
         return list(TI.intra_scan_batch_ref(b, res, icu, icu_off, bd, chroma))
     return KernelCase(
         "intra_scan", shape,
-        lambda: list(TI.intra_scan(a, res, icu, bd, chroma, icu_off=icu_off)),
+        lambda: list(TI.intra_scan(a, res, icu, bd, chroma, icu_off=icu_off,
+                                   order=order)),
         plain, *intra_work(icu, PK.CU_LOG2, PK.CU_LOG2, chroma), reset=reset,
         graph_calls=1)
 
@@ -1048,20 +1051,29 @@ def intra_chain_case(dev, H, W, bd, seed=0):
         f"{TI.intra_dag_depth(icu, H >> 2, W >> 2)}")
 
 
-def intra_batch_case(dev, G, H, W, bd, seed=0):
-    """The batched scan over G causal scenes (`intra_scene`) of H x W:
-    planes [G, ...], the tables one after another with row offsets."""
+def intra_batch_scenes(G, H, W, bd, seed=0):
+    """G causal scenes (`intra_scene`) of H x W as a GOP batch of the scan,
+    numpy: planes [G, ...] (y, u, v), residuals, the tables one after
+    another, their row offsets and the pack's ticket order (ops/pack.py
+    `icu_order`)."""
     scenes = [intra_scene(H, W, bd, seed + g, causal=True) for g in range(G)]
-    recs = [_dev(np.stack([sc[0][i] for sc in scenes]), dev)
-            for i in range(3)]
-    res = [_dev(np.stack([sc[1][i] for sc in scenes]), dev)
-           for i in range(3)]
-    icu = np.concatenate([sc[2] for sc in scenes])
-    off = np.concatenate([[0], np.cumsum([len(sc[2]) for sc in scenes])])
+    counts = [len(sc[2]) for sc in scenes]
+    return ([np.stack([sc[0][i] for sc in scenes]) for i in range(3)],
+            [np.stack([sc[1][i] for sc in scenes]) for i in range(3)],
+            np.concatenate([sc[2] for sc in scenes]),
+            np.concatenate([[0], np.cumsum(counts)]).astype(np.int32),
+            PK.icu_order([sc[2] for sc in scenes], H >> 2, W >> 2))
+
+
+def intra_batch_case(dev, G, H, W, bd, seed=0):
+    """The batched scan over G causal scenes (`intra_batch_scenes`) of H x
+    W in the pack's ticket order."""
+    recs, res, icu, off, order = intra_batch_scenes(G, H, W, bd, seed)
     return intra_planes_case(
-        dev, recs, res, _dev(icu, dev), bd, True,
+        dev, [_dev(p, dev) for p in recs], [_dev(p, dev) for p in res],
+        _dev(icu, dev), bd, True,
         f"G {G} x {H}x{W} bd{bd}, {len(icu)} CUs",
-        icu_off=_dev(off.astype(np.int32), dev))
+        icu_off=_dev(off, dev), order=_dev(order, dev))
 
 
 def intra_wave_planes_case(dev, recs, res, icu, level_off, bd, chroma,
@@ -1591,7 +1603,10 @@ def gop_step_cases(dev, caps, t=1):
     device; parallel/gop.py `_capture_gop` captures) on `dev`: the step's
     own tables, its DPB after steps 0 .. t - 1 (decoded by the kernels),
     and each stage's input as the batched path gives it (the kernels'
-    outputs of the stages before it)."""
+    outputs of the stages before it).  Step 0 (the GOPs' I pictures) has
+    no MC case and recon without a prediction; the intra scan walks the
+    batch's ticket order (ops/pack.py `icu_order`) against the plain
+    version's frame after frame."""
     from xevd_tpu_torch.ops.pipeline import DpbStep, run_frames_device
     from xevd_tpu_torch.parallel import gop as TG
 
@@ -1616,28 +1631,37 @@ def gop_step_cases(dev, caps, t=1):
         lambda: list(TQ.itdq_batch_ref(*q[:2], b.tu_off, *q[2:])),
         *itdq_work(b.tus), reset=lambda: None))
     resids = TQ.itdq(*q, tu_off=b.tu_off, order=b.tu_order)
-    m = (pb.shp_y, pb.shp_c, bd, tab, pb.main_taps)
-    cases.append(KernelCase(
-        "mc", f"{label}, {b.mc.shape[0]} blocks",
-        lambda: list(TM.mc_all(b.mc, pb.mc_lists, dpb.refs, *m,
-                               mc_off=b.mc_off, order=b.mc_order)),
-        lambda: list(TM.mc_all_batch_ref(b.mc, b.mc_off, dpb.refs, *m)),
-        *mc_work(b.mc), reset=lambda: None))
-    p = TM.mc_all(b.mc, pb.mc_lists, dpb.refs, *m, mc_off=b.mc_off,
-                  order=b.mc_order)
-    preds = ((p[0], p[1]), (p[2], p[4]), (p[3], p[4]))
-    n = p[0].numel()
-    cases.append(KernelCase(
-        "recon", f"{label}, luma {tuple(p[0].shape)} with prediction",
-        lambda: [TR.recon(resids[0], bd, *preds[0])],
-        lambda: [TR.recon_ref(resids[0], bd, *preds[0])], n * 9, n * 6))
+    n = resids[0].numel()
+    if b.mc.shape[0]:
+        m = (pb.shp_y, pb.shp_c, bd, tab, pb.main_taps)
+        cases.append(KernelCase(
+            "mc", f"{label}, {b.mc.shape[0]} blocks",
+            lambda: list(TM.mc_all(b.mc, pb.mc_lists, dpb.refs, *m,
+                                   mc_off=b.mc_off, order=b.mc_order)),
+            lambda: list(TM.mc_all_batch_ref(b.mc, b.mc_off, dpb.refs, *m)),
+            *mc_work(b.mc), reset=lambda: None))
+        p = TM.mc_all(b.mc, pb.mc_lists, dpb.refs, *m, mc_off=b.mc_off,
+                      order=b.mc_order)
+        preds = ((p[0], p[1]), (p[2], p[4]), (p[3], p[4]))
+        cases.append(KernelCase(
+            "recon", f"{label}, luma {tuple(p[0].shape)} with prediction",
+            lambda: [TR.recon(resids[0], bd, *preds[0])],
+            lambda: [TR.recon_ref(resids[0], bd, *preds[0])], n * 9, n * 6))
+    else:                       # an intra step (step 0): no MC
+        preds = ((None, None),) * 3
+        cases.append(KernelCase(
+            "recon", f"{label}, luma {tuple(resids[0].shape)}",
+            lambda: [TR.recon(resids[0], bd)],
+            lambda: [TR.recon_ref(resids[0], bd)], n * 4, n * 2))
     recs = [None if r is None else TR.recon(r, bd, *pr)
             for r, pr in zip(resids, preds)]
     depth = TI.intra_dag_depth(b.icu, *pb.geom[2:], icu_off=b.icu_off)
     cases.append(intra_planes_case(
         dev, recs, resids, b.icu, bd, chroma,
-        f"{label}, {b.icu.shape[0]} CUs, depth {depth}", icu_off=b.icu_off))
-    TI.intra_scan(recs, resids, b.icu, bd, chroma, icu_off=b.icu_off)
+        f"{label}, {b.icu.shape[0]} CUs, depth {depth}", icu_off=b.icu_off,
+        order=b.icu_order))
+    TI.intra_scan(recs, resids, b.icu, bd, chroma, icu_off=b.icu_off,
+                  order=b.icu_order)
     # each kernel on the areas it filters on the path, then run on them:
     # luma (both passes, one launch), then the chroma passes (the reference
     # order runs luma hor after chroma ver, which touches only U and V)

@@ -53,7 +53,8 @@ held to the serial oracle's, then one call with each step's marks
 (`parallel/gop.py` `_DeviceRun.step`) read apart: the copy of its stacked
 arrays into its pinned slot and the issue of its copies (host clock), the
 copies on the upload stream and the kernel stream's wait for them
-(events), `run_frames_device` and the output copies (events).
+(events), `run_frames_device` and each of its stages, and the output
+copies (events).
 
 `--device cpu` runs the plain PyTorch versions on the CPU, for the tests;
 its JSON says "device": "cpu" and holds no device time.  Reference frames/s
@@ -84,7 +85,7 @@ from .host import Decoder
 from .host import derive as host_derive
 from .host.decoder import _LazyPlane
 from .host import native as host_native
-from .ops.pipeline import STAGES, TorchPixelBackend
+from .ops.pipeline import GOP_STAGES, STAGES, TorchPixelBackend
 from .parallel import gop as TG
 from .profile import device_activity
 
@@ -433,9 +434,12 @@ def gop_step_split(marks: StageMarks, batches) -> list[dict]:
     events, `upload_device_ms`, the copies on the upload stream,
     `wait_device_ms`, the kernel stream's wait from the step's start (the
     end of the previous step's work on it) until the copies had landed,
-    `step_device_ms` (`run_frames_device`) and `output_device_ms` (the
-    checksum and the output copies); `step_issue_ms`, the host's issue of
-    `run_frames_device`."""
+    `step_device_ms` (`run_frames_device`), `<stage>_device_ms` for each
+    of its stages (GOP_STAGES: the interval from the stage before it, or
+    from the wait, to the stage's mark; the step's ITDQ, MC, recon,
+    Baseline intra scan, deblock and pad read apart), and
+    `output_device_ms` (the checksum and the output copies);
+    `step_issue_ms`, the host's issue of `run_frames_device`."""
     groups = []
     for name, ev, t in marks.marks:
         if name == "start":
@@ -450,6 +454,10 @@ def gop_step_split(marks: StageMarks, batches) -> list[dict]:
 
     def device(g, a, b):
         return g[a][0].elapsed_time(g[b][0]) if marks.cuda else None
+
+    def stages(g):
+        return {f"{b}_device_ms": device(g, a, b)
+                for a, b in zip(("wait",) + GOP_STAGES, GOP_STAGES)}
     return [{"G": G, "stage_ms": host(g, "start", "stage"),
              "copy_issue_ms": host(g, "stage", "copy"),
              "upload_host_ms": host(g, "start", "wait"),
@@ -457,6 +465,7 @@ def gop_step_split(marks: StageMarks, batches) -> list[dict]:
              "upload_device_ms": device(g, "stage", "copy"),
              "wait_device_ms": device(g, "start", "wait"),
              "step_device_ms": device(g, "wait", "step"),
+             **stages(g),
              "output_device_ms": device(g, "step", "output")}
             for G, g in zip(batches, groups)]
 

@@ -23,18 +23,33 @@
 //    (zeroed by the wrapper: 0 = no writer in this scan -- MC and recon
 //    wrote the cell before it, or nothing does).
 // 2. intra_scan_kernel, a grid of the CTAs that fit on the card at once:
-//    each CTA takes rows by ticket (scan.cuh), stages the row's residuals
-//    in shared memory (nothing in the scan writes them, so this overlaps
-//    the wait), waits for the done flag of every row w < n that wrote a
-//    cell its masks name, reconstructs luma, u and v in one pass
+//    each CTA takes tickets (scan.cuh) and scans row n = order[ticket]
+//    (the ticket itself for one frame: order NULL), stages the row's
+//    residuals in shared memory (nothing in the scan writes them, so this
+//    overlaps the wait), waits for the done flag of every row w < n that
+//    wrote a cell its masks name, reconstructs luma, u and v in one pass
 //    (neighbours staged in shared memory, DC sums by a warp a plane, then
 //    the three blocks), and publishes its done flag.
-//    The G frames of a batch step share the grid: frame g's rows look only
-//    at frame g's map, so a step costs about one frame's dependency chain.
+//    The G frames of a batch step share the grid, their rows interleaved:
+//    the pack's order (ops/pack.py `icu_order`) hands out the rows of all
+//    frames by their depth in their frame's dependency DAG, so the
+//    tickets in flight (about the grid's CTAs) are every frame's next
+//    wavefront and a step costs about the longest of the frames' chains,
+//    not their sum, as JAX's vmapped scan does.  In table order the
+//    tickets in flight lie in one or two frames and the chains run one
+//    after another; round-robin over the frames' rows cuts each frame's
+//    share of the window to 1/G of the grid, too few rows to span a
+//    frame's wavefront across CTU rows (measured by
+//    tests/torch_scan_trace.py: PERF.md).
+//    done[] and the waits stay in table rows, and frame g's rows look only
+//    at frame g's map.
 // The result equals decode order whenever every cell a mask names was
 // written by an earlier row or before the scan, which every decoder table
 // satisfies (ops/intra.py `intra_deps_ref` is the rule, and refuses a
-// table that breaks it).
+// table that breaks it).  A row waits only on rows of its frame that are
+// shallower in its DAG, which the order hands out first (a topological
+// order of every frame's DAG), and a CTA running holds each ticket handed
+// out, so the scan cannot deadlock.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -44,6 +59,26 @@
 #define BORDER 72
 #define SCAN_THREADS 256
 #define WRITER_THREADS 128
+
+// Built with -DXEVD_INTRA_TRACE (tests/torch_scan_trace.py, never the
+// port's library): thread 0 of the CTA that scans row n writes the
+// %globaltimer (ns) when it took the row's ticket to trace[2 n] and when
+// it published the row's done flag to trace[2 n + 1].
+#ifdef XEVD_INTRA_TRACE
+__device__ unsigned long long* g_intra_trace;
+#define TRACE_AT(n, k)                                                    \
+  do {                                                                    \
+    if (threadIdx.x == 0 && g_intra_trace) {                              \
+      unsigned long long t_;                                              \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));              \
+      g_intra_trace[2 * (size_t)(n) + (k)] = t_;                          \
+    }                                                                     \
+  } while (0)
+#else
+#define TRACE_AT(n, k) \
+  do {                 \
+  } while (0)
+#endif
 
 namespace {
 
@@ -201,15 +236,18 @@ intra_scan_kernel(int16_t* rec_y, int16_t* rec_u, int16_t* rec_v,
                   const int16_t* res_y, const int16_t* res_u,
                   const int16_t* res_v, int stride_y, int stride_c,
                   const int32_t* __restrict__ icu, int n_cu, int bd,
-                  int chroma, const int32_t* __restrict__ icu_off, int G,
+                  int chroma, const int32_t* __restrict__ icu_off,
+                  const int32_t* __restrict__ order, int G,
                   long long bs_y, long long bs_c,
                   const int32_t* __restrict__ wmap, int hs, int ws,
                   int* ticket, int* done) {
   __shared__ int s_up[3][128], s_le[3][128], s_cor[3], s_dc[3], s_n[2];
   __shared__ int16_t s_res[64 * 64 + 2 * 32 * 32];
   for (int it = 0;; ++it) {
-    const int n = take_ticket(ticket, s_n, it);
-    if (n >= n_cu) return;
+    const int k = take_ticket(ticket, s_n, it);
+    if (k >= n_cu) return;
+    const int n = order ? __ldg(order + k) : k;
+    TRACE_AT(n, 0);
     const int32_t* c = icu + (size_t)n * 8;
     if (c[7] == 1) {
       const long long g = batch_of(icu_off, G, n);
@@ -225,6 +263,7 @@ intra_scan_kernel(int16_t* rec_y, int16_t* rec_u, int16_t* rec_v,
               s_up, s_le, s_cor, s_dc, s_res);
     }
     if (threadIdx.x == 0) st_release(done + n, 1);
+    TRACE_AT(n, 1);
   }
 }
 
@@ -242,17 +281,27 @@ extern "C" int xevd_intra_scan_grid(int* grid) {
   return (int)cudaGetLastError();
 }
 
-// icu_off: device int32 [G + 1], or NULL for one frame (G 1); bs_y, bs_c:
-// the batch strides of the luma and chroma planes, in elements; scratch:
-// device int32 [1 + n_cu + G * hs * ws], zeroed: the ticket counter, the
-// rows' done flags, the writer maps over hs x ws cells.
+#ifdef XEVD_INTRA_TRACE
+// trace: device uint64 [2 n_cu] for the next scans, or NULL.
+extern "C" int xevd_intra_trace_set(void* trace) {
+  return (int)cudaMemcpyToSymbol(g_intra_trace, &trace, sizeof(trace));
+}
+#endif
+
+// icu_off: device int32 [G + 1], or NULL for one frame (G 1); order:
+// device int32 [n_cu], ticket -> table row, a topological order of every
+// frame's dependency DAG (ops/pack.py `icu_order`), or NULL for table
+// order; bs_y, bs_c: the batch strides of the luma and chroma planes, in
+// elements; scratch: device int32 [1 + n_cu + G * hs * ws], zeroed: the
+// ticket counter, the rows' done flags, the writer maps over hs x ws
+// cells.
 extern "C" int xevd_intra_scan(void* rec_y, void* rec_u, void* rec_v,
                                const void* res_y, const void* res_u,
                                const void* res_v, int stride_y, int stride_c,
                                const void* icu, int n_cu, int bd, int chroma,
-                               const void* icu_off, int G, long long bs_y,
-                               long long bs_c, void* scratch, int hs, int ws,
-                               void* stream) {
+                               const void* icu_off, const void* order, int G,
+                               long long bs_y, long long bs_c, void* scratch,
+                               int hs, int ws, void* stream) {
   if (n_cu <= 0 || G <= 0) return (int)cudaGetLastError();
   int grid = 0;
   int err = xevd_intra_scan_grid(&grid);
@@ -270,6 +319,7 @@ extern "C" int xevd_intra_scan(void* rec_y, void* rec_u, void* rec_v,
       (int16_t*)rec_y, (int16_t*)rec_u, (int16_t*)rec_v,
       (const int16_t*)res_y, (const int16_t*)res_u, (const int16_t*)res_v,
       stride_y, stride_c, (const int32_t*)icu, n_cu, bd, chroma,
-      (const int32_t*)icu_off, G, bs_y, bs_c, wmap, hs, ws, ticket, done);
+      (const int32_t*)icu_off, (const int32_t*)order, G, bs_y, bs_c, wmap,
+      hs, ws, ticket, done);
   return (int)cudaGetLastError();
 }

@@ -2,10 +2,13 @@
 // csrc/intra_main.cu): tickets, and flags published and awaited across the
 // CTAs of one launch.
 //
-// A CTA takes its next table row with `take_ticket`, so rows are handed out
-// in table order.  A row waits only on rows with lower tickets, which CTAs
-// already running hold, so a scan cannot deadlock, whatever its table
-// holds: a malformed table can only read early.
+// A CTA takes its next ticket with `take_ticket`, so tickets are handed
+// out in order: a ticket is a table row, or with a ticket order (the GOP
+// batch's K5 scan, csrc/intra.cu) the row the order maps it to, an order
+// in which every row comes after the rows it waits for.  A row waits only
+// on rows with lower tickets, which CTAs already running hold, so a scan
+// cannot deadlock, whatever its table holds (a malformed table can only
+// read early).
 //
 // Ordering (the pattern of CUTLASS's cutlass/barrier.h): the CTA's threads
 // write their samples, __syncthreads(), then one thread publishes with a

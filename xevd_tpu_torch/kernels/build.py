@@ -44,7 +44,7 @@ SIGNATURES = {
     "xevd_itdq": (_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _I,
                   _I, _I, _P, _P, _I, _L, _L, _L, _L, _P),
     "xevd_intra_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _P,
-                        _I, _L, _L, _P, _I, _I, _P),
+                        _P, _I, _L, _L, _P, _I, _I, _P),
     "xevd_intra_scan_grid": (_P,),
     "xevd_deblock_luma": (_P, _I, _I, _I, _P, _P, _I, _I, _L, _L, _L, _P),
     "xevd_deblock_chroma_ver": (_P, _I, _I, _I, _P, _I, *_DB, _P),

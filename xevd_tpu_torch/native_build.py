@@ -1,5 +1,6 @@
 """Where and how the native host engine (`native/*.c`) is built for this
-host.
+host, and the port's own host C (`xevd_tpu_torch/native/*.c`: the GOP
+batch's intra scan order, ops/intra.py `intra_depths_host`) beside it.
 
 `host/native.py` loads the library from `library_path()`, under
 build/xevd_tpu_torch/native/<key>/libevc_entropy.so (gitignored), and
@@ -43,15 +44,17 @@ def cpu_id() -> str:
     return "\n".join(sorted(keep))
 
 
-def library_path(src_dir: Path, cpu: str | None = None) -> Path:
-    """This host's library path for the engine whose sources are in
-    `src_dir` (`cpu`: the CPU description to key on, default `cpu_id()`)."""
+def library_path(src_dir: Path, cpu: str | None = None,
+                 lib_name: str = LIB_NAME) -> Path:
+    """This host's path for the library `lib_name` (the engine's by
+    default) whose sources are in `src_dir` (`cpu`: the CPU description
+    to key on, default `cpu_id()`)."""
     h = hashlib.sha256()
     h.update(" ".join(COMMAND).encode())
     for p in sorted(Path(src_dir).glob("*.[ch]")):
         h.update(p.name.encode() + b"\0" + p.read_bytes())
     h.update((cpu_id() if cpu is None else cpu).encode())
-    return BUILD_DIR / h.hexdigest()[:16] / LIB_NAME
+    return BUILD_DIR / h.hexdigest()[:16] / lib_name
 
 
 def build_library(cmd: list, check: bool = True):

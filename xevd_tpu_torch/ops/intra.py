@@ -7,7 +7,13 @@ one launch per frame or per GOP batch step) for CUDA planes,
 `intra_scan_ref` (a Python loop over CUs in decode order) for CPU planes.
 With CUDA planes every operand, the CU table included, must be on the
 card.  With `icu_off` it scans the G frames of one time step of a GOP
-batch (K15) in the same launch (`intra_scan_batch_ref` on the CPU).
+batch (K15) in the same launch, its rows handed out in the ticket order
+the pack ships beside the table (ops/pack.py `icu_order`: the rows of
+every frame by their depth in its dependency DAG, `intra_depths`, so the
+frames' chains run side by side, as in JAX's vmapped scan);
+`intra_scan_ticket_ref` walks that order on the CPU, and
+`intra_scan_batch_ref` (frame after frame, JAX's semantics) is what both
+must equal.
 
 `intra_deps_ref` is the kernel's dependency rule written in torch: a CU
 waits for the CUs that wrote the 4x4 cells its masks name.  It equals
@@ -15,11 +21,15 @@ decode order only for a causal table, where every such cell was written
 by an earlier CU or before the scan; the rule refuses any other."""
 from __future__ import annotations
 
+import ctypes
+from pathlib import Path
+
 import numpy as np
 import torch
 
 from ..host import tables as T
 
+from .. import native_build as NB
 from ..kernels import build as K
 from .tables import BORDER
 
@@ -92,6 +102,23 @@ def intra_scan_batch_ref(recs, resids, icu, icu_off, bd, chroma):
     return recs
 
 
+def intra_scan_ticket_ref(recs, resids, icu, icu_off, order, bd, chroma):
+    """Plain version of the batched CUDA scan's walk: the stacked table's
+    rows one by one in ticket order (`order`, int32 [N]: ticket -> row,
+    ops/pack.py `icu_order`), each on its frame's planes.  Equals
+    `intra_scan_batch_ref` whenever the order is a topological order of
+    every frame's dependency DAG (`intra_deps_ref`)."""
+    off = np.asarray(icu_off.cpu())
+    rows = icu.cpu().tolist()
+    for n in order.cpu().tolist():
+        # the last g with off[g] <= n, as csrc/batch.cuh `batch_of`
+        g = int(np.searchsorted(off, n, side="right")) - 1
+        intra_cu_ref([None if r is None else r[g] for r in recs],
+                     [None if r is None else r[g] for r in resids],
+                     rows[n], bd, chroma)
+    return recs
+
+
 def intra_deps_ref(icu, h_scu, w_scu) -> torch.Tensor:
     """The rows each CU row of one frame waits for in the CUDA scan: int64
     [N, 65], the writer of each cell its up mask (units 0..31), left
@@ -143,6 +170,77 @@ def intra_deps_ref(icu, h_scu, w_scu) -> torch.Tensor:
     return deps
 
 
+def intra_depths(icu, h_scu, w_scu) -> np.ndarray:
+    """Each CU row's depth in its frame's dependency DAG under
+    `intra_deps_ref`: int64 [N], 1 + the greatest depth of the rows it
+    waits for (1 for a row that waits for none), 0 for an invalid row.
+    Raises where `intra_deps_ref` does."""
+    t = torch.as_tensor(icu).cpu()
+    deps = intra_deps_ref(t, h_scu, w_scu).numpy()
+    n = len(deps)
+    # each row's distinct writers, as one flat list with row offsets
+    s = np.sort(deps, axis=1)
+    keep = s >= 0
+    keep[:, 1:] &= s[:, 1:] != s[:, :-1]
+    ends = np.cumsum(keep.sum(1)).tolist()
+    writers = s[keep].tolist()
+    valid = (t[:, 7] == 1).tolist()
+    depth = [0] * n
+    lo = 0
+    for r in range(n):          # writers precede their readers
+        hi = ends[r]
+        if valid[r]:
+            d = 0
+            for w in writers[lo:hi]:
+                if depth[w] > d:
+                    d = depth[w]
+            depth[r] = d + 1
+        lo = hi
+    return np.array(depth, np.int64)
+
+
+_DEPTHS_SRC = Path(__file__).resolve().parent.parent / "native"
+_DEPTHS_LIB = None
+
+
+def _depths_lib():
+    """xevd_tpu_torch/native/intra_depths.c, built for this host at first
+    use (native_build.py: keyed on the sources, the command and the CPU);
+    a failed build raises."""
+    global _DEPTHS_LIB
+    if _DEPTHS_LIB is None:
+        so = NB.library_path(_DEPTHS_SRC, lib_name="libxevd_intra_depths.so")
+        if not so.exists():
+            NB.build_library([*NB.COMMAND, "-o", str(so),
+                              str(_DEPTHS_SRC / "intra_depths.c")])
+        lib = ctypes.CDLL(str(so))
+        lib.xevd_intra_depths.argtypes = (ctypes.c_void_p, ctypes.c_int,
+                                          ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_void_p, ctypes.c_void_p)
+        lib.xevd_intra_depths.restype = ctypes.c_int
+        _DEPTHS_LIB = lib
+    return _DEPTHS_LIB
+
+
+def intra_depths_host(icu, h_scu, w_scu) -> np.ndarray:
+    """`intra_depths` by one C pass over the table (native/intra_depths.c):
+    int64 [N], equal to it, and raising where it raises."""
+    t = np.ascontiguousarray(np.asarray(icu), np.int32).reshape(-1, 8)
+    n = len(t)
+    owner = np.empty(max(h_scu * w_scu, 1), np.int32)
+    depth = np.empty(max(n, 1), np.int32)
+    err = _depths_lib().xevd_intra_depths(
+        t.ctypes.data, n, h_scu, w_scu, owner.ctypes.data, depth.ctypes.data)
+    if err < 0:
+        raise ValueError("intra CU outside the cell grid")
+    if err > 2 * n:
+        raise ValueError("intra CUs overlap")
+    if err > 0:
+        raise ValueError(f"non-causal CU table: row {err - n - 1} names a "
+                         "cell that it or a later row writes")
+    return depth[:n].astype(np.int64)
+
+
 def intra_dag_depth(icu, h_scu, w_scu, icu_off=None) -> int:
     """The longest chain of dependent CU rows under `intra_deps_ref` (the
     steps the CUDA scan takes one after another); with `icu_off`, the
@@ -150,34 +248,38 @@ def intra_dag_depth(icu, h_scu, w_scu, icu_off=None) -> int:
     t = torch.as_tensor(icu).cpu()
     off = ([0, t.shape[0]] if icu_off is None
            else torch.as_tensor(icu_off).cpu().tolist())
-    best = 0
-    for lo, hi in zip(off[:-1], off[1:]):
-        deps = intra_deps_ref(t[lo:hi], h_scu, w_scu).numpy()
-        valid = t[lo:hi, 7].numpy() == 1
-        depth = np.zeros(hi - lo + 1, np.int64)    # [-1] = no writer: 0
-        for r in np.nonzero(valid)[0]:
-            depth[r] = 1 + depth[deps[r]].max()
-        best = max(best, int(depth.max()))
-    return best
+    return max([int(intra_depths(t[lo:hi], h_scu, w_scu).max())
+                for lo, hi in zip(off[:-1], off[1:]) if hi > lo] + [0])
 
 
-def intra_scan(recs, resids, icu, bd, chroma, icu_off=None):
+def intra_scan(recs, resids, icu, bd, chroma, icu_off=None, order=None):
     """recs / resids: (y, u, v) bordered int16 planes (u/v unused when not
     `chroma`); icu: int32 [N, 8] CU table in decode order (ops/pack.py).
     Reconstructs every valid CU in place on `recs` and returns them.  A GOP
-    batch of G frames: planes [G, H, W] and `icu_off` int32 [G + 1], frame
-    g's CUs at rows icu_off[g]:icu_off[g + 1]."""
+    batch of G frames: planes [G, H, W], `icu_off` int32 [G + 1], frame
+    g's CUs at rows icu_off[g]:icu_off[g + 1], and `order` int32 [N], the
+    rows in ticket order (ops/pack.py `icu_order`), without which a
+    batched call raises; on the CPU it walks the order
+    (`intra_scan_ticket_ref`)."""
     rec_y, rec_u, rec_v = recs
     res_y, res_u, res_v = resids
     batched = icu_off is not None
+    if batched and order is None:
+        raise ValueError("intra_scan: a batched call needs the ticket order "
+                         "(ops/pack.py icu_order)")
     if rec_y.device.type == "cpu":
         if batched:
-            return intra_scan_batch_ref(recs, resids, icu, icu_off, bd,
-                                        chroma)
+            return intra_scan_ticket_ref(recs, resids, icu, icu_off, order,
+                                         bd, chroma)
         return intra_scan_ref(recs, resids, icu, bd, chroma)
     K.require(icu, torch.int32, 2, contiguous=True)
     if batched:
         K.require(icu_off, torch.int32, 1, contiguous=True)
+    if order is not None:
+        K.require(order, torch.int32, 1, contiguous=True)
+        if order.shape[0] != icu.shape[0]:
+            raise ValueError(f"intra_scan: {order.shape[0]} tickets for "
+                             f"{icu.shape[0]} CU rows")
     nd = 3 if batched else 2
     G = icu_off.shape[0] - 1 if batched else 1
     planes = [(rec_y, res_y)] + ([(rec_u, res_u), (rec_v, res_v)]
@@ -213,7 +315,8 @@ def intra_scan(recs, resids, icu, bd, chroma, icu_off=None):
         res_v.data_ptr() if chroma else None,
         rec_y.stride(-2), rec_u.stride(-2) if chroma else 0,
         icu.data_ptr(), n, bd, int(chroma),
-        icu_off.data_ptr() if batched else None, G,
+        icu_off.data_ptr() if batched else None,
+        order.data_ptr() if order is not None else None, G,
         rec_y.stride(0) if batched else 0,
         rec_u.stride(0) if batched and chroma else 0,
         scratch.data_ptr(), hs, ws, K.stream_ptr(icu.device))

@@ -16,7 +16,8 @@ chroma edges are one list sorted by SCU row and rank, with row offsets
 (no waves), and beside it the same edges by run, which the K10 kernel
 walks (`suco_runs`).
 `stack_frames` stacks the G frames of one time step of a GOP batch (K15)
-into one such payload, with per-frame row offsets.
+into one such payload, with per-frame row offsets and the batched intra
+scan's ticket order over the frames' CU rows (`icu_order`).
 
 Per frame there is one int32 payload and one int16 coefficient buffer, so
 two host->device copies.  The backend packs both into a slot of its
@@ -41,6 +42,7 @@ from ..host import tables as T
 from ..host.syntax import UnsupportedStream
 
 from ..plane import DevicePlane
+from .intra import intra_depths_host
 from .tables import BORDER, PAD_C, PAD_L, PAD_R
 
 # TU table columns (one row per transform unit); trs is 0 for DCT-2, else
@@ -975,8 +977,8 @@ class PackedBatch:
     list's first row."""
     payload: np.ndarray          # int32, see `layout`
     layout: dict                 # tus, tu_off, tu_order, tu_cls, icu,
-    #                              icu_off, mc, mc_off, mc_order, mc_cls,
-    #                              dbst
+    #                              icu_off, icu_order, mc, mc_off,
+    #                              mc_order, mc_cls, dbst
     coefs: np.ndarray            # int16 [G, L]: each frame's coefficients
     coef_shapes: tuple
     G: int
@@ -1002,6 +1004,7 @@ class DeviceBatch:
     tu_order: ItdqOrder          # the TUs by size class, with their g
     icu: torch.Tensor            # int32 [Nc, 8]
     icu_off: torch.Tensor        # int32 [G + 1]
+    icu_order: torch.Tensor      # int32 [Nc]: the scan's tickets' rows
     mc: torch.Tensor             # int32 [Nm, 10], list 0 rows first
     mc_off: torch.Tensor         # int32 [2, G + 1]
     mc_order: McOrder            # the MC rows by class, with their g
@@ -1021,6 +1024,23 @@ def _table(pf: PackedFrame, name: str, ncol: int) -> np.ndarray:
 
 def _offsets(counts) -> np.ndarray:
     return np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+
+
+def icu_order(tables, h_scu: int, w_scu: int) -> np.ndarray:
+    """The batched Baseline intra scan's ticket order (csrc/intra.cu) over
+    the frames' CU tables `tables` stacked one after another: int32 [N],
+    ticket -> stacked row, the rows by (depth in their frame's dependency
+    DAG, frame, row) (ops/intra.py `intra_depths`, the kernel's wait rule,
+    computed by its C pass `intra_depths_host`).
+    A row's writers are shallower, so the order is a topological order of
+    every frame's DAG (a row waits only on rows with lower tickets; a
+    non-causal table raises), and the tickets in flight, about the
+    persistent grid's CTAs, are the frames' next wavefronts side by side:
+    the batch's scan costs about its longest frame's chain, as JAX's
+    vmapped scan does."""
+    depth = np.concatenate([intra_depths_host(t, h_scu, w_scu)
+                            for t in tables] + [np.zeros(0, np.int64)])
+    return np.argsort(depth, kind="stable").astype(np.int32)
 
 
 def stack_frames(frames, slots) -> PackedBatch:
@@ -1065,6 +1085,7 @@ def stack_frames(frames, slots) -> PackedBatch:
     pk.add("tu_cls", tu_order.classes)
     pk.add("icu", np.concatenate(icu))
     pk.add("icu_off", _offsets([len(t) for t in icu]))
+    pk.add("icu_order", icu_order(icu, *f0.geom[2:]))
     n1 = [len(m) - n for m, n in zip(mcs, n0)]
     mc = np.concatenate([m[:n] for m, n in zip(mcs, n0)]
                         + [m[n:] for m, n in zip(mcs, n0)])
@@ -1131,6 +1152,7 @@ def upload_batch(pb: PackedBatch, device: torch.device,
                        tu_order=ItdqOrder(view("tu_order"), view("tu_cls"),
                                           *pb.tu_launch),
                        icu=view("icu"), icu_off=view("icu_off"),
+                       icu_order=view("icu_order"),
                        mc=view("mc"), mc_off=view("mc_off"),
                        mc_order=McOrder(view("mc_order"), view("mc_cls"),
                                         pb.mc_launch),

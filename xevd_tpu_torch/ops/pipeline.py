@@ -61,6 +61,8 @@ from .staging import HostStaging
 from .tables import BORDER, device_tables
 
 STAGES = ("pack", "upload", "itdq", "mc", "recon", "intra", "deblock", "alf", "pad")
+# the stages `run_frames_device` marks in a GOP batch step, in order
+GOP_STAGES = ("itdq", "mc", "recon", "intra", "deblock", "pad")
 
 
 def residuals_and_recon(df: PK.DeviceFrame, tables: dict, mark=None):
@@ -173,14 +175,18 @@ class DpbStep:
     out: tuple
 
 
-def run_frames_device(batch: PK.DeviceBatch, tables: dict, dpb: DpbStep):
+def run_frames_device(batch: PK.DeviceBatch, tables: dict, dpb: DpbStep,
+                      on_stage=None):
     """Device half of the G frames of one time step of a GOP batch: ITDQ
-    -> MC (steps with inter blocks) -> recon -> Baseline intra scan ->
-    Baseline deblock -> pad-expand into `dpb.out`, each a single launch
-    over the batch (a launch per plane for recon and the chroma passes, as
-    for one frame; pad one launch over Y, U and V).  Frames of one step
-    share size, bit depth and frame flags (ops/pack.py `stack_frames`).
-    Returns dpb.out."""
+    -> MC (steps with inter blocks) -> recon -> Baseline intra scan (the
+    frames' CU rows interleaved by the batch's ticket order, so their
+    chains run side by side) -> Baseline deblock -> pad-expand into
+    `dpb.out`, each a single launch over the batch (a launch per plane for
+    recon and the chroma passes, as for one frame; pad one launch over Y,
+    U and V).  Frames of one step share size, bit depth and frame flags
+    (ops/pack.py `stack_frames`).  `on_stage(name)`, if given, is called
+    after each stage (GOP_STAGES).  Returns dpb.out."""
+    mark = on_stage or (lambda name: None)
     pb = batch.packed
     bd, chroma = pb.bd, pb.chroma
     if batch.tus.is_cuda:
@@ -188,6 +194,7 @@ def run_frames_device(batch: PK.DeviceBatch, tables: dict, dpb: DpbStep):
     resids = itdq((batch.coef_y, batch.coef_u, batch.coef_v), batch.tus,
                   pb.shp_y, pb.shp_c, bd, tables, pb.iqt, tu_off=batch.tu_off,
                   order=batch.tu_order)
+    mark("itdq")
     if batch.mc.shape[0]:
         pred_y, cnt_y, pred_u, pred_v, cnt_c = mc_all(
             batch.mc, pb.mc_lists, dpb.refs, pb.shp_y, pb.shp_c, bd, tables,
@@ -195,9 +202,13 @@ def run_frames_device(batch: PK.DeviceBatch, tables: dict, dpb: DpbStep):
         preds = ((pred_y, cnt_y), (pred_u, cnt_c), (pred_v, cnt_c))
     else:
         preds = ((None, None),) * 3
+    mark("mc")
     recs = tuple(None if r is None else recon(r, bd, *p)
                  for r, p in zip(resids, preds))
-    intra_scan(recs, resids, batch.icu, bd, chroma, icu_off=batch.icu_off)
+    mark("recon")
+    intra_scan(recs, resids, batch.icu, bd, chroma, icu_off=batch.icu_off,
+               order=batch.icu_order)
+    mark("intra")
     h, w, h_scu, w_scu = pb.geom
     H4, W4 = h_scu * 4, w_scu * 4
     areas = [recs[0][:, BORDER:BORDER + H4, BORDER:BORDER + W4]]
@@ -208,7 +219,9 @@ def run_frames_device(batch: PK.DeviceBatch, tables: dict, dpb: DpbStep):
         areas += [None, None]
     if pb.deblock_on:
         deblock_frame(*areas, batch.dbst, bd)
+    mark("deblock")
     pad_picture(*areas, h, w, chroma, out=dpb.out)
+    mark("pad")
     return dpb.out
 
 

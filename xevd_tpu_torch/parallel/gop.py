@@ -24,7 +24,9 @@ checksum.  Here:
           device's GOPs as ONE batch through `ops/pipeline.
           run_frames_device`: one launch per kernel per step, whatever the
           batch -- the GOP axis is a batch axis of the kernels
-          (csrc/batch.cuh).  No upload waits for a kernel: step t + 1 is
+          (csrc/batch.cuh), and the intra scan interleaves the frames'
+          CU rows (ops/pack.py `icu_order`), so a step's scan costs about
+          its longest frame's chain, as JAX's vmapped scan does.  No upload waits for a kernel: step t + 1 is
           staged and copied while step t's kernels run.  The DPB is a
           carry on the device, int16 [D, G_dev, h + 2 PAD, w + 2 PAD] a
           plane, written as a ring (step t into slot t % D; no picture is
@@ -286,8 +288,10 @@ class _DeviceRun:
         "start" (its stream current), after the copy into the slot
         ("stage") and after the copies to the card were issued ("copy"),
         both with the upload stream current, after the kernel stream's
-        wait was issued ("wait"), after `run_frames_device` ("step") and
-        after the checksum and the output copies ("output")."""
+        wait was issued ("wait"), after each stage of `run_frames_device`
+        ("itdq", "mc", "recon", "intra", "deblock", "pad"), after it
+        returned ("step") and after the checksum and the output copies
+        ("output")."""
         mark = mark or (lambda name: None)
         with self._on():
             mark("start")
@@ -298,7 +302,8 @@ class _DeviceRun:
                 batch = PK.upload_batch(pb, self.dev, reader=self.stream)
                 mark("copy")
             mark("wait")
-            out = run_frames_device(batch, self.tables, self.dpb(t, pb.G))
+            out = run_frames_device(batch, self.tables, self.dpb(t, pb.G),
+                                    mark)
             mark("step")
             crops = [o[:, P:P + (self.h >> s), P:P + (self.w >> s)]
                      for o, P, s in zip(out, (PAD_L, PAD_C, PAD_C),
