@@ -89,6 +89,29 @@
    each frame's copies (the pack two frames later finds its slot's copies
    queued: the ring must wait at least once); each output equal to the
    numpy oracle.
+   Config-4 phase (BASELINE.json configs[3], Main 4K 10-bit): the
+   committed 3840x2160 10-bit Main RA stream with config 3's 14 tools and
+   DRA (xevd_tpu_torch/streams/c4.evc, 5 pictures; bench.py CONFIGS["c4"])
+   decoded once through Decoder + TorchPixelBackend("cuda") with the
+   launch counters: every kernel of the main path's list launched (ITDQ,
+   recon, pad, MC, the EIPD scan, ADDB, ALF: MC once a list with blocks,
+   ADDB, ALF and pad once a picture that has them) and none of the
+   Baseline intra scan, K10 and the Baseline deblock; every frame's MD5
+   equal to the committed numpy-oracle MD5 (c4.json).  Prints each
+   picture's stage ms (the I picture's intra stage is K6 with K7),
+   torch.cuda.max_memory_allocated() and the kernel table's 4K column: each
+   kernel of the path on the I picture and on the B picture with the most
+   MC blocks, on the inputs the path handed it, held to its plain version
+   there (exact; K6 in 5 launches) and timed by CUDA-graph replays beside
+   its bound.  K6's plain version runs on the B picture alone (on the I
+   picture it takes some 2 minutes): there its 5 launches are held to each
+   other and the frame MD5s hold the result.  Fails past 90 s.
+   Stage-diff phase: `python -m xevd_tpu_torch.diff --stages`'s
+   function on the card against the numpy oracle's processes (one a
+   knock-out): the CIF 10-bit Main stream with ADDB and ALF agrees under
+   every knock-out, and the CIF 10-bit intra stream with one chroma
+   vertical strength raised on the port's side agrees only with
+   deblocking off and under `nover`.
 5. GOP phase (K15, xevd_tpu_torch/parallel/gop.py): 8 independent
    1920x1080 Baseline IPPP GOPs of 2, 3 or 4 frames (xevd_tpu/parallel/
    gop.py `gen_gop_streams(8, 1920, 1080, frames=2, variable=True)`'s
@@ -150,7 +173,11 @@
    and `gop_step` with `ms_step0` and `ms_device_step0`, their times on
    step 0, and `gop_intra_scan` with `depth_step0` and
    `ms_device_step0_alone(_max)`, step 0's DAG depth and its pictures'
-   scans alone) and, as the last line, {"ok": true, "device": {...}}.
+   scans alone; the config-4 path's kernels with `c4_launches` (the 5
+   pictures' launches) and `c4_ms_device_i` / `_b`, `c4_stage_ms_i` /
+   `_b`, `c4_bound_ms_i` / `_b` and `c4_plain_ms_i` / `_b`, their 4K
+   column on its I and B picture; `max_abs_err` covers the 4K comparisons
+   too) and, as the last line, {"ok": true, "device": {...}}.
 
 Any failure raises and the exit code is non-zero.  Imports neither JAX
 nor `xevd_tpu`: the reference runs in its own processes.
@@ -907,39 +934,6 @@ def reference_result(proc, name):
     return r["frames"], r["gen_s"], r["numpy_s"]
 
 
-def decode_to_yuv(data: bytes, backend, out: Path) -> int:
-    """Decode a length-prefixed NALU stream with the port's Decoder and
-    write 10-bit YUV; returns the number of frames written."""
-    from xevd_tpu_torch.host import NAL_UNIT_LENGTH_BYTE, Decoder, info
-    from xevd_tpu_torch.host.utils.yuv import YuvWriter
-
-    dec = Decoder(backend=backend)
-    pos, writer, n = 0, None, 0
-    frames = []
-    while pos + NAL_UNIT_LENGTH_BYTE <= len(data):
-        ln, _, _ = info(data[pos:pos + 6])
-        stat = dec.decode(data[pos + 4:pos + 4 + ln])
-        pos += 4 + ln
-        if stat.fnum >= 0:
-            f, _ = dec.pull()
-            if f is not None:
-                frames.append(f)
-    while True:
-        f, _ = dec.pull()
-        if f is None:
-            break
-        frames.append(f)
-    for f in frames:
-        if writer is None:
-            writer = YuvWriter(str(out), f.y.shape[1], f.y.shape[0], 10,
-                               f.chroma_format_idc)
-        writer.write(f)
-        n += 1
-    if writer:
-        writer.close()
-    return n
-
-
 # the stage marks timed by the host clock (ops/pipeline.py STAGES): the
 # pack into a staging slot, and the upload, the issue of its two copies
 # from the pinned slot (their device time: events before and after them)
@@ -956,6 +950,7 @@ def counted_run(torch, K, backend, name, reps, marks, stages):
     launch counters reset just before; each run's output must equal the
     numpy backend's.  Returns (counts, frames/s per run, stage ms a frame
     of the last run)."""
+    from xevd_tpu_torch.diff import port_decode
     path = STREAM_DIR / f"torch_smoke_{name}.evc"
     data = path.read_bytes()
     want = (WORK / f"{name}_np.yuv").read_bytes()
@@ -965,7 +960,7 @@ def counted_run(torch, K, backend, name, reps, marks, stages):
     for rep in range(reps):
         marks.clear()
         t0 = time.perf_counter()
-        n = decode_to_yuv(data, backend, WORK / f"{name}_t2.yuv")
+        n = port_decode(data, WORK / f"{name}_t2.yuv", backend)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         if (WORK / f"{name}_t2.yuv").read_bytes() != want:
@@ -1003,6 +998,7 @@ def counted_run(torch, K, backend, name, reps, marks, stages):
 def slice_phase(torch, dev, K, results, prepared):
     from xevd_tpu_torch import TorchPixelBackend
     from xevd_tpu_torch.app import main as app_main
+    from xevd_tpu_torch.diff import port_decode
     from xevd_tpu_torch.ops.pipeline import STAGES
 
     class KeepingBackend(TorchPixelBackend):
@@ -1025,7 +1021,8 @@ def slice_phase(torch, dev, K, results, prepared):
         path = STREAM_DIR / f"torch_smoke_{name}.evc"
         t0 = time.perf_counter()
         backend = KeepingBackend(dev)
-        n_t = decode_to_yuv(path.read_bytes(), backend, WORK / f"{name}_t.yuv")
+        n_t = port_decode(path.read_bytes(), WORK / f"{name}_t.yuv",
+                          backend)
         packed[name] = backend.packed
         torch.cuda.synchronize()
         t_t = time.perf_counter() - t0
@@ -1135,6 +1132,291 @@ def slice_phase(torch, dev, K, results, prepared):
     return runs
 
 
+# config 4 (BASELINE.json configs[3], Main 4K 10-bit): the committed
+# 3840x2160 10-bit Main RA stream and its numpy-oracle MD5s
+# (xevd_tpu_torch/streams/c4.evc, c4.json; bench.py CONFIGS["c4"]); the
+# kernels its path needs and those it must not launch, as the main path's
+C4_NEEDED = ("itdq", "recon", "pad", "mc", "intra_scan_wave", "addb_frame",
+             "alf_frame")
+C4_BARRED = ("intra_scan", "chroma_ver_ordered", "deblock_luma",
+             "deblock_chroma_ver", "deblock_chroma_hor")
+C4_LIMIT_S = 90          # the phase, its kernel column included
+C4_GRAPH_REPS = 5        # graph replays a kernel in the 4K column
+C4_SCAN_LAUNCHES = 5     # K6's launches on each 4K picture (race check)
+
+
+def frame_stage_ms(marks):
+    """Each frame's stage ms from `bench.StageMarks` marks ("start" opens a
+    frame): the pack and the upload's issue by the host clock, the other
+    stages by CUDA events between marks (h2d_events: the copies)."""
+    frames, prev = [], None
+    for name, ev, t in marks.marks:
+        if name == "start":
+            frames.append({})
+        else:
+            _, pev, pt = prev
+            frames[-1][name] = ((t - pt) * 1e3 if name in HOST_STAGES
+                                else pev.elapsed_time(ev))
+            if name == "upload":
+                frames[-1]["h2d_events"] = pev.elapsed_time(ev)
+        prev = (name, ev, t)
+    return frames
+
+
+def c4_kernel_column(torch, dev, pf, label, scan_plain):
+    """The 4K column of the kernel table on one kept picture of the config-4
+    path: each kernel the path ran on it, on the inputs the path handed it
+    (each stage's input made by the path's own kernels), held to its plain
+    version on the same inputs (exact) and timed by C4_GRAPH_REPS one-call
+    CUDA-graph replays; with its bytes and operations (tests/torch_helpers.py
+    work functions) and bound.  K6 launches C4_SCAN_LAUNCHES times from the
+    same inputs.  Without `scan_plain` (the I picture: plain K6 takes some 2
+    minutes there) K6's plain version does not run: its launches are held
+    to each other, and the frame MD5s hold the result.  Returns {kernel:
+    {"ms_device", "plain_ms", "max_abs_err", "shape", "bytes", "ops",
+    "bound_ms", "bound_by"}} ("plain_ms", "max_abs_err" None where the plain
+    version did not run)."""
+    from tests.torch_helpers import (KernelCase, addb_frame_case,
+                                     alf_frame_case, frame_areas_before,
+                                     intra_wave_planes_case, itdq_work,
+                                     max_abs_err, mc_table_case,
+                                     pad_areas_case, planes_before_intra,
+                                     repeat_equal)
+    from tests.torch_mc_times import graph_ms
+    from xevd_tpu_torch.ops import itdq as TQ
+    from xevd_tpu_torch.ops import recon as TR
+    from xevd_tpu_torch.ops.tables import device_tables
+
+    tab = device_tables(dev)
+    h, w = pf.geom[:2]
+    recs, resids, df = planes_before_intra(pf, dev)
+    args = ((df.coef_y, df.coef_u, df.coef_v), df.tus, pf.shp_y, pf.shp_c,
+            pf.bd, tab, pf.iqt)
+    cases = [KernelCase("itdq", label,
+                        lambda: TQ.itdq(*args, order=df.tu_order),
+                        lambda: TQ.itdq_ref(*args), *itdq_work(df.tus))]
+    preds = ((None, None),) * 3
+    if pf.refs:
+        mc = mc_table_case(dev, df.mc, pf.mc_lists, pf.refs, pf.shp_y,
+                           pf.shp_c, pf.bd, label, pf.main_taps,
+                           order=df.mc_order)
+        cases.append(mc)
+        p = mc.kernel()
+        preds = ((p[0], p[1]), (p[2], p[4]), (p[3], p[4]))
+    # recon: each plane's residual read and picture written (int16), with
+    # the int32 prediction and int8 count read on an inter picture
+    planes = [(r, q) for r, q in zip(resids, preds) if r is not None]
+    cases.append(KernelCase(
+        "recon", label,
+        lambda: [TR.recon(r, pf.bd, *q) for r, q in planes],
+        lambda: [TR.recon_ref(r, pf.bd, *q) for r, q in planes],
+        sum(r.numel() * (4 if q[0] is None else 9) for r, q in planes),
+        sum(r.numel() * (3 if q[0] is None else 5) for r, q in planes)))
+    cases.append(intra_wave_planes_case(
+        dev, recs, resids, df.icu, df.level_off, pf.bd, pf.chroma,
+        f"{label}, {df.icu.shape[0]} CUs, {df.level_off.shape[0] - 1} "
+        f"levels"))
+    areas, dfd = frame_areas_before(pf, dev, "deblock")
+    cases.append(addb_frame_case(dev, areas, dfd.addb_l, dfd.addb_c, pf.bd,
+                                 label))
+    if alf_runs(pf):
+        areas, dfa = frame_areas_before(pf, dev, "alf")
+        cases.append(alf_frame_case(dev, areas, dfa.alf_l, dfa.alf_c,
+                                    dfa.alf_on, h, w, pf.alf, pf.bd, label))
+    cases.append(pad_areas_case(dev, areas, h, w, pf.chroma, label))
+    out = {}
+    for c in cases:
+        scan = c.name == "intra_scan_wave"
+        got = c.kernel()
+        if scan and not scan_plain:
+            want, err, plain_ms = [None if t is None else t.clone()
+                                   for t in got], None, None
+        else:
+            torch.cuda.synchronize()
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            want = c.plain()
+            t1.record()
+            torch.cuda.synchronize()
+            err, plain_ms = max_abs_err(got, want), t0.elapsed_time(t1)
+        if scan:
+            e = repeat_equal(c, want, C4_SCAN_LAUNCHES - 1)
+            if e:
+                raise AssertionError(f"c4 {label}: K6's launches differ "
+                                     f"(max abs err {e} over "
+                                     f"{C4_SCAN_LAUNCHES} launches)")
+        if err:
+            raise AssertionError(f"c4 {label}: {c.name} != plain (max abs "
+                                 f"err {err})")
+        t_bytes = c.bytes / HBM_BYTES_PER_S
+        t_ops = c.ops / SCALAR_OPS_PER_S
+        out[c.name] = {"ms_device": graph_ms(torch, c.kernel, C4_GRAPH_REPS),
+                       "plain_ms": plain_ms, "max_abs_err": err,
+                       "shape": c.shape, "bytes": c.bytes, "ops": c.ops,
+                       "bound_ms": max(t_bytes, t_ops) * 1e3,
+                       "bound_by": "bytes" if t_bytes >= t_ops
+                       else "operations"}
+    return out
+
+
+def c4_phase(torch, dev, K, results):
+    """Config 4 on the card: the committed 3840x2160 10-bit Main RA stream
+    (5 pictures) decoded once through Decoder + TorchPixelBackend("cuda")
+    (the bench's decode: every output frame read to the host) with the
+    launch counters reset just before and read just after: every kernel of
+    C4_NEEDED launched and none of C4_BARRED, MC once a list with blocks,
+    ADDB, ALF and pad once a picture that has them; every frame's MD5
+    equal to the committed oracle MD5.  Prints each picture's stage ms
+    (the I picture's intra stage is K6 with K7), the peak device memory
+    and the kernel table's 4K column on the I picture and the B picture
+    with the most MC blocks (`c4_kernel_column`: every kernel held to its
+    plain version on both pictures, K6 on the B picture alone), and fails
+    past C4_LIMIT_S."""
+    from xevd_tpu_torch import TorchPixelBackend
+    from xevd_tpu_torch import bench as B
+    from xevd_tpu_torch.host.tables import SLICE_B, SLICE_I, SLICE_P
+
+    t0 = time.perf_counter()
+    evc, js = B.stream_pair("c4")
+    rec = json.loads(js.read_text())
+    if rec["spec"] != json.loads(json.dumps(B.CONFIGS["c4"])):
+        raise AssertionError("the committed c4 pair's spec is not "
+                             "bench.CONFIGS['c4']")
+    w, h = rec["spec"][:2]
+    pics = []          # (slice type, the frame's launches, kept pf)
+
+    class C4Backend(TorchPixelBackend):
+        def decode_frame(self, job, sps, refp):
+            pics.append([job.fs.sh.slice_type])
+            return super().decode_frame(job, sps, refp)
+
+        def pack_frame(self, job, sps, refp):
+            pf = super().pack_frame(job, sps, refp)
+            pics[-1] += [{"mc": sum(int(n > 0) for n in pf.mc_lists),
+                          "addb_frame": int(pf.addb),
+                          "alf_frame": int(alf_runs(pf)), "pad": 1},
+                         pf.copy()]
+            return pf
+
+    marks = B.StageMarks(dev)
+    log(f"phase c4: {evc.relative_to(REPO)} ({evc.stat().st_size} B, "
+        f"{w}x{h} 10-bit Main RA, {len(rec['md5s'])} frames, spec "
+        f"{json.dumps(rec['spec'])})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)    # by earlier phases
+    K.reset_counts()
+    t1 = time.perf_counter()
+    frames, host_s, engine = B.decode(evc.read_bytes(),
+                                      C4Backend(dev, on_stage=marks))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = dict(K.launch_counts)
+    peak = torch.cuda.max_memory_allocated(dev)
+    B.check_frames(frames, rec["md5s"], "config 4")
+    del frames
+    missing = [k for k in C4_NEEDED if counts[k] == 0]
+    stray = [k for k in C4_BARRED if counts[k]]
+    want = {k: sum(p[1][k] for p in pics) for k in pics[0][1]}
+    wrong = {k: (counts[k], n) for k, n in want.items() if counts[k] != n}
+    if missing or stray or wrong:
+        raise AssertionError(f"c4 path: kernels never launched {missing}, "
+                             f"launched {stray}, or launches (counted, "
+                             f"expected) {wrong} ({counts})")
+    stage = frame_stage_ms(marks)
+    if len(stage) != len(pics):
+        raise AssertionError(f"c4: {len(stage)} marked frames, {len(pics)} "
+                             "decoded")
+    n = len(pics)
+    log(f"  c4: {len(rec['md5s'])} frames, every MD5 equal to the committed "
+        f"numpy-oracle MD5; {wall:.3f} s ({n / wall:.3f} frames/s, "
+        f"host in Decoder.decode {host_s:.3f} s, entropy engine {engine}); "
+        f"launches {counts}")
+    kind = {SLICE_B: "B", SLICE_P: "P", SLICE_I: "I"}
+    for i, (st, _, _) in enumerate(pics):
+        log(f"  c4 picture {i} (decode order, {kind[st]}) stage ms: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in stage[i].items()))
+    log(f"  c4 peak device memory: torch.cuda.max_memory_allocated() = "
+        f"{peak} B ({peak / 2 ** 30:.3f} GiB), {held} B of it held before "
+        f"the decode; the decode's own peak {peak - held} B")
+    i_pic = next(i for i, p in enumerate(pics) if p[0] == SLICE_I)
+    b_pic = max((i for i, p in enumerate(pics) if p[0] == SLICE_B),
+                key=lambda i: sum(pics[i][2].mc_lists))
+    log(f"  c4 I picture (decode order {i_pic}): intra stage (K6 with K7) "
+        f"{stage[i_pic]['intra']:.3f} ms by events")
+    decode_s = time.perf_counter() - t0
+    column = {}
+    for key, i in (("i", i_pic), ("b", b_pic)):
+        pf = pics[i][2]
+        col = c4_kernel_column(torch, dev, pf,
+                               f"4K {key.upper()} picture {i}", key == "b")
+        for name, r in col.items():
+            column.setdefault(name, {})[key] = r
+            how = (f"equal to plain ({r['plain_ms']:.1f} ms)"
+                   if r["plain_ms"] is not None else
+                   f"{C4_SCAN_LAUNCHES} launches equal, no plain")
+            log(f"  c4 4K column, picture {i} ({key.upper()}): {name:16s} "
+                f"{how}; device {r['ms_device']:.4f} ms (graph), stage "
+                f"{stage[i].get(STAGE_OF[name], float('nan')):.4f} ms "
+                f"(events), bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+                f"{r['bytes']} B); {r['shape']}")
+    pics.clear()
+    for name, c in column.items():
+        r = results.setdefault(name, {"max_abs_err": 0})
+        r["c4_launches"] = counts[name]
+        for key, x in c.items():
+            i = i_pic if key == "i" else b_pic
+            r[f"c4_ms_device_{key}"] = x["ms_device"]
+            r[f"c4_stage_ms_{key}"] = stage[i].get(STAGE_OF[name])
+            r[f"c4_bound_ms_{key}"] = x["bound_ms"]
+            r[f"c4_plain_ms_{key}"] = x["plain_ms"]
+            if x["max_abs_err"] is not None:
+                r["max_abs_err"] = max(r["max_abs_err"], x["max_abs_err"])
+    seconds = time.perf_counter() - t0
+    log(f"  c4 on {gpu_line()}: phase {seconds:.1f} s (decode and checks "
+        f"{decode_s:.1f} s)")
+    if seconds > C4_LIMIT_S:
+        raise AssertionError(f"c4 phase took {seconds:.1f} s, over "
+                             f"{C4_LIMIT_S} s")
+    return {"frames": n, "fps": n / wall, "wall_s": wall,
+            "peak_bytes": peak, "held_bytes": held, "counts": counts,
+            "seconds": seconds}
+
+
+# the pipeline stage (ops/pipeline.py STAGES) in which each kernel runs
+STAGE_OF = {"itdq": "itdq", "mc": "mc", "recon": "recon",
+            "intra_scan_wave": "intra", "addb_frame": "deblock",
+            "alf_frame": "alf", "pad": "pad"}
+
+
+def stage_diff_phase(dev):
+    """The stage-diff tool (`python -m xevd_tpu_torch.diff --stages`) on
+    the card against the numpy oracle's processes: the CIF 10-bit Main
+    stream with ADDB and ALF must agree under every knock-out; the CIF
+    10-bit intra stream with one chroma vertical strength raised on the
+    port's side (`raise_chroma_ver_strength`) must agree only with
+    deblocking off and under `nover`."""
+    from tests.torch_helpers import raise_chroma_ver_strength
+    from xevd_tpu_torch import diff as D
+
+    t0 = time.perf_counter()
+    for name, hook, agree in (
+            ("cif10_main_alf", None, {"none", *D.KNOCKOUTS}),
+            ("cif10_i", raise_chroma_ver_strength, {"nodb", "nover"})):
+        w, h = STREAMS[name][:2]
+        d = D.stage_diffs(STREAM_DIR / f"torch_smoke_{name}.evc", w, h,
+                          device=dev.type, port_hook=hook)
+        log(f"phase stage-diff: {name}"
+            f"{' with a planted chroma ver fault' if hook else ''}:\n"
+            + D.format_stages(d))
+        got = {m for m, x in d.items() if x["equal"]}
+        if got != agree:
+            raise AssertionError(f"stage-diff on {name}: agree under "
+                                 f"{sorted(got)}, expected {sorted(agree)}")
+    log(f"phase stage-diff: {time.perf_counter() - t0:.1f} s")
+
+
 def staging_phase(torch, dev):
     """The staging ring (ops/staging.py) on the config-3 cut and the 1080p
     IPPP cut, each decode equal to the numpy oracle: first with
@@ -1146,6 +1428,7 @@ def staging_phase(torch, dev):
     queued: the ring must have waited on a slot's event (`waits` > 0).
     Returns {stream: waits}."""
     from xevd_tpu_torch import TorchPixelBackend
+    from xevd_tpu_torch.diff import port_decode
 
     class NoSyncBackend(TorchPixelBackend):
         """Raises on a synchronising call inside decode_frame."""
@@ -1173,7 +1456,7 @@ def staging_phase(torch, dev):
                     dev, on_stage=sleep_before_copies))):
             out = WORK / f"{name}_staging.yuv"
             t0 = time.perf_counter()
-            n = decode_to_yuv(data, backend, out)
+            n = port_decode(data, out, backend)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             if out.read_bytes() != want:
@@ -1300,6 +1583,7 @@ def gop_phase(torch, dev, K, results, workers):
     record)."""
     from tests.torch_helpers import gop_step_cases
     from xevd_tpu_torch import TorchPixelBackend
+    from xevd_tpu_torch.diff import port_decode
     from xevd_tpu_torch.parallel import gop as TG
 
     log("phase gop: 8 1080p Baseline IPPP GOPs (K15); streams and captures "
@@ -1465,8 +1749,8 @@ def gop_phase(torch, dev, K, results, workers):
     n = 0
     outs = []
     for g in range(len(caps)):
-        n += decode_to_yuv((STREAM_DIR / f"torch_smoke_gop{g}.evc")
-                           .read_bytes(), backend, WORK / f"gop{g}_t.yuv")
+        n += port_decode((STREAM_DIR / f"torch_smoke_gop{g}.evc")
+                         .read_bytes(), WORK / f"gop{g}_t.yuv", backend)
         outs.append((WORK / f"gop{g}_t.yuv").read_bytes())
     w, h = GOP_SPECS[0][:2]
     fsz = w * h * 3                       # 4:2:0, 2 bytes a sample
@@ -1573,6 +1857,8 @@ def main() -> int:
         kernel_phases(torch, dev, results)
         entry_phase(torch, K)
         runs = slice_phase(torch, dev, K, results, prepared)
+        c4 = c4_phase(torch, dev, K, results)
+        stage_diff_phase(dev)
         ring_waits = staging_phase(torch, dev)
         runs["gop"] = gop_phase(torch, dev, K, results, gop_workers)
         big_gop = big_gop_phase(torch, dev, K, results, big_gop_worker)
@@ -1593,7 +1879,7 @@ def main() -> int:
         counter = name[4:] if name in (f"gop_{k}" for k in GOP_KERNELS) \
             else name
         extra = {k: r[k] for k in r
-                 if k.startswith(("ms_", "library_", "depth_"))
+                 if k.startswith(("ms_", "library_", "depth_", "c4_"))
                  and k != "library_ms"}
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces,
@@ -1623,6 +1909,7 @@ def main() -> int:
     log(f"GOP batch past 32 ring pictures: {json.dumps(big_gop)}")
     log(f"GOP batch with the Main taps: {json.dumps(main_gop)}")
     log(f"staging ring waits under pressure: {json.dumps(ring_waits)}")
+    log(f"config 4 (3840x2160 10-bit Main RA): {json.dumps(c4)}")
     log(f"bench phase {bench_s:.1f} s")
     log(f"total smoke time {time.perf_counter() - t_start:.1f} s")
     log(gpu_line())

@@ -26,19 +26,9 @@ from xevd_tpu_torch.ops.tables import (BORDER, PAD_C, PAD_L, PAD_R,
                                        device_tables)
 from xevd_tpu_torch.plane import DevicePlane
 
-
-def use_port_native_library():
-    """Point `xevd_tpu`'s native engine at the library the port builds for
-    this host (xevd_tpu_torch/native_build.py; the same sources), before
-    the JAX package's decoders run: `xevd_tpu.native` would load the
-    committed native/libevc_entropy.so, built `-march=native` on another
-    host, which dies with SIGILL on a CPU that lacks its instructions.
-    Edits no file of `xevd_tpu`: only its module's library path."""
-    import xevd_tpu.native as XN
-    from xevd_tpu_torch.host import native as PN
-    PN.get_lib()         # this host's build, made here on first use
-    if XN._SO != PN._SO:
-        XN._SO, XN._LIB = PN._SO, None
+# the oracle's process (torch_reference.py) loads no torch: its helper
+# lives there, and the tests take it from here
+from tests.torch_reference import use_port_native_library  # noqa: F401
 
 
 def quadtree(rng, H, W, log2_max, log2_min):
@@ -1701,3 +1691,17 @@ def gop_step_cases(dev, caps, t=1):
         lambda: gop_step_plain(b, tab, dpb),
         step_bytes, sum(c.ops for c in cases), graph_calls=1))
     return cases
+
+
+# --------------------------------------------------------------------------
+# the stage-diff tool (xevd_tpu_torch/diff.py --stages)
+# --------------------------------------------------------------------------
+def raise_chroma_ver_strength(job):
+    """A planted fault for the stage-diff tool, on one side's job: the first
+    U vertical edge with a strength raised to 64, its map replaced (with
+    deblocking off the decoder shares one zero map among all six)."""
+    m = np.array(job.db_ver_u)
+    on = np.flatnonzero(m)
+    if len(on):
+        m.flat[on[0]] = 64
+    job.db_ver_u = m

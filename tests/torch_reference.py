@@ -24,10 +24,14 @@ to OUT_DIR/<i>.evc (kept when it exists), all in one process, and prints
 {"streams", "gen_s"}.
 
     python tests/torch_reference.py --decode IN_EVC OUT_YUV
+        [--knockout MODE] [--frames N]
 
 decodes an existing stream with the numpy oracle to 10-bit YUV (the
 oracle side of `python -m xevd_tpu_torch.diff`) and prints {"bytes",
-"numpy_s"}."""
+"numpy_s"}: under knock-out MODE (`xevd_tpu_torch/knockout.py`,
+applied to each frame's job by a wrapper of the oracle backend's
+`decode_frame` in this process: the side of `--stages`), and the first N
+output frames alone (0: all)."""
 from __future__ import annotations
 
 import json
@@ -53,15 +57,42 @@ def write_stream(spec, evc: Path):
     tmp.replace(evc)
 
 
-def numpy_decode(evc: Path, yuv: Path) -> float:
+def use_port_native_library():
+    """Point `xevd_tpu`'s native engine at the library the port builds for
+    this host (xevd_tpu_torch/native_build.py; the same sources), before
+    the JAX package's decoders run: `xevd_tpu.native` would load the
+    committed native/libevc_entropy.so, built `-march=native` on another
+    host, which dies with SIGILL on a CPU that lacks its instructions.
+    Edits no file of `xevd_tpu`: only its module's library path.  Loads
+    no torch (the port's host half alone)."""
+    import xevd_tpu.native as XN
+    from xevd_tpu_torch.host import native as PN
+    PN.get_lib()         # this host's build, made here on first use
+    if XN._SO != PN._SO:
+        XN._SO, XN._LIB = PN._SO, None
+
+
+def numpy_decode(evc: Path, yuv: Path, knockout="none", frames=0) -> float:
     """Decode `evc` with xevd_tpu's numpy oracle backend to 10-bit YUV in
-    `yuv`; returns the seconds it took."""
-    from tests.torch_helpers import use_port_native_library
+    `yuv`, under `knockout` (`xevd_tpu_torch/knockout.py` `knock_out`) and
+    the first `frames` output frames (0: all); returns the seconds it
+    took.  The process loads no torch and none of the port's device
+    code."""
     from xevd_tpu.app import main as xevd_main
     use_port_native_library()
+    if knockout != "none":
+        from xevd_tpu.decoder import NumpyPixelBackend
+        from xevd_tpu_torch.knockout import knock_out
+        decode_frame = NumpyPixelBackend.decode_frame
+
+        def knocked_out(self, job, sps, refp):
+            knock_out(job, knockout)
+            return decode_frame(self, job, sps, refp)
+        NumpyPixelBackend.decode_frame = knocked_out
     t0 = time.perf_counter()
     rc = xevd_main(["-i", str(evc), "-o", str(yuv), "--output-bit-depth",
-                    "10", "-v", "0", "--backend", "numpy"])
+                    "10", "-v", "0", "--backend", "numpy", "-f",
+                    str(frames)])
     if rc != 0:
         raise RuntimeError(f"numpy oracle decode of {evc} failed: rc {rc}")
     return time.perf_counter() - t0
@@ -72,7 +103,10 @@ def main(argv) -> int:
     sys.path.insert(0, str(REPO / "tools"))
     if argv[0] == "--decode":
         yuv = Path(argv[2])
-        t_np = numpy_decode(Path(argv[1]), yuv)
+        opts = dict(zip(argv[3::2], argv[4::2]))
+        t_np = numpy_decode(Path(argv[1]), yuv,
+                            opts.get("--knockout", "none"),
+                            int(opts.get("--frames", 0)))
         print(json.dumps({"bytes": yuv.stat().st_size, "numpy_s": t_np}))
         return 0
     if argv[0] == "--streams":

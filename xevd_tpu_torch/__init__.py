@@ -8,12 +8,20 @@ The host half (bitstream, entropy decode, derive, DPB, `Decoder`) is
     from xevd_tpu_torch import Decoder, TorchPixelBackend
     dec = Decoder(backend=TorchPixelBackend(device="cuda"))
 
-Nothing here imports JAX or `xevd_tpu`.
+Nothing here imports JAX or `xevd_tpu`.  `TorchPixelBackend` (and with
+it torch) loads on first use: the host half and the stage-diff tool's
+knock-outs (`knockout.py`) import without torch, as the numpy oracle's
+process imports them (tests/torch_reference.py).
 """
 from .host import Decoder, MalformedBitstream, info
 from .host.syntax import UnsupportedStream
 
-from .ops.pipeline import TorchPixelBackend
-
 __all__ = ["Decoder", "MalformedBitstream", "TorchPixelBackend",
            "UnsupportedStream", "info"]
+
+
+def __getattr__(name):
+    if name == "TorchPixelBackend":
+        from .ops.pipeline import TorchPixelBackend
+        return TorchPixelBackend
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

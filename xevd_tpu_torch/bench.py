@@ -1,10 +1,12 @@
 """The port's benchmark: decoded frames/s of `Decoder(backend=
-TorchPixelBackend(device))` on bench.py's 1080p configs 2 and 3 and of the
-GOP batch, every timed frame held to the numpy oracle, with the host's
-time split apart.  The counterpart of bench.py:80-219.
+TorchPixelBackend(device))` on bench.py's 1080p configs 2 and 3, on config
+4 (BASELINE.json configs[3], Main 4K 10-bit) and of the GOP batch, every
+timed frame held to the numpy oracle, with the host's time split apart.
+The counterpart of bench.py:80-219.
 
     python -m xevd_tpu_torch.bench [--device cuda|cpu] [--runs N]
-        [--only c2,c3,gop]
+        [--only c2,c3,c4,gop]
+    python -m xevd_tpu_torch.bench --regenerate [--only c4]
 
 Run it alone, on a host where nothing else has started: the frames/s are
 host-bound.  It prints one JSON object as its last line, with bench.py's
@@ -13,15 +15,22 @@ card's name and power limit.
 
 Streams.  Config 2 is bench.py's 1080p Baseline IPPP stream (16 frames,
 bench.py:22), config 3 its 1080p Main RA stream with the 14 tools
-(9 frames, bench.py:28-31), the GOP batch chip_smoke.py's 8 1080p IPPP
-GOPs.  `tests/torch_reference.py`, run as a program of its own, writes
+(9 frames, bench.py:28-31), config 4 a 3840x2160 10-bit Main RA stream
+with those 14 tools and DRA (5 frames), the GOP batch chip_smoke.py's 8
+1080p IPPP GOPs.  `tests/torch_reference.py`, run as a program of its own, writes
 each stream (tools/evc_enc, seeded) under tests/fixtures/torch_bench_*.evc
 and decodes it with `xevd_tpu`'s numpy oracle backend; the oracle's
 per-frame MD5s are kept beside the stream (.md5.json).  Each GOP is
 generated and then captured (`python -m xevd_tpu_torch.parallel.gop
 --capture`: the serial oracle decode with each frame's pack) under
 build/bench/.  All of it runs in parallel worker processes, once, and is
-cached; no timed run starts before every worker has exited.
+cached; no timed run starts before every worker has exited.  Config 4's
+stream takes over half an hour of one core to encode and its oracle some
+minutes more, so its stream and oracle MD5s are committed
+(xevd_tpu_torch/streams/c4.evc and c4.json, with the spec, the seconds
+each took and the host they ran on) and taken as they are when the spec
+equals CONFIGS["c4"], refused otherwise; `--regenerate` makes them anew
+(a worker, as for the other configs), rewrites the pair and exits.
 
 A config runs one warm-up decode, `runs` timed decodes, one decode with
 the host split and one under torch.profiler.  A decode feeds the stream
@@ -41,8 +50,10 @@ host's wait for a slot whose copies were still in flight apart (the
 ring's own clock, `HostStaging.wait_seconds`; 0 when the ring never
 waits), the copies' and every device stage's time by CUDA events at the
 marks (`ops/pipeline.py` STAGES: events before and after the copies; an
-interval also holds the host's gaps between launches), and the output's
-D2H copies after a synchronise (the wait for the card apart).  Entropy
+interval also holds the host's gaps between launches), the output's
+D2H copies after a synchronise (the wait for the card apart), and the
+inverse DRA that the host applies to a DRA stream's output planes at pull
+time (`host/ops/dra.py` `apply_dra_inverse`, 0 without DRA).  Entropy
 runs on the decoder's worker thread beside pack and dispatch, so the
 shares overlap and do not add up to the wall.  The device's busy share
 comes from the traced decode, read by `profile.device_activity`.
@@ -69,6 +80,7 @@ import hashlib
 import json
 import os
 import pickle
+import platform
 import statistics
 import subprocess
 import sys
@@ -85,6 +97,7 @@ from .host import Decoder
 from .host import derive as host_derive
 from .host.decoder import _LazyPlane
 from .host import native as host_native
+from .host.ops import dra as host_dra
 from .ops.pipeline import GOP_STAGES, STAGES, TorchPixelBackend
 from .parallel import gop as TG
 from .profile import device_activity
@@ -93,6 +106,7 @@ REPO = Path(__file__).resolve().parent.parent
 FIXTURES = REPO / "tests" / "fixtures"      # gitignored stream cache
 WORK = REPO / "build" / "bench"             # gitignored
 REFERENCE = REPO / "tests" / "torch_reference.py"
+STREAMS_DIR = REPO / "xevd_tpu_torch" / "streams"   # committed streams
 RUNS = 5
 # bench.py's config-3 tools (bench.py:28-30)
 MAIN_TOOLS = ("eipd", "cm_init", "btt", "suco", "adcc", "admvp", "hmvp",
@@ -102,7 +116,14 @@ MAIN_TOOLS = ("eipd", "cm_init", "btt", "suco", "adcc", "admvp", "hmvp",
 CONFIGS = {
     "c2": (1920, 1080, 16, 32, 777, "IPPP", 0.3, 8, 0, (), 0.35),
     "c3": (1920, 1080, 9, 32, 779, "RA", 0.3, 8, 1, MAIN_TOOLS, 0.1),
+    # config 4, BASELINE.json configs[3]: Main 4K 10-bit, the 14 tools and
+    # DRA (tests/test_torch_main_full.py `m10_all`'s set); 3 frames encode
+    # to 5 (an I picture and one RA sub-GOP of 4)
+    "c4": (3840, 2160, 3, 32, 780, "RA", 0.3, 10, 1, MAIN_TOOLS + ("dra",),
+           0.1),
 }
+# the configs whose stream and oracle MD5s are committed (STREAMS_DIR)
+COMMITTED = ("c4",)
 # chip_smoke.py GOP_SPECS: xevd_tpu/parallel/gop.py gen_gop_streams(8, 1920,
 # 1080, frames=2, qp=30, variable=True), 2 + g % 3 frames each
 GOP_SPECS = [(1920, 1080, 2 + g % 3, 30, 1000 + 7 * g, "IPPP", 0.5, 8, 0,
@@ -220,12 +241,14 @@ class _Timer:
 @contextlib.contextmanager
 def _timed_host_calls():
     """Times the entropy and derive entry points the decoder imports at
-    call time (host/decoder.py:699-757) while the block runs."""
+    call time (host/decoder.py:699-757), and the inverse DRA of its output
+    planes (host/decoder.py:848-856), while the block runs."""
     timers = {
         "entropy": [_Timer(host_native, "decode_slice_native"),
                     _Timer(host_native, "decode_slice_native_main")],
         "derive": [_Timer(host_derive, "job_from_native"),
-                   _Timer(host_native, "derive_frame_native_main")]}
+                   _Timer(host_native, "derive_frame_native_main")],
+        "dra": [_Timer(host_dra, "apply_dra_inverse")]}
     for ts in timers.values():
         for t in ts:
             setattr(t.module, t.name, t)
@@ -246,20 +269,26 @@ def _release(dec):
         dec._entropy_pool = None
 
 
-def decode(data: bytes, backend, on_output=None):
+def decode(data: bytes, backend, on_output=None, limit=0):
     """Decode a length-prefixed NAL unit stream through `Decoder`, NAL by
     NAL (bench.py:135-155); every output frame's planes reach the host as
     numpy arrays, LOOKAHEAD_DEPTH frames behind the decoder (the CLI's
     order: reading a frame that is still deferred runs its pack and
     dispatch).  `on_output(frame)`, if given, does the read instead.
-    Returns ([(y, u, v) per frame], host seconds inside `Decoder.decode`,
-    the decoder's entropy engine)."""
+    `limit`: stop at the first `limit` output frames (0: all).  Returns
+    ([(y, u, v) per frame], host seconds inside `Decoder.decode`, the
+    decoder's entropy engine)."""
     read = on_output or (lambda f: tuple(
         None if p is None else np.asarray(p) for p in (f.y, f.u, f.v)))
     dec = Decoder(backend=backend)
     pending, frames, host = collections.deque(), [], 0.0
+
+    def full():
+        return bool(limit) and len(frames) + len(pending) >= limit
     try:
         for nalu in TG._nalu_walk(data):
+            if full():
+                break
             t0 = time.perf_counter()
             stat = dec.decode(nalu)
             host += time.perf_counter() - t0
@@ -269,7 +298,7 @@ def decode(data: bytes, backend, on_output=None):
                     pending.append(f)
                     if len(pending) > LOOKAHEAD_DEPTH:
                         frames.append(read(pending.popleft()))
-        while True:
+        while not full():
             f, _ = dec.pull()
             if f is None:
                 break
@@ -342,6 +371,8 @@ def split_decode(data: bytes, md5s, dev) -> dict:
                              if cuda else None),
         "d2h_wait_ms": wait * 1e3 / n if cuda else None,
         "d2h_ms": copy * 1e3 / n,
+        # the inverse DRA of the output planes on the host, at pull time
+        "dra_ms": sum(t.total for t in timers["dra"]) * 1e3 / n,
         "note": OVERLAP,
     }
 
@@ -532,14 +563,15 @@ def reference_fps(ref_bin: Path, stream: Path) -> float:
 def report(configs: dict, gop: dict | None, ref: dict | None = None,
            card: str | None = None) -> dict:
     """The last line: bench.py's keys from configs "c2" and "c3" (either
-    may be absent: its keys are null), the reference's frames/s where
+    may be absent: its keys are null; "c4" is only under "configs"), the
+    reference's frames/s where
     `ref` holds them ({"c2": fps, "c3": fps}), and everything measured."""
     ref = ref or {}
     c2, c3 = configs.get("c2"), configs.get("c3")
 
     def ratio(c, key):
         return (c["fps_median"] / ref[key]) if c and ref.get(key) else None
-    first = c2 or c3 or gop or {}
+    any_config = next(iter(configs.values()), {})
     out = {
         "metric": "decoded_frames_per_sec_1080p_ippp",
         "value": c2["fps_median"] if c2 else None,
@@ -563,11 +595,11 @@ def report(configs: dict, gop: dict | None, ref: dict | None = None,
         "fps_main_min": c3["fps_min"] if c3 else None,
         "fps_main_max": c3["fps_max"] if c3 else None,
         "fps_gop": gop["fps_median"] if gop else None,
-        "device": first.get("device"),
+        "device": (any_config or gop or {}).get("device"),
         "card": card,
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
-        "entropy_engine": (c2 or c3 or {}).get("entropy_engine"),
+        "entropy_engine": any_config.get("entropy_engine"),
         "configs": configs,
         "gop": gop,
     }
@@ -590,23 +622,57 @@ def _port_digest() -> str:
     return h.hexdigest()[:12]
 
 
-def prepare(names) -> tuple[dict, list | None, dict]:
-    """Generate (or find cached) the streams of `names` ("c2", "c3",
-    "gop") and their oracle results, every worker in parallel, and wait
-    for all of them.  Returns ({config: (stream bytes, oracle MD5s)}, the
-    GOP captures or None, {what: the workers' gen_s / numpy_s /
-    capture seconds, or "cached"})."""
+def stream_pair(name) -> tuple[Path, Path]:
+    """(stream, oracle-MD5 JSON) of config `name`: committed under
+    STREAMS_DIR for a COMMITTED config, else cached under FIXTURES."""
+    if name in COMMITTED:
+        return STREAMS_DIR / f"{name}.evc", STREAMS_DIR / f"{name}.json"
+    evc = FIXTURES / f"torch_bench_{name}.evc"
+    return evc, evc.with_suffix(".md5.json")
+
+
+def write_md5s(name, yuv: Path, worker: dict):
+    """Write config `name`'s JSON from the oracle's 10-bit YUV and the
+    reference worker's record: the spec, each frame's MD5, the seconds of
+    the encode and of the oracle's decode, and where they ran (one
+    process)."""
+    spec = json.loads(json.dumps(CONFIGS[name]))
+    rec = {"spec": spec, "md5s": yuv_md5s(yuv.read_bytes(), *spec[:2]),
+           "encoder_s": worker["gen_s"], "oracle_s": worker["numpy_s"],
+           "where": f"tests/torch_reference.py, one process on "
+                    f"{platform.processor() or platform.machine()} "
+                    f"({os.cpu_count()} cores); the oracle is xevd_tpu's "
+                    f"NumpyPixelBackend"}
+    stream_pair(name)[1].write_text(json.dumps(rec, indent=1) + "\n")
+
+
+def prepare(names, regenerate=False) -> tuple[dict, list | None, dict]:
+    """Generate (or find cached, or committed) the streams of `names`
+    ("c2", "c3", "c4", "gop") and their oracle results, every worker in
+    parallel, and wait for all of them.  A COMMITTED config's pair is
+    taken as it is when its spec equals CONFIGS[name], refused otherwise;
+    `regenerate` makes the pairs of `names` anew.  Returns ({config:
+    (stream bytes, oracle MD5s)}, the GOP captures or None, {what: the
+    workers' gen_s / numpy_s / capture seconds, or "cached" /
+    "committed"})."""
     WORK.mkdir(parents=True, exist_ok=True)
     FIXTURES.mkdir(parents=True, exist_ok=True)
     workers, info = [], {}
-    for name in (n for n in names if n in CONFIGS):
+    configs = [n for n in names if n in CONFIGS]
+    for name in configs:
         spec = json.loads(json.dumps(CONFIGS[name]))
-        evc = FIXTURES / f"torch_bench_{name}.evc"
-        md5 = evc.with_suffix(".md5.json")
-        if evc.exists() and md5.exists() and \
+        evc, md5 = stream_pair(name)
+        if regenerate:
+            evc.unlink(missing_ok=True)
+        elif evc.exists() and md5.exists() and \
                 json.loads(md5.read_text())["spec"] == spec:
-            info[name] = "cached"
+            info[name] = "committed" if name in COMMITTED else "cached"
             continue
+        elif name in COMMITTED:
+            raise RuntimeError(
+                f"{name}: the committed pair {evc.name}, {md5.name} is "
+                f"missing or its spec is not CONFIGS[{name!r}]; make it "
+                f"anew with --regenerate")
         workers.append(_run_worker(
             [sys.executable, str(REFERENCE), json.dumps(spec), str(evc),
              str(WORK / f"{name}_np.yuv")], name))
@@ -636,14 +702,11 @@ def prepare(names) -> tuple[dict, list | None, dict]:
     if failed:
         raise RuntimeError("stream workers failed:\n" + "\n".join(failed))
     streams = {}
-    for name in (n for n in names if n in CONFIGS):
-        spec = json.loads(json.dumps(CONFIGS[name]))
-        evc = FIXTURES / f"torch_bench_{name}.evc"
-        md5 = evc.with_suffix(".md5.json")
-        if info[name] != "cached":
+    for name in configs:
+        evc, md5 = stream_pair(name)
+        if info[name] not in ("cached", "committed"):
             yuv = WORK / f"{name}_np.yuv"
-            md5.write_text(json.dumps({"spec": spec, "md5s": yuv_md5s(
-                yuv.read_bytes(), *spec[:2])}))
+            write_md5s(name, yuv, info[name][-1])
             yuv.unlink()
         streams[name] = (evc.read_bytes(), json.loads(md5.read_text())["md5s"])
     if "gop" in names:
@@ -663,12 +726,20 @@ def main(argv=None) -> int:
                     "PyTorch versions (tests)")
     ap.add_argument("--runs", type=int, default=RUNS,
                     help="timed decodes a config (default %(default)s)")
-    ap.add_argument("--only", default="c2,c3,gop",
-                    help="comma list of c2, c3, gop (default all)")
+    ap.add_argument("--only", default="c2,c3,c4,gop",
+                    help="comma list of c2, c3, c4, gop (default all)")
+    ap.add_argument("--regenerate", action="store_true",
+                    help="make the committed streams and oracle MD5s of "
+                    "the configs picked (c4) anew, rewrite them and exit "
+                    "(over half an hour of one core)")
     a = ap.parse_args(argv)
     names = [n for n in a.only.split(",") if n]
-    if not names or set(names) - {"c2", "c3", "gop"} or a.runs < 1:
-        ap.error("--only takes c2, c3 and gop; --runs at least 1")
+    if not names or set(names) - {*CONFIGS, "gop"} or a.runs < 1:
+        ap.error("--only takes c2, c3, c4 and gop; --runs at least 1")
+    if a.regenerate:
+        _, _, info = prepare([n for n in names if n in COMMITTED], True)
+        log(json.dumps(info))
+        return 0
     dev = resolve_device(a.device)      # no card: raises before any work
     card = nvidia_smi("name,power.limit") if dev.type == "cuda" else None
     if card:
@@ -702,7 +773,8 @@ def main(argv=None) -> int:
             f"{s['derive_ms']:.3f}, pack {s['pack_ms']:.3f}, slot wait "
             f"{s['slot_wait_ms']:.3f}, upload issue "
             f"{s['upload_host_ms']:.3f} (device "
-            f"{s['upload_device_ms']}), D2H {s['d2h_ms']:.3f}; busy share "
+            f"{s['upload_device_ms']}), D2H {s['d2h_ms']:.3f}, DRA "
+            f"{s['dra_ms']:.3f}; busy share "
             f"{(c['traced'] or {}).get('busy_share')}")
     if gop:
         log(f"gop: {gop['frames']} frames in {gop['steps']} steps, frames/s "
