@@ -5,9 +5,12 @@
 
 1. Prints the card (nvidia-smi name and power limit), torch/CUDA versions
    and which entropy engine runs; exits non-zero without a CUDA device.
-   Starts, each as a program of its own (tests/torch_reference.py), the
-   generation of the nine test streams (tools/evc_enc, seeded) and their
-   decodes by `xevd_tpu`'s numpy oracle backend, the reference.
+   Starts, each as a program of its own, the captures of the committed
+   4K and 1080p GOP streams (`python -m xevd_tpu_torch.parallel.gop
+   --capture`: the numpy oracle's serial decode with each frame's pack),
+   and (tests/torch_reference.py) the generation of the nine test streams
+   (tools/evc_enc, seeded) and their decodes by `xevd_tpu`'s numpy oracle
+   backend, the reference.
 2. Builds the CUDA kernels from xevd_tpu_torch/csrc with nvcc (sm_90a).
 3. Kernel phases: every hand-written kernel against its plain PyTorch
    version on the card, on numpy-seeded inputs at the shapes of the 1080p
@@ -115,13 +118,16 @@
 5. GOP phase (K15, xevd_tpu_torch/parallel/gop.py): 8 independent
    1920x1080 Baseline IPPP GOPs of 2, 3 or 4 frames (xevd_tpu/parallel/
    gop.py `gen_gop_streams(8, 1920, 1080, frames=2, variable=True)`'s
-   encoder settings), each generated by a reference worker and captured
+   encoder settings; bench.GOP_SPECS), committed with the numpy oracle's
+   MD5s (xevd_tpu_torch/streams/gop_<g>.evc, gop.json) and each captured
    (decoded serially by the numpy oracle backend, each frame's pack kept)
    by the port's host decoder in a worker (`python -m
    xevd_tpu_torch.parallel.gop --capture`).  Every batched
    kernel, and the whole batched step, is held to its batched plain
    version on the batch's own step-1 (P) tables and DPB at G = 8 and G =
-   1, and on step 0 (the 8 I pictures: no MC) at G = 8 and G = 1; step
+   1, and on step 0 (the 8 I pictures: no MC) at G = 8 and G = 1 (the
+   intra scan's and the step's plain versions, a tensor operation a CU,
+   on copies of the same inputs on the CPU, 2-2.4x faster there); step
    0's batched intra scan, whose rows the pack's ticket order interleaves
    over the frames, is timed beside each of its pictures scanned alone
    (the same kernel at G = 1) with the batch's DAG depth, and must take
@@ -130,7 +136,8 @@
    (counted: each batched kernel once a step, the intra scan once a step,
    not once a frame; the luma deblock one launch a step; pad one launch a
    step over Y, U and V), twice, and
-   every frame's MD5 must equal the numpy oracle's serial decode, then
+   every frame's MD5 must equal the numpy oracle's serial decode (the
+   capture's and the committed MD5s), then
    once more with each step's split printed (the copy into its pinned
    slot, the issue of its copies, the copies on the upload stream, the
    kernel stream's wait, the kernels and each of their stages -- ITDQ,
@@ -139,6 +146,21 @@
    TorchPixelBackend("cuda"), equal too, for the record.  The
    pad kernel (K14) is timed a second time, on a 1080p picture, once every
    worker has ended.
+   Config 5's one-card half (gop4k phase, BASELINE.json configs[4]): the
+   8 committed 3840x2160 10-bit Main IPPP GOPs of 2 or 3 frames with iqt,
+   ATS, ADMVP and cm_init (bench.GOP4K_SPECS; streams/gop4k_<g>.evc,
+   gop4k.json; 20 pictures in 3 steps), captured in workers started
+   first, decode as one batch a step with the launch counters (each
+   batched kernel once a step, MC on steps 1 and 2, none of ADDB, ALF,
+   K6, K10), every MD5 equal to the capture's and the committed oracle
+   MD5s; the peak device memory and the pinned host buffers printed; a
+   second decode prints the step split; step 0's batched scan (8 4K I
+   pictures) held to its own 20 launches (its plain version takes
+   minutes) with its device ms, DAG depth and `icu_order`'s host ms; the
+   4K column: every batched kernel and the batched step on step 1 at G =
+   8 held to its plain version (exact; the scan's and the step's plain
+   versions on the CPU), with device ms, a call in 20-call graphs and the
+   bound.  Fails past GOP4K_LIMIT_S (the captures not counted).
    Then forty 64x64 two-frame IPPP GOPs (one reference worker writes the
    streams; captured here) decode as one batch on the card, 40 DPB ring
    pictures (more than a frame's 32 MC slots): every batched kernel held
@@ -176,8 +198,13 @@
    scans alone; the config-4 path's kernels with `c4_launches` (the 5
    pictures' launches) and `c4_ms_device_i` / `_b`, `c4_stage_ms_i` /
    `_b`, `c4_bound_ms_i` / `_b` and `c4_plain_ms_i` / `_b`, their 4K
-   column on its I and B picture; `max_abs_err` covers the 4K comparisons
-   too) and, as the last line, {"ok": true, "device": {...}}.
+   column on its I and B picture; the batched kernels and K15's step
+   with `gop4k_launches`, `gop4k_ms_device` (`_per_call`), `gop4k_bound_ms`
+   and `gop4k_plain_ms`, their 4K column on step 1 of the gop4k batch,
+   `gop_intra_scan` with `gop4k_ms_device_step0`, and `gop_step` with
+   `gop4k_fps`, `gop4k_peak_bytes` and `gop4k_pinned_bytes`;
+   `max_abs_err` covers the 4K comparisons too), the smoke's total time
+   and, as the last line, {"ok": true, "device": {...}}.
 
 Any failure raises and the exit code is non-zero.  Imports neither JAX
 nor `xevd_tpu`: the reference runs in its own processes.
@@ -226,21 +253,26 @@ STREAMS = {
 }
 # frames each stream decodes to (RA rounds up to a whole GOP)
 FRAMES = {"1080p_main_c3": 5, "1080p_main_suco": 5, "1080p_main_ra": 5}
-# the GOP batch (K15): xevd_tpu/parallel/gop.py gen_gop_streams(8, 1920,
-# 1080, frames=2, qp=30, variable=True), 2 + g % 3 frames each
-GOP_SPECS = [(1920, 1080, 2 + g % 3, 30, 1000 + 7 * g, "IPPP", 0.5, 8, 0,
-              (), 0.35) for g in range(8)]
+# the GOP batches (K15) whose streams are committed: bench.GOPS, "gop" the
+# 8 1080p Baseline IPPP GOPs (bench.GOP_SPECS), "gop4k" config 5's one-card
+# half (bench.GOP4K_SPECS); their captures run in worker processes
 TIMED_RUNS_GOP = 2
 # the GOP batch past 32 DPB ring pictures: forty two-frame 64x64 IPPP GOPs
 # on one card (D x G_dev = 40), generated by one reference worker
 BIG_GOP_SPECS = [(64, 64, 2, 30, 3000 + 7 * g, "IPPP", 0.5, 8, 0, (), 0.35)
                  for g in range(40)]
-# the GOP batch with the Main MC taps: eight 176x144 Main IPPP GOPs of 2, 3
-# or 4 frames with iqt, ATS, ADMVP and cm_init (batched iqt/ATS ITDQ and
-# Main-tap MC), generated by one reference worker
-MAIN_GOP_TOOLS = ("iqt", "ats", "admvp", "cm_init")
-MAIN_GOP_SPECS = [(176, 144, 2 + g % 3, 30, 1200 + 7 * g, "IPPP", 0.5, 8, 1,
-                   MAIN_GOP_TOOLS, 0.35) for g in range(8)]
+
+
+def main_gop_specs() -> list:
+    """The GOP batch with the Main MC taps: eight 176x144 Main IPPP GOPs of
+    2, 3 or 4 frames with bench.MAIN_GOP_TOOLS (iqt, ATS, ADMVP, cm_init:
+    batched iqt/ATS ITDQ and Main-tap MC), generated by one reference
+    worker."""
+    from xevd_tpu_torch import bench as B
+    return [(176, 144, 2 + g % 3, 30, 1200 + 7 * g, "IPPP", 0.5, 8, 1,
+             B.MAIN_GOP_TOOLS, 0.35) for g in range(8)]
+
+
 # the card's peaks for a kernel's bound (H100 SXM datasheet figures):
 # HBM bytes/s; integer operations/s taken at the scalar (non-tensor)
 # float32 FMA rate counted as two operations, a deliberate upper peak: the
@@ -898,21 +930,39 @@ def start_reference(name):
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
-def start_gop_worker(g):
-    """Start GOP g's workers, one after the other: the reference worker
-    generates the stream (tests/fixtures/torch_smoke_gop<g>.evc), then the
-    port's host decoder captures it (WORK/gop<g>.pkl): the numpy oracle's
-    serial decode, with each frame's pack.  (The capture is the serial
-    oracle decode that decode_gops_sharded holds the batch to, so the
-    reference worker does not decode it a second time: a 1080p GOP frame
-    takes tens of CPU seconds to encode and to decode.)"""
-    script = ('"$0" tests/torch_reference.py "$1" "$2" && '
-              '"$0" -m xevd_tpu_torch.parallel.gop --capture "$2" "$3"')
-    return subprocess.Popen(
-        ["sh", "-c", script, sys.executable, json.dumps(GOP_SPECS[g]),
-         str(STREAM_DIR / f"torch_smoke_gop{g}.evc"),
-         str(WORK / f"gop{g}.pkl")],
-        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+def start_captures(name) -> list:
+    """Start the workers that capture the committed streams of GOP batch
+    `name` (bench.gop_pair; encoding them takes minutes a GOP), one a GOP,
+    into WORK/<name><g>.pkl: the numpy oracle's serial decode, with each
+    frame's pack, by the port's host decoder (bench.capture_command).  The
+    capture is the serial oracle decode that decode_gops_sharded holds the
+    batch to."""
+    from xevd_tpu_torch import bench as B
+    return [subprocess.Popen(B.capture_command(evc, WORK / f"{name}{g}.pkl"),
+                             cwd=REPO, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True)
+            for g, evc in enumerate(B.gop_pair(name)[0])]
+
+
+def gather_captures(name, workers) -> tuple[list, list, list]:
+    """Wait for GOP batch `name`'s capture workers: (the captures, the
+    committed oracle MD5s a GOP, each capture's seconds).  Raises unless
+    the committed spec is bench.GOPS[name] (bench.committed_gop_md5s) and
+    each capture has as many frames as its GOP's MD5s."""
+    from xevd_tpu_torch import bench as B
+    md5s = B.committed_gop_md5s(name)
+    caps, secs = [], []
+    for g, proc in enumerate(workers):
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            raise AssertionError(f"{name} GOP {g} capture failed (rc "
+                                 f"{proc.returncode}):\n{err[-4000:]}")
+        secs.append(json.loads(out.strip().splitlines()[-1])["seconds"])
+        caps.append(pickle.loads((WORK / f"{name}{g}.pkl").read_bytes()))
+        if len(caps[-1]) != len(md5s[g]):
+            raise AssertionError(f"{name} GOP {g}: {len(caps[-1])} frames "
+                                 f"captured, {len(md5s[g])} committed MD5s")
+    return caps, md5s, secs
 
 
 def start_streams_worker(specs, name):
@@ -1523,13 +1573,14 @@ def big_gop_phase(torch, dev, K, results, worker):
 
 
 def main_gop_phase(torch, dev, K, results, worker):
-    """The GOP batch with the Main MC taps: the MAIN_GOP_SPECS GOPs,
+    """The GOP batch with the Main MC taps: the main_gop_specs() GOPs,
     captured here, on one card: every batched kernel and the step on step
     1 against its batched plain version at G = 8 and G = 1 (the batched
     iqt/ATS ITDQ and Main-tap MC; MC in MC_LAUNCHES launches, timed);
     then the whole batch, every frame's MD5 equal to the oracle's.
     Returns its stats."""
     from tests.torch_helpers import gop_step_cases, mc_class_histogram
+    from xevd_tpu_torch import bench as B
     from xevd_tpu_torch.ops import pack as PK
     from xevd_tpu_torch.parallel import gop as TG
 
@@ -1539,13 +1590,13 @@ def main_gop_phase(torch, dev, K, results, worker):
                              f"{worker.returncode}):\n{err[-4000:]}")
     t0 = time.perf_counter()
     caps = [TG._capture_gop((WORK / "maingop" / f"{g}.evc").read_bytes())
-            for g in range(len(MAIN_GOP_SPECS))]
+            for g in range(len(main_gop_specs()))]
     if not all(fr["pack"].main_taps and fr["pack"].iqt for c in caps
                for fr in c):
         raise AssertionError("Main GOP batch: a frame without the Main taps "
                              "or iqt")
     log(f"phase gop with the Main taps: {len(caps)} 176x144 Main IPPP GOPs "
-        f"({', '.join(MAIN_GOP_TOOLS)}); streams "
+        f"({', '.join(B.MAIN_GOP_TOOLS)}); streams "
         f"{json.loads(out)['gen_s']:.1f} s, captures "
         f"{time.perf_counter() - t0:.1f} s")
     _, [(_, steps)] = TG._plan(caps, 1)
@@ -1574,10 +1625,30 @@ def main_gop_phase(torch, dev, K, results, worker):
             "ms": stats["seconds"] * 1e3}
 
 
+def gop_launches(K, steps) -> dict:
+    """The launches a batched run of `steps` (the PackedBatch of each step)
+    must make, by counter: one a step for each kernel (a plane each for
+    recon and the chroma passes), MC once a list with blocks, none of the
+    others."""
+    expect = dict.fromkeys(K.launch_counts, 0)
+    for pb in steps:
+        expect["gop_step"] += 1
+        expect["itdq"] += int(pb.layout["tus"][1][0] > 0)
+        expect["mc"] += sum(int(n > 0) for n in pb.mc_lists)
+        expect["recon"] += 3
+        expect["intra_scan"] += int(pb.layout["icu"][1][0] > 0)
+        expect["pad"] += 1
+        expect["deblock_luma"] += pb.deblock_on
+        for kind in ("chroma_ver", "chroma_hor"):
+            expect[f"deblock_{kind}"] += 2 * pb.deblock_on
+    return expect
+
+
 def gop_phase(torch, dev, K, results, workers):
     """K15: the 8 1080p GOPs as one batch per time step (parallel/gop.py),
     after each batched kernel and the batched step against its plain
-    version on step 1 and on step 0 (the I pictures) at G = 8 and G = 1,
+    version on step 1 and on step 0 (the I pictures) at G = 8 and G = 1
+    (the scan's and the step's on the CPU),
     and step 0's batched scan against each of its pictures scanned alone
     (at most 3x the slowest).  Returns (counts, frames/s per batched run,
     record)."""
@@ -1586,22 +1657,12 @@ def gop_phase(torch, dev, K, results, workers):
     from xevd_tpu_torch.diff import port_decode
     from xevd_tpu_torch.parallel import gop as TG
 
-    log("phase gop: 8 1080p Baseline IPPP GOPs (K15); streams and captures "
-        "(the numpy oracle's serial decodes) in worker processes")
-    caps = []
-    for g, proc in enumerate(workers):
-        out, err = proc.communicate()
-        if proc.returncode != 0:
-            raise AssertionError(f"GOP {g} worker failed (rc "
-                                 f"{proc.returncode}):\n{err[-4000:]}")
-        ref, cap = [json.loads(x) for x in out.splitlines()
-                    if x.startswith("{")][-2:]
-        caps.append(pickle.loads((WORK / f"gop{g}.pkl").read_bytes()))
-        if len(caps[-1]) != GOP_SPECS[g][2]:
-            raise AssertionError(f"GOP {g}: {len(caps[-1])} frames captured, "
-                                 f"{GOP_SPECS[g][2]} encoded")
-        log(f"  GOP {g}: {len(caps[-1])} frames; stream {ref['gen_s']:.1f} "
-            f"s, capture (numpy oracle) {cap['seconds']:.1f} s")
+    from xevd_tpu_torch import bench as B
+    log("phase gop: 8 1080p Baseline IPPP GOPs (K15); the committed streams "
+        "captured (the numpy oracle's serial decodes) in worker processes")
+    caps, committed, secs = gather_captures("gop", workers)
+    for g, (c, sec) in enumerate(zip(caps, secs)):
+        log(f"  GOP {g}: {len(c)} frames; capture (numpy oracle) {sec:.1f} s")
 
     # every worker has ended: the pad kernel again, on a quiet host
     from tests.torch_helpers import pad_picture_case
@@ -1625,9 +1686,11 @@ def gop_phase(torch, dev, K, results, workers):
         f"mc_order {min(t) * 1e3:.3f} ms (min of 5); rows a class: "
         f"{mc_class_histogram(o)}")
     log("phase gop kernels (each batched kernel and the batched step on "
-        "step 1, G = 8 and G = 1)")
+        "step 1, G = 8 and G = 1; the scan's and the step's plain versions "
+        "on the CPU)")
+    cpu = torch.device("cpu")
     for G in (len(caps), 1):
-        for case in gop_step_cases(dev, caps[:G]):
+        for case in gop_step_cases(dev, caps[:G], plain_device=cpu):
             key = case.name if case.name == "gop_step" else f"gop_{case.name}"
             slow = case.name in ("intra_scan", "gop_step")
             ms = run_case(torch, case, results, 5 if slow else 20,
@@ -1653,7 +1716,7 @@ def gop_phase(torch, dev, K, results, workers):
         "G = 1, then each picture's scan alone)")
     scan0, alone = None, []
     for G in (len(caps), 1):
-        for case in gop_step_cases(dev, caps[:G], t=0):
+        for case in gop_step_cases(dev, caps[:G], t=0, plain_device=cpu):
             key = case.name if case.name == "gop_step" else f"gop_{case.name}"
             slow = case.name in ("intra_scan", "gop_step")
             ms = run_case(torch, case, results, 5 if slow else 20,
@@ -1682,19 +1745,7 @@ def gop_phase(torch, dev, K, results, workers):
                              f"slowest picture alone ({max(alone):.4f} ms): "
                              "the frames' chains do not overlap")
 
-    # launches a batched run must make: one a step for each kernel (a
-    # plane each for recon and the chroma passes), MC once per list
-    expect = dict.fromkeys(K.launch_counts, 0)
-    for pb in steps:
-        expect["gop_step"] += 1
-        expect["itdq"] += int(pb.layout["tus"][1][0] > 0)
-        expect["mc"] += sum(int(n > 0) for n in pb.mc_lists)
-        expect["recon"] += 3
-        expect["intra_scan"] += int(pb.layout["icu"][1][0] > 0)
-        expect["pad"] += 1
-        expect["deblock_luma"] += pb.deblock_on
-        for kind in ("chroma_ver", "chroma_hor"):
-            expect[f"deblock_{kind}"] += 2 * pb.deblock_on
+    expect = gop_launches(K, steps)
     fps, counts, stats = [], None, None
     for rep in range(TIMED_RUNS_GOP):
         torch.cuda.synchronize()
@@ -1703,9 +1754,9 @@ def gop_phase(torch, dev, K, results, workers):
         dmd5, smd5 = TG.decode_gops_sharded(None, mesh=[dev], captures=caps,
                                             stats=stats)
         counts = dict(K.launch_counts)
-        if dmd5 != smd5:
+        if dmd5 != smd5 or smd5 != committed:
             raise AssertionError("GOP batch: a frame's MD5 differs from the "
-                                 "numpy oracle's")
+                                 "numpy oracle's (capture or committed)")
         if stats["checksum"] != stats["serial_checksum"]:
             raise AssertionError(f"GOP batch checksum {stats['checksum']} != "
                                  f"{stats['serial_checksum']}")
@@ -1719,7 +1770,6 @@ def gop_phase(torch, dev, K, results, workers):
             f"every MD5 equal to the numpy oracle; checksum "
             f"{stats['checksum']}")
     log(f"  launch counts during a batched run: {counts}")
-    from xevd_tpu_torch import bench as B
     marks = B.StageMarks(dev)
     split_stats = {}
     dmd5, _ = TG.decode_gops_sharded(None, mesh=[dev], captures=caps,
@@ -1748,11 +1798,10 @@ def gop_phase(torch, dev, K, results, workers):
     t0 = time.perf_counter()
     n = 0
     outs = []
-    for g in range(len(caps)):
-        n += port_decode((STREAM_DIR / f"torch_smoke_gop{g}.evc")
-                         .read_bytes(), WORK / f"gop{g}_t.yuv", backend)
+    for g, evc in enumerate(B.gop_pair("gop")[0]):
+        n += port_decode(evc.read_bytes(), WORK / f"gop{g}_t.yuv", backend)
         outs.append((WORK / f"gop{g}_t.yuv").read_bytes())
-    w, h = GOP_SPECS[0][:2]
+    w, h = B.GOP_SPECS[0][:2]
     fsz = w * h * 3                       # 4:2:0, 2 bytes a sample
     if [[hashlib.md5(y[i:i + fsz]).hexdigest() for i in range(0, len(y), fsz)]
             for y in outs] != smd5:
@@ -1766,6 +1815,177 @@ def gop_phase(torch, dev, K, results, workers):
         f"{serial['device_ms']:.3f} ms in all, batched step "
         f"{stats['seconds'] * 1e3:.3f} ms")
     return counts, fps, {"batched": stats, "serial": serial}
+
+
+# config 5's one-card half (bench.GOP4K_SPECS): the phase's own limit, its
+# worker captures not counted, and the kernels that must not launch on it
+GOP4K_LIMIT_S = 330
+GOP4K_BARRED = ("addb_frame", "alf_frame", "intra_scan_wave",
+                "chroma_ver_ordered")
+GOP4K_REPS = 5           # timed runs of each kernel in the 4K column
+
+
+def gop4k_phase(torch, dev, K, results, workers):
+    """Config 5's one-card half (BASELINE.json configs[4]): the 8 committed
+    3840x2160 10-bit Main IPPP GOPs (bench.GOP4K_SPECS: iqt, ATS, ADMVP,
+    cm_init; 2 or 3 frames, 20 pictures in 3 steps) decoded as one batch a
+    step on the card.  The captures ran in workers (not counted in the
+    phase's time).  A decode with the launch counters reset just before
+    and read just after: each batched kernel once a step (MC on steps 1
+    and 2; recon and the chroma passes once a plane), none of GOP4K_BARRED;
+    every frame's MD5 equal to the capture's serial oracle and to the
+    committed oracle MD5s (gop4k.json); the peak device memory and the
+    pinned host buffers.  A second decode with the step split.  Step 0's
+    batched scan (8 4K I pictures: its plain version would take minutes)
+    is held to its own SCAN_LAUNCHES launches from the same inputs and,
+    through the frames, to the MD5s; its device ms, DAG depth and
+    `icu_order`'s host ms are printed.  The 4K column: every batched kernel
+    and the batched step on step 1 at G = 8 held to its plain version
+    (exact; the intra scan's and the step's plain versions on the CPU,
+    copies of the same inputs), with device ms, a call's ms in 20-call
+    graphs, the plain version's ms and the bound.  Fails past
+    GOP4K_LIMIT_S.  Returns the phase's record."""
+    from tests.torch_helpers import gop_step_cases, repeat_equal
+    from tests.torch_mc_times import graph_ms
+    from xevd_tpu_torch import bench as B
+    from xevd_tpu_torch.ops import intra as TI
+    from xevd_tpu_torch.ops import pack as PK
+    from xevd_tpu_torch.parallel import gop as TG
+
+    caps, md5s, secs = gather_captures("gop4k", workers)
+    t0 = time.perf_counter()
+    w, h = B.GOP4K_SPECS[0][:2]
+    log(f"phase gop4k: {len(caps)} committed {w}x{h} 10-bit Main IPPP GOPs "
+        f"({', '.join(B.MAIN_GOP_TOOLS)}), {sum(map(len, caps))} frames; "
+        f"captures (numpy oracle, one worker a GOP) "
+        f"{[round(x, 1) for x in secs]} s")
+    if any(not (fr["pack"].main_taps and fr["pack"].iqt and fr["pack"].bd == 10)
+           for c in caps for fr in c):
+        raise AssertionError("gop4k: a frame without the Main taps, iqt or "
+                             "10 bits")
+    _, [(_, steps)] = TG._plan(caps, 1)
+    p0 = steps[0]
+    icu0, off0 = PK._table(p0, "icu", 8), PK._table(p0, "icu_off", 0)
+    tabs0 = [icu0[lo:hi] for lo, hi in zip(off0[:-1], off0[1:])]
+    t = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        PK.icu_order(tabs0, *p0.geom[2:])
+        t.append(time.perf_counter() - t1)
+    order_ms = min(t) * 1e3
+    depth0 = TI.intra_dag_depth(icu0, *p0.geom[2:], icu_off=off0)
+
+    # the counted decode
+    expect = gop_launches(K, steps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    K.reset_counts()
+    stats = {}
+    dmd5, smd5 = TG.decode_gops_sharded(None, mesh=[dev], captures=caps,
+                                        stats=stats)
+    counts = dict(K.launch_counts)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if dmd5 != smd5 or smd5 != md5s or \
+            stats["checksum"] != stats["serial_checksum"]:
+        raise AssertionError("gop4k batch: a frame's MD5 differs from the "
+                             "numpy oracle's (capture or committed)")
+    stray = [k for k in GOP4K_BARRED if counts[k]]
+    missing = [k for k, n in expect.items() if n and not counts[k]]
+    if counts != expect or stray or missing or \
+            counts["intra_scan"] != stats["steps"]:
+        raise AssertionError(f"gop4k launches {counts} != {expect} (never "
+                             f"launched {missing}, barred {stray})")
+    log(f"  counted decode: {stats['frames']} frames in {stats['steps']} "
+        f"steps (batches {stats['batches'][0]}, DPB depth {stats['depth']}) "
+        f"in {stats['seconds'] * 1e3:.3f} ms; every MD5 equal to the "
+        f"capture's serial oracle and to the committed MD5s; launches "
+        f"{counts}")
+    log(f"  peak device memory {peak} B ({peak / 2 ** 30:.3f} GiB; {held} B "
+        f"held before the decode); pinned host buffers (staging slots and "
+        f"outputs) {stats['host_bytes']} B "
+        f"({stats['host_bytes'] / 2 ** 30:.3f} GiB)")
+    marks = B.StageMarks(dev)
+    split = {}
+    dmd5, _ = TG.decode_gops_sharded(None, mesh=[dev], captures=caps,
+                                     stats=split, on_stage=marks)
+    if dmd5 != md5s:
+        raise AssertionError("gop4k batch (marked run): a frame's MD5 "
+                             "differs from the committed oracle MD5s")
+    fps = split["frames"] / split["seconds"]
+    log(f"  marked run: {split['frames']} frames in "
+        f"{split['seconds'] * 1e3:.3f} ms = {fps:.3f} frames/s; step split "
+        "(as the gop phase's):")
+    for st, x in enumerate(B.gop_step_split(marks, split["batches"][0])):
+        log(f"    step {st}: {json.dumps(x)}")
+
+    # step 0's batched scan: its launches held to each other
+    case0, = (c for c in gop_step_cases(dev, caps, t=0)
+              if c.name == "intra_scan")
+    want = [None if x is None else x.clone() for x in case0.kernel()]
+    err = repeat_equal(case0, want, SCAN_LAUNCHES - 1)
+    if err:
+        raise AssertionError(f"gop4k step 0: the batched scan's launches "
+                             f"differ (max abs err {err} over "
+                             f"{SCAN_LAUNCHES} launches)")
+    scan0 = graph_ms(torch, case0.kernel, GOP4K_REPS)
+    log(f"  step 0's batched scan ({p0.G} I pictures, {len(icu0)} CUs): "
+        f"{SCAN_LAUNCHES} launches equal; {scan0:.4f} ms (device) at DAG "
+        f"depth {depth0}; icu_order {order_ms:.3f} ms of host time (best "
+        "of 3)")
+    del case0, want
+
+    # the 4K column: step 1 at G = 8
+    log(f"phase gop4k kernels (each batched kernel and the batched step on "
+        f"step 1, G = {steps[1].G}, {w}x{h} 10-bit)")
+    cpu = torch.device("cpu")
+    column = {}
+    for case in gop_step_cases(dev, caps, t=1, plain_device=cpu):
+        key = case.name if case.name == "gop_step" else f"gop_{case.name}"
+        col = {}
+        run_case(torch, case, col, GOP4K_REPS, 0, main=True, key=key,
+                 launches=MC_LAUNCHES if case.name == "mc" else None)
+        c = col[key]
+        t_bytes = c["bytes"] / HBM_BYTES_PER_S
+        t_ops = c["ops"] / SCALAR_OPS_PER_S
+        column[key] = {
+            "gop4k_launches": counts[case.name], "gop4k_ms": c["ms"],
+            "gop4k_ms_device": c.get("ms_device"),
+            "gop4k_ms_device_per_call": c.get("ms_device_per_call"),
+            "gop4k_plain_ms": c["plain_ms"],
+            "gop4k_plain_on": ("cpu" if case.name in ("intra_scan",
+                                                      "gop_step")
+                               else "cuda"),
+            "gop4k_bound_ms": max(t_bytes, t_ops) * 1e3,
+            "gop4k_bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "gop4k_shape": c["shape"]}
+        r = results.setdefault(key, {"max_abs_err": 0})
+        r["max_abs_err"] = max(r["max_abs_err"], c["max_abs_err"])
+        r.update(column[key])
+        log(f"  gop4k column {key:22s} device {c.get('ms_device', 0):.4f} ms"
+            f" (graph), bound {column[key]['gop4k_bound_ms']:.4f} ms "
+            f"({column[key]['gop4k_bound_by']}), plain {c['plain_ms']:.1f} "
+            f"ms ({column[key]['gop4k_plain_on']})")
+    results["gop_intra_scan"].update(gop4k_ms_device_step0=scan0,
+                                     gop4k_depth_step0=depth0,
+                                     gop4k_icu_order_ms=order_ms)
+    results["gop_step"].update(gop4k_fps=fps, gop4k_peak_bytes=peak,
+                               gop4k_pinned_bytes=stats["host_bytes"])
+    del caps
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    log(f"  gop4k on {gpu_line()}: phase {seconds:.1f} s (captures in "
+        f"workers not counted)")
+    if seconds > GOP4K_LIMIT_S:
+        raise AssertionError(f"gop4k phase took {seconds:.1f} s, over "
+                             f"{GOP4K_LIMIT_S} s")
+    return {"gops": len(md5s), "frames": stats["frames"],
+            "steps": stats["steps"], "batches": stats["batches"],
+            "fps": fps, "ms": split["seconds"] * 1e3, "peak_bytes": peak,
+            "held_bytes": held, "pinned_bytes": stats["host_bytes"],
+            "scan0_ms_device": scan0, "depth_step0": depth0,
+            "icu_order_ms": order_ms, "capture_s": secs,
+            "seconds": seconds}
 
 
 def entry_phase(torch, K):
@@ -1804,7 +2024,7 @@ def bench_phase(torch, dev):
             (STREAM_DIR / f"torch_smoke_{name}.evc").read_bytes(), md5s, dev,
             runs=2)
     caps = [pickle.loads((WORK / f"gop{g}.pkl").read_bytes())
-            for g in range(len(GOP_SPECS))]
+            for g in range(len(B.GOP_SPECS))]
     gop = B.run_gop(caps, [dev], runs=2)
     out = B.report(configs, gop, card=gpu_line())
     missing = [k for k in B.KEYS if k not in out]
@@ -1843,9 +2063,11 @@ def main() -> int:
     # the streams and their numpy decodes take minutes of host time: the
     # reference workers run while the kernels build and are compared
     # the GOP workers first: theirs is the longest host work
-    gop_workers = [start_gop_worker(g) for g in range(len(GOP_SPECS))]
+    # the 4K GOP captures first: theirs is the longest host work
+    gop4k_workers = start_captures("gop4k")
+    gop_workers = start_captures("gop")
     big_gop_worker = start_streams_worker(BIG_GOP_SPECS, "biggop")
-    main_gop_worker = start_streams_worker(MAIN_GOP_SPECS, "maingop")
+    main_gop_worker = start_streams_worker(main_gop_specs(), "maingop")
     prepared = {name: start_reference(name) for name in STREAMS}
     try:
         K.build(verbose=True)      # always from this checkout's sources
@@ -1861,11 +2083,12 @@ def main() -> int:
         stage_diff_phase(dev)
         ring_waits = staging_phase(torch, dev)
         runs["gop"] = gop_phase(torch, dev, K, results, gop_workers)
+        gop4k = gop4k_phase(torch, dev, K, results, gop4k_workers)
         big_gop = big_gop_phase(torch, dev, K, results, big_gop_worker)
         main_gop = main_gop_phase(torch, dev, K, results, main_gop_worker)
         bench_s = bench_phase(torch, dev)
     finally:
-        for p in (list(prepared.values()) + gop_workers
+        for p in (list(prepared.values()) + gop4k_workers + gop_workers
                   + [big_gop_worker, main_gop_worker]):
             if p.poll() is None:
                 p.kill()
@@ -1879,7 +2102,8 @@ def main() -> int:
         counter = name[4:] if name in (f"gop_{k}" for k in GOP_KERNELS) \
             else name
         extra = {k: r[k] for k in r
-                 if k.startswith(("ms_", "library_", "depth_", "c4_"))
+                 if k.startswith(("ms_", "library_", "depth_", "c4_",
+                                   "gop4k_"))
                  and k != "library_ms"}
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces,
@@ -1910,6 +2134,8 @@ def main() -> int:
     log(f"GOP batch with the Main taps: {json.dumps(main_gop)}")
     log(f"staging ring waits under pressure: {json.dumps(ring_waits)}")
     log(f"config 4 (3840x2160 10-bit Main RA): {json.dumps(c4)}")
+    log(f"config 5's one-card half (8 3840x2160 10-bit Main IPPP GOPs): "
+        f"{json.dumps(gop4k)}")
     log(f"bench phase {bench_s:.1f} s")
     log(f"total smoke time {time.perf_counter() - t_start:.1f} s")
     log(gpu_line())

@@ -335,14 +335,22 @@ def test_refuses_gops_that_do_not_tile_the_mesh(evc_tools):
         TG.decode_gops_sharded([_gen(64, 64, 2, 1001)], mesh=MESH)
 
 
-@pytest.mark.parametrize("tools", [(), ("iqt", "ats", "admvp", "cm_init")])
-def test_main_gop_pair_equals_serial_and_jax(evc_tools, tools):
+MAIN_TAPS = ("iqt", "ats", "admvp", "cm_init")
+
+
+@pytest.mark.parametrize("tools,bd", [
+    pytest.param((), 8, id="tools0"),
+    pytest.param(MAIN_TAPS, 8, id="tools1"),
+    pytest.param(MAIN_TAPS, 10, id="tools1-bd10")])
+def test_main_gop_pair_equals_serial_and_jax(evc_tools, tools, bd):
     """Two 3-frame 64x64 Main IPPP GOPs, with no tools and with iqt, ATS,
-    ADMVP (the Main MC taps in the batched MC) and cm_init: every frame's
-    MD5 equals the port's serial oracle and JAX's decode_gops_sharded on a
-    2-device mesh."""
+    ADMVP (the Main MC taps in the batched MC) and cm_init, at 8 bits and
+    with the taps at 10 bits (config 5's 4K GOPs' tools; the batched
+    recon's clip, deblock's tc and the taps' shifts at 10 bits): every
+    frame's MD5 equals the port's serial oracle and JAX's
+    decode_gops_sharded on a 2-device mesh."""
     use_port_native_library()
-    streams = [_gen(64, 64, 3, s, profile=1, tools=tools)
+    streams = [_gen(64, 64, 3, s, bd=bd, profile=1, tools=tools)
                for s in (1001, 1008)]
     stats = {}
     dev, ser = TG.decode_gops_sharded(streams, mesh=MESH, stats=stats)
@@ -353,6 +361,7 @@ def test_main_gop_pair_equals_serial_and_jax(evc_tools, tools):
     pack = TG._capture_gop(streams[0])[1]["pack"]
     assert pack.main_taps == ("admvp" in tools)
     assert pack.iqt == ("iqt" in tools)
+    assert pack.bd == bd
 
 
 def test_stack_frames_ships_the_mc_class_order(step_frames):

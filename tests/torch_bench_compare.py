@@ -63,7 +63,10 @@ import json, torch
 from xevd_tpu_torch import bench as B
 from xevd_tpu_torch.ops import pipeline as P
 from xevd_tpu_torch.parallel import gop as TG
-_, caps, _ = B.prepare(["gop"])
+caps = B.prepare(["gop"])[1]
+# {batch: (captures, committed MD5s)} since the GOP streams are committed,
+# a list of captures before
+caps = caps["gop"][0] if isinstance(caps, dict) else caps
 dev = torch.device("cuda", 0)
 events, scan = [], P.intra_scan
 def timed(*a, **k):

@@ -567,7 +567,8 @@ class KernelCase:
 
 def max_abs_err(got, want) -> int:
     """Largest |got - want| over two equal-length sequences of tensors
-    (None where a plane is absent, e.g. 4:0:0 chroma)."""
+    (None where a plane is absent, e.g. 4:0:0 chroma), `want` brought to
+    `got`'s device (a plain version run on the CPU)."""
     err = 0
     for g, w in zip(got, want, strict=True):
         if (g is None) != (w is None):
@@ -576,7 +577,7 @@ def max_abs_err(got, want) -> int:
             continue
         if g.shape != w.shape:
             raise AssertionError(f"shape {tuple(g.shape)} != {tuple(w.shape)}")
-        err = max(err, int((g.to(torch.int64) - w.to(torch.int64))
+        err = max(err, int((g.to(torch.int64) - w.to(g.device, torch.int64))
                            .abs().max().item()))
     return err
 
@@ -615,6 +616,10 @@ def _copies(planes):
             if x is not None:
                 x.copy_(r)
     return a, b, reset
+
+
+def _to(x, dev):
+    return None if x is None else x.to(dev)
 
 
 def _dev(a, dev):
@@ -1002,17 +1007,25 @@ def pad_picture_case(dev, bd, h, w, chroma=True, G=None, unaligned=False,
 
 
 def intra_planes_case(dev, recs, res, icu, bd, chroma, shape, icu_off=None,
-                      order=None):
+                      order=None, plain_device=None):
     """The intra scan on device planes `recs` (left untouched: each side
     scans a copy of its own) with residuals `res` and CU table `icu`; a
     GOP batch with `icu_off` and the ticket order `order` (the kernel's
-    walk), held to the frame-after-frame plain version."""
+    walk), held to the frame-after-frame plain version (on copies of its
+    inputs on `plain_device` where given: the CPU walks CUs faster than a
+    launch a tensor operation)."""
     a, b, reset = _copies(recs)
 
     def plain():
+        if plain_device is None:
+            pb, pr, pi, po = b, res, icu, icu_off
+        else:
+            pb, pr = ([None if x is None else x.to(plain_device) for x in xs]
+                      for xs in (b, res))
+            pi, po = icu.to(plain_device), _to(icu_off, plain_device)
         if icu_off is None:
-            return list(TI.intra_scan_ref(b, res, icu, bd, chroma))
-        return list(TI.intra_scan_batch_ref(b, res, icu, icu_off, bd, chroma))
+            return list(TI.intra_scan_ref(pb, pr, pi, bd, chroma))
+        return list(TI.intra_scan_batch_ref(pb, pr, pi, po, bd, chroma))
     return KernelCase(
         "intra_scan", shape,
         lambda: list(TI.intra_scan(a, res, icu, bd, chroma, icu_off=icu_off,
@@ -1587,7 +1600,7 @@ def _batch_areas(recs, h_scu, w_scu):
         for r in recs[1:]]
 
 
-def gop_step_cases(dev, caps, t=1):
+def gop_step_cases(dev, caps, t=1, plain_device=None):
     """The batched kernels and K15's step against their batched plain
     versions on time step `t` of the GOP batch of `caps` (every GOP on one
     device; parallel/gop.py `_capture_gop` captures) on `dev`: the step's
@@ -1596,7 +1609,9 @@ def gop_step_cases(dev, caps, t=1):
     outputs of the stages before it).  Step 0 (the GOPs' I pictures) has
     no MC case and recon without a prediction; the intra scan walks the
     batch's ticket order (ops/pack.py `icu_order`) against the plain
-    version's frame after frame."""
+    version's frame after frame.  With `plain_device`, the intra scan's
+    and the step's plain versions (a tensor operation a CU) run on copies
+    of their inputs there."""
     from xevd_tpu_torch.ops.pipeline import DpbStep, run_frames_device
     from xevd_tpu_torch.parallel import gop as TG
 
@@ -1649,7 +1664,7 @@ def gop_step_cases(dev, caps, t=1):
     cases.append(intra_planes_case(
         dev, recs, resids, b.icu, bd, chroma,
         f"{label}, {b.icu.shape[0]} CUs, depth {depth}", icu_off=b.icu_off,
-        order=b.icu_order))
+        order=b.icu_order, plain_device=plain_device))
     TI.intra_scan(recs, resids, b.icu, bd, chroma, icu_off=b.icu_off,
                   order=b.icu_order)
     # each kernel on the areas it filters on the path, then run on them:
@@ -1685,10 +1700,17 @@ def gop_step_cases(dev, caps, t=1):
          * (1 + (b.mc[:, PK.MC_PLANE] > 0))).sum())
     step_bytes = (pb.payload.nbytes + pb.coefs.nbytes + win
                   + sum(o.numel() * 2 for o in dpb.out))
+    if plain_device is None:
+        pbatch, ptab, pdpb = b, tab, dpb
+    else:
+        pbatch = PK.upload_batch(pb, plain_device)
+        ptab = device_tables(plain_device)
+        pdpb = DpbStep(TM.DpbRing(tuple(_to(p, plain_device)
+                                        for p in dpb.refs.planes), t), None)
     cases.append(KernelCase(
         "gop_step", f"{label}, {G} x {h}x{w} pictures",
         lambda: list(run_frames_device(b, tab, out)),
-        lambda: gop_step_plain(b, tab, dpb),
+        lambda: gop_step_plain(pbatch, ptab, pdpb),
         step_bytes, sum(c.ops for c in cases), graph_calls=1))
     return cases
 

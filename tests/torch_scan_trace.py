@@ -162,7 +162,8 @@ def main() -> int:
     card = smi()
     print(card, flush=True)
     dev = torch.device("cuda", 0)
-    _, caps, info = B.prepare(["gop"])
+    _, gops, info = B.prepare(["gop"])
+    caps = gops["gop"][0]
     print(f"captures: {json.dumps(info)}", flush=True)
     K.lib()
     lib = trace_lib(K)

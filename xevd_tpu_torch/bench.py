@@ -1,12 +1,13 @@
 """The port's benchmark: decoded frames/s of `Decoder(backend=
 TorchPixelBackend(device))` on bench.py's 1080p configs 2 and 3, on config
-4 (BASELINE.json configs[3], Main 4K 10-bit) and of the GOP batch, every
-timed frame held to the numpy oracle, with the host's time split apart.
-The counterpart of bench.py:80-219.
+4 (BASELINE.json configs[3], Main 4K 10-bit) and of the GOP batch at
+1080p and at config 5's one-card half (BASELINE.json configs[4], Main 4K
+10-bit GOPs), every timed frame held to the numpy oracle, with the host's
+time split apart.  The counterpart of bench.py:80-219.
 
     python -m xevd_tpu_torch.bench [--device cuda|cpu] [--runs N]
-        [--only c2,c3,c4,gop]
-    python -m xevd_tpu_torch.bench --regenerate [--only c4]
+        [--only c2,c3,c4,gop,gop4k]
+    python -m xevd_tpu_torch.bench --regenerate [--only c4,gop,gop4k]
 
 Run it alone, on a host where nothing else has started: the frames/s are
 host-bound.  It prints one JSON object as its last line, with bench.py's
@@ -16,21 +17,24 @@ card's name and power limit.
 Streams.  Config 2 is bench.py's 1080p Baseline IPPP stream (16 frames,
 bench.py:22), config 3 its 1080p Main RA stream with the 14 tools
 (9 frames, bench.py:28-31), config 4 a 3840x2160 10-bit Main RA stream
-with those 14 tools and DRA (5 frames), the GOP batch chip_smoke.py's 8
-1080p IPPP GOPs.  `tests/torch_reference.py`, run as a program of its own, writes
-each stream (tools/evc_enc, seeded) under tests/fixtures/torch_bench_*.evc
-and decodes it with `xevd_tpu`'s numpy oracle backend; the oracle's
-per-frame MD5s are kept beside the stream (.md5.json).  Each GOP is
-generated and then captured (`python -m xevd_tpu_torch.parallel.gop
---capture`: the serial oracle decode with each frame's pack) under
-build/bench/.  All of it runs in parallel worker processes, once, and is
-cached; no timed run starts before every worker has exited.  Config 4's
-stream takes over half an hour of one core to encode and its oracle some
-minutes more, so its stream and oracle MD5s are committed
-(xevd_tpu_torch/streams/c4.evc and c4.json, with the spec, the seconds
-each took and the host they ran on) and taken as they are when the spec
-equals CONFIGS["c4"], refused otherwise; `--regenerate` makes them anew
-(a worker, as for the other configs), rewrites the pair and exits.
+with those 14 tools and DRA (5 frames), the GOP batches GOP_SPECS (8
+1080p Baseline IPPP GOPs, "gop") and GOP4K_SPECS (8 3840x2160 10-bit Main
+IPPP GOPs, "gop4k").  `tests/torch_reference.py`, run as a program of its
+own, writes each stream (tools/evc_enc, seeded) under
+tests/fixtures/torch_bench_*.evc and decodes it with `xevd_tpu`'s numpy
+oracle backend; the oracle's per-frame MD5s are kept beside the stream
+(.md5.json).  Config 4's stream takes over half an hour of one core to
+encode and a GOP's minutes, so their streams and oracle MD5s are
+committed (xevd_tpu_torch/streams: c4.evc and c4.json, <gop>_<g>.evc and
+<gop>.json, with the specs, the seconds each took and the host they ran
+on) and taken as they are when the spec equals CONFIGS["c4"] or
+GOPS[name], refused otherwise; `--regenerate` makes them anew (a worker
+each, as for the other configs), rewrites them and exits.  Each GOP is
+captured (`python -m xevd_tpu_torch.parallel.gop --capture`: the serial
+oracle decode with each frame's pack) under build/bench/, by the port's
+digest.  All of it runs in parallel worker processes, at most one a
+core, once, and is cached; no timed run starts before every worker has
+exited.
 
 A config runs one warm-up decode, `runs` timed decodes, one decode with
 the host split and one under torch.profiler.  A decode feeds the stream
@@ -58,9 +62,10 @@ runs on the decoder's worker thread beside pack and dispatch, so the
 shares overlap and do not add up to the wall.  The device's busy share
 comes from the traced decode, read by `profile.device_activity`.
 
-The GOP batch: `runs` timed `decode_gops_sharded` calls on the captures
+A GOP batch: `runs` timed `decode_gops_sharded` calls on the captures
 (frames/s from the first upload to the last output), each frame's MD5
-held to the serial oracle's, then one call with each step's marks
+held to the serial oracle's and the committed MD5s, the peak device
+memory and the pinned host bytes, then one call with each step's marks
 (`parallel/gop.py` `_DeviceRun.step`) read apart: the copy of its stacked
 arrays into its pinned slot and the issue of its copies (host clock), the
 copies on the upload stream and the kernel stream's wait for them
@@ -75,6 +80,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures
 import contextlib
 import hashlib
 import json
@@ -122,12 +128,25 @@ CONFIGS = {
     "c4": (3840, 2160, 3, 32, 780, "RA", 0.3, 10, 1, MAIN_TOOLS + ("dra",),
            0.1),
 }
-# the configs whose stream and oracle MD5s are committed (STREAMS_DIR)
-COMMITTED = ("c4",)
-# chip_smoke.py GOP_SPECS: xevd_tpu/parallel/gop.py gen_gop_streams(8, 1920,
-# 1080, frames=2, qp=30, variable=True), 2 + g % 3 frames each
+# the GOP batches (K15), each GOP's tools/evc_enc.encode_stream arguments.
+# The 8 1080p Baseline IPPP GOPs: xevd_tpu/parallel/gop.py
+# gen_gop_streams(8, 1920, 1080, frames=2, qp=30, variable=True), 2 + g % 3
+# frames each
 GOP_SPECS = [(1920, 1080, 2 + g % 3, 30, 1000 + 7 * g, "IPPP", 0.5, 8, 0,
               (), 0.35) for g in range(8)]
+# the Main tools the GOP batch decodes (iqt/ATS ITDQ, the ADMVP MC taps):
+# parallel/gop.py refuses SUCO, EIPD (and so BTT), ADDB and ALF
+MAIN_GOP_TOOLS = ("iqt", "ats", "admvp", "cm_init")
+# config 5's one-card half (BASELINE.json configs[4], Main 4K multi-GOP
+# batch): eight IDR-led 3840x2160 10-bit Main IPPP GOPs of 2 or 3 frames (20
+# pictures in 3 steps; only the 3-frame GOPs reach step 2) at config 2's and
+# 4's qp and density
+GOP4K_SPECS = [(3840, 2160, 2 + g % 2, 32, 1600 + 7 * g, "IPPP", 0.3, 10, 1,
+                MAIN_GOP_TOOLS, 0.35) for g in range(8)]
+GOPS = {"gop": GOP_SPECS, "gop4k": GOP4K_SPECS}
+# the configs and GOP batches whose streams and oracle MD5s are committed
+# (STREAMS_DIR)
+COMMITTED = ("c4", "gop", "gop4k")
 # bench.py's keys, every one in the last line
 KEYS = ("metric", "value", "unit", "vs_baseline", "ref_fps_best", "frames",
         "total_ms_per_frame", "host_ms_per_frame", "entropy_ms_per_frame",
@@ -501,13 +520,21 @@ def gop_step_split(marks: StageMarks, batches) -> list[dict]:
             for G, g in zip(batches, groups)]
 
 
-def run_gop(captures, mesh, runs=RUNS) -> dict:
+def run_gop(captures, mesh, runs=RUNS, md5s=None) -> dict:
     """The GOP batch on `captures` (`parallel/gop.py` `_capture_gop`
     results): a warm-up call, `runs` timed `decode_gops_sharded` calls and
     one with each step's staging, copies, wait, `run_frames_device` and
     output copies timed apart (`gop_step_split`; its batch ms `split_ms`,
     the marks' own cost included); every call's frame MD5s and checksum
-    held to the serial oracle's (OracleMismatch).  Prints nothing."""
+    held to the serial oracle's, and to `md5s` (the committed oracle MD5s,
+    a list a GOP) where given (OracleMismatch).  On a card, the warm-up
+    call's peak device memory (`peak_bytes`, torch.cuda.
+    max_memory_allocated() from a reset just before it) and the batch's
+    pinned host buffers (`pinned_bytes`: the staging slots and the output
+    buffers, `_DeviceRun`), both held outside the clock.  Prints
+    nothing."""
+    cuda = mesh[0].type == "cuda"
+
     def call(on_stage=None):
         stats = {}
         dmd5, smd5 = TG.decode_gops_sharded(None, mesh=mesh,
@@ -516,9 +543,16 @@ def run_gop(captures, mesh, runs=RUNS) -> dict:
         if dmd5 != smd5 or stats["checksum"] != stats["serial_checksum"]:
             raise OracleMismatch("GOP batch: a frame's MD5 differs from the "
                                  "serial numpy oracle's")
+        if md5s is not None and dmd5 != md5s:
+            raise OracleMismatch("GOP batch: a frame's MD5 differs from the "
+                                 "committed numpy-oracle MD5s")
         return stats
 
+    if cuda:
+        _sync(mesh[0])
+        torch.cuda.reset_peak_memory_stats(mesh[0])
     stats = call()
+    peak = torch.cuda.max_memory_allocated(mesh[0]) if cuda else None
     fps, ms = [], []
     load0, smi0 = os.getloadavg(), _smi_sample(mesh[0])
     for _ in range(runs):
@@ -538,7 +572,9 @@ def run_gop(captures, mesh, runs=RUNS) -> dict:
                                 _spread(fps).items()},
             "ms_runs": ms, "loadavg_before": load0, "loadavg_after": load1,
             "smi_before": smi0, "smi_after": smi1, "step_split": steps,
-            "split_ms": split_ms, "equal": True}
+            "split_ms": split_ms, "peak_bytes": peak,
+            "pinned_bytes": stats["host_bytes"] if cuda else 0,
+            "equal": True}
 
 
 def reference_fps(ref_bin: Path, stream: Path) -> float:
@@ -561,11 +597,13 @@ def reference_fps(ref_bin: Path, stream: Path) -> float:
 
 
 def report(configs: dict, gop: dict | None, ref: dict | None = None,
-           card: str | None = None) -> dict:
+           card: str | None = None, gop4k: dict | None = None) -> dict:
     """The last line: bench.py's keys from configs "c2" and "c3" (either
     may be absent: its keys are null; "c4" is only under "configs"), the
     reference's frames/s where
-    `ref` holds them ({"c2": fps, "c3": fps}), and everything measured."""
+    `ref` holds them ({"c2": fps, "c3": fps}), and everything measured:
+    the 1080p GOP batch under "gop", the 4K one under "gop4k" (a key only
+    where it ran)."""
     ref = ref or {}
     c2, c3 = configs.get("c2"), configs.get("c3")
 
@@ -603,13 +641,34 @@ def report(configs: dict, gop: dict | None, ref: dict | None = None,
         "configs": configs,
         "gop": gop,
     }
+    if gop4k is not None:
+        out["gop4k"] = gop4k
     return out
 
 
 def _run_worker(cmd, what):
-    """Start a worker process (cwd: the repo)."""
-    return (what, subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
-                                   stderr=subprocess.PIPE, text=True))
+    """Run one worker process (cwd: the repo) to its end: (what, return
+    code, standard output, standard error)."""
+    r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True)
+    return what, r.returncode, r.stdout, r.stderr
+
+
+def _run_workers(jobs) -> dict:
+    """Run the worker commands `jobs` [(what, cmd)], at most one a core at a
+    time (so the seconds a worker reports are its own, not shared with
+    another's), and wait for all of them.  Returns {what: the JSON lines of
+    its output}; raises RuntimeError naming every worker that failed."""
+    if not jobs:
+        return {}
+    with concurrent.futures.ThreadPoolExecutor(
+            min(len(jobs), os.cpu_count() or 1)) as pool:
+        done = list(pool.map(lambda j: _run_worker(j[1], j[0]), jobs))
+    failed = [f"{what} (rc {rc}): {err[-2000:]}"
+              for what, rc, _, err in done if rc != 0]
+    if failed:
+        raise RuntimeError("stream workers failed:\n" + "\n".join(failed))
+    return {what: [json.loads(x) for x in out.splitlines()
+                   if x.startswith("{")] for what, _, out, _ in done}
 
 
 def _port_digest() -> str:
@@ -631,6 +690,20 @@ def stream_pair(name) -> tuple[Path, Path]:
     return evc, evc.with_suffix(".md5.json")
 
 
+def gop_pair(name) -> tuple[list[Path], Path]:
+    """([GOP g's stream], oracle-MD5 JSON) of GOP batch `name`, committed
+    under STREAMS_DIR as <name>_<g>.evc and <name>.json."""
+    return ([STREAMS_DIR / f"{name}_{g}.evc" for g in range(len(GOPS[name]))],
+            STREAMS_DIR / f"{name}.json")
+
+
+def _where() -> str:
+    return (f"tests/torch_reference.py, one process on "
+            f"{platform.processor() or platform.machine()} "
+            f"({os.cpu_count()} cores); the oracle is xevd_tpu's "
+            f"NumpyPixelBackend")
+
+
 def write_md5s(name, yuv: Path, worker: dict):
     """Write config `name`'s JSON from the oracle's 10-bit YUV and the
     reference worker's record: the spec, each frame's MD5, the seconds of
@@ -639,26 +712,63 @@ def write_md5s(name, yuv: Path, worker: dict):
     spec = json.loads(json.dumps(CONFIGS[name]))
     rec = {"spec": spec, "md5s": yuv_md5s(yuv.read_bytes(), *spec[:2]),
            "encoder_s": worker["gen_s"], "oracle_s": worker["numpy_s"],
-           "where": f"tests/torch_reference.py, one process on "
-                    f"{platform.processor() or platform.machine()} "
-                    f"({os.cpu_count()} cores); the oracle is xevd_tpu's "
-                    f"NumpyPixelBackend"}
+           "where": _where()}
     stream_pair(name)[1].write_text(json.dumps(rec, indent=1) + "\n")
 
 
-def prepare(names, regenerate=False) -> tuple[dict, list | None, dict]:
+def write_gop_md5s(name, yuvs, workers):
+    """Write GOP batch `name`'s JSON from each GOP's oracle YUV and its
+    reference worker's record: the spec of every GOP, each GOP's frame
+    MD5s, and each GOP's encode and oracle seconds (one process a GOP, at
+    most one a core)."""
+    spec = json.loads(json.dumps(GOPS[name]))
+    rec = {"spec": spec,
+           "md5s": [yuv_md5s(y.read_bytes(), *s[:2])
+                    for y, s in zip(yuvs, spec)],
+           "encoder_s": [w["gen_s"] for w in workers],
+           "oracle_s": [w["numpy_s"] for w in workers], "where": _where()}
+    gop_pair(name)[1].write_text(json.dumps(rec, indent=1) + "\n")
+
+
+def committed_gop_md5s(name) -> list[list[str]]:
+    """GOP batch `name`'s committed oracle MD5s, a list a GOP; raises unless
+    every stream is there and the JSON's spec equals GOPS[name]."""
+    evcs, js = gop_pair(name)
+    if not (js.exists() and all(e.exists() for e in evcs)
+            and json.loads(js.read_text())["spec"]
+            == json.loads(json.dumps(GOPS[name]))):
+        raise RuntimeError(
+            f"{name}: the committed streams {name}_<g>.evc and {js.name} are "
+            f"missing or their spec is not GOPS[{name!r}]; make them anew "
+            f"with --regenerate")
+    return json.loads(js.read_text())["md5s"]
+
+
+def capture_command(evc: Path, pkl: Path) -> list:
+    """The worker that captures GOP stream `evc` into `pkl` (`python -m
+    xevd_tpu_torch.parallel.gop --capture`: the serial numpy oracle
+    decode with each frame's pack)."""
+    return [sys.executable, "-m", "xevd_tpu_torch.parallel.gop", "--capture",
+            str(evc), str(pkl)]
+
+
+def prepare(names, regenerate=False) -> tuple[dict, dict | None, dict]:
     """Generate (or find cached, or committed) the streams of `names`
-    ("c2", "c3", "c4", "gop") and their oracle results, every worker in
-    parallel, and wait for all of them.  A COMMITTED config's pair is
-    taken as it is when its spec equals CONFIGS[name], refused otherwise;
-    `regenerate` makes the pairs of `names` anew.  Returns ({config:
-    (stream bytes, oracle MD5s)}, the GOP captures or None, {what: the
-    workers' gen_s / numpy_s / capture seconds, or "cached" /
-    "committed"})."""
+    ("c2", "c3", "c4", "gop", "gop4k") and their oracle results, every
+    worker in parallel (at most one a core), and wait for all of them.  A
+    COMMITTED config's or GOP batch's streams are taken as they are when
+    the spec equals CONFIGS[name] or GOPS[name], refused otherwise;
+    `regenerate` makes those of `names` anew (and captures nothing).  Each
+    GOP of a batch is captured from its committed stream by a worker
+    (`capture_command`), cached under WORK by the port's digest.  Returns
+    ({config: (stream bytes, oracle MD5s)}, {GOP batch: (captures,
+    committed MD5s a GOP)} or None without one, {what: the workers'
+    gen_s / numpy_s / capture seconds, or "cached" / "committed"})."""
     WORK.mkdir(parents=True, exist_ok=True)
     FIXTURES.mkdir(parents=True, exist_ok=True)
-    workers, info = [], {}
+    jobs, info = [], {}
     configs = [n for n in names if n in CONFIGS]
+    gop_names = [n for n in names if n in GOPS]
     for name in configs:
         spec = json.loads(json.dumps(CONFIGS[name]))
         evc, md5 = stream_pair(name)
@@ -673,34 +783,29 @@ def prepare(names, regenerate=False) -> tuple[dict, list | None, dict]:
                 f"{name}: the committed pair {evc.name}, {md5.name} is "
                 f"missing or its spec is not CONFIGS[{name!r}]; make it "
                 f"anew with --regenerate")
-        workers.append(_run_worker(
-            [sys.executable, str(REFERENCE), json.dumps(spec), str(evc),
-             str(WORK / f"{name}_np.yuv")], name))
-    caps = None
-    if "gop" in names:
-        digest = _port_digest()
-        pkls = [WORK / f"gop{g}-{digest}.pkl" for g in range(len(GOP_SPECS))]
-        script = ('"$0" tests/torch_reference.py "$1" "$2" && '
-                  '"$0" -m xevd_tpu_torch.parallel.gop --capture "$2" "$3"')
-        for g, pkl in enumerate(pkls):
-            if pkl.exists():
-                info[f"gop{g}"] = "cached"
-                continue
-            workers.append(_run_worker(
-                ["sh", "-c", script, sys.executable,
-                 json.dumps(GOP_SPECS[g]),
-                 str(FIXTURES / f"torch_bench_gop{g}.evc"), str(pkl)],
-                f"gop{g}"))
-    failed = []
-    for what, proc in workers:          # every worker ends before any clock
-        out, err = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{what} (rc {proc.returncode}): {err[-2000:]}")
+        jobs.append((name, [sys.executable, str(REFERENCE), json.dumps(spec),
+                            str(evc), str(WORK / f"{name}_np.yuv")]))
+    digest = _port_digest()
+    pkls = {}
+    for name in gop_names:
+        evcs, _ = gop_pair(name)
+        if regenerate:
+            for g, evc in enumerate(evcs):
+                evc.unlink(missing_ok=True)
+                jobs.append((f"{name}{g}", [
+                    sys.executable, str(REFERENCE), json.dumps(GOPS[name][g]),
+                    str(evc), str(WORK / f"{name}{g}_np.yuv")]))
             continue
-        info[what] = [json.loads(x) for x in out.splitlines()
-                      if x.startswith("{")]
-    if failed:
-        raise RuntimeError("stream workers failed:\n" + "\n".join(failed))
+        committed_gop_md5s(name)
+        info[name] = "committed"
+        pkls[name] = [WORK / f"{name}{g}-{digest}.pkl"
+                      for g in range(len(evcs))]
+        for g, (evc, pkl) in enumerate(zip(evcs, pkls[name])):
+            if pkl.exists():
+                info[f"{name}{g}"] = "cached"
+            else:
+                jobs.append((f"{name}{g}", capture_command(evc, pkl)))
+    info.update(_run_workers(jobs))     # every worker ends before any clock
     streams = {}
     for name in configs:
         evc, md5 = stream_pair(name)
@@ -709,14 +814,25 @@ def prepare(names, regenerate=False) -> tuple[dict, list | None, dict]:
             write_md5s(name, yuv, info[name][-1])
             yuv.unlink()
         streams[name] = (evc.read_bytes(), json.loads(md5.read_text())["md5s"])
-    if "gop" in names:
+    if regenerate:
+        for name in gop_names:
+            yuvs = [WORK / f"{name}{g}_np.yuv" for g in range(len(GOPS[name]))]
+            write_gop_md5s(name, yuvs, [info[f"{name}{g}"][-1]
+                                        for g in range(len(yuvs))])
+            for y in yuvs:
+                y.unlink()
+        return streams, None, info
+    gops = {}
+    for name in gop_names:
         # the pickles are this program's own workers' output
-        caps = [pickle.loads(p.read_bytes()) for p in pkls]
-        short = [g for g, c in enumerate(caps) if len(c) != GOP_SPECS[g][2]]
+        caps = [pickle.loads(p.read_bytes()) for p in pkls[name]]
+        md5s = committed_gop_md5s(name)
+        short = [g for g, c in enumerate(caps) if len(c) != len(md5s[g])]
         if short:
-            raise RuntimeError(f"GOP captures {short}: fewer frames than "
-                               "encoded")
-    return streams, caps, info
+            raise RuntimeError(f"{name} captures {short}: not as many frames "
+                               "as the committed MD5s")
+        gops[name] = (caps, md5s)
+    return streams, gops or None, info
 
 
 def main(argv=None) -> int:
@@ -726,19 +842,22 @@ def main(argv=None) -> int:
                     "PyTorch versions (tests)")
     ap.add_argument("--runs", type=int, default=RUNS,
                     help="timed decodes a config (default %(default)s)")
-    ap.add_argument("--only", default="c2,c3,c4,gop",
-                    help="comma list of c2, c3, c4, gop (default all)")
+    ap.add_argument("--only", default="c2,c3,c4,gop,gop4k",
+                    help="comma list of c2, c3, c4, gop, gop4k (default all)")
     ap.add_argument("--regenerate", action="store_true",
                     help="make the committed streams and oracle MD5s of "
-                    "the configs picked (c4) anew, rewrite them and exit "
-                    "(over half an hour of one core)")
+                    "the configs and GOP batches picked (c4, gop, gop4k) "
+                    "anew, rewrite them and exit (c4: over half an hour of "
+                    "one core)")
     a = ap.parse_args(argv)
     names = [n for n in a.only.split(",") if n]
-    if not names or set(names) - {*CONFIGS, "gop"} or a.runs < 1:
-        ap.error("--only takes c2, c3, c4 and gop; --runs at least 1")
+    if not names or set(names) - {*CONFIGS, *GOPS} or a.runs < 1:
+        ap.error("--only takes c2, c3, c4, gop and gop4k; --runs at least 1")
     if a.regenerate:
+        t0 = time.perf_counter()
         _, _, info = prepare([n for n in names if n in COMMITTED], True)
         log(json.dumps(info))
+        log(f"regenerated in {time.perf_counter() - t0:.1f} s")
         return 0
     dev = resolve_device(a.device)      # no card: raises before any work
     card = nvidia_smi("name,power.limit") if dev.type == "cuda" else None
@@ -747,13 +866,14 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device "
         f"{dev}, native entropy engine: {host_native.available()}")
     t0 = time.perf_counter()
-    streams, caps, info = prepare(names)
+    streams, gop_caps, info = prepare(names)
     log(f"streams ready in {time.perf_counter() - t0:.1f} s (workers: "
         f"{json.dumps(info)}); every worker has exited")
     load0 = os.getloadavg()
     configs = {name: run_config(*streams[name], dev, a.runs)
                for name in names if name in CONFIGS}
-    gop = run_gop(caps, [dev], a.runs) if caps is not None else None
+    gops = {name: run_gop(caps, [dev], a.runs, md5s)
+            for name, (caps, md5s) in (gop_caps or {}).items()}
     load1 = os.getloadavg()
     ref = {}
     for name, binary in (("c2", "xevdb_app"), ("c3", "xevd_app")):
@@ -761,7 +881,7 @@ def main(argv=None) -> int:
         if name in configs and ref_bin.exists():
             ref[name] = reference_fps(ref_bin, FIXTURES /
                                       f"torch_bench_{name}.evc")
-    out = report(configs, gop, ref, card)
+    out = report(configs, gops.get("gop"), ref, card, gops.get("gop4k"))
     out.update(loadavg_before=load0, loadavg_after=load1, workers=info)
     # every decode has been held to the oracle: the numbers may be shown
     for name, c in configs.items():
@@ -776,9 +896,15 @@ def main(argv=None) -> int:
             f"{s['upload_device_ms']}), D2H {s['d2h_ms']:.3f}, DRA "
             f"{s['dra_ms']:.3f}; busy share "
             f"{(c['traced'] or {}).get('busy_share')}")
-    if gop:
-        log(f"gop: {gop['frames']} frames in {gop['steps']} steps, frames/s "
-            f"runs {[round(f, 3) for f in gop['fps_runs']]}")
+    for name, g in gops.items():
+        log(f"{name}: {g['frames']} frames of {g['gops']} GOPs in "
+            f"{g['steps']} steps, frames/s runs "
+            f"{[round(f, 3) for f in g['fps_runs']]} (median "
+            f"{g['fps_median']:.3f}, spread {g['fps_spread']:.3f}); peak "
+            f"device memory {g['peak_bytes']} B, pinned host buffers "
+            f"{g['pinned_bytes']} B")
+        for t, st in enumerate(g["step_split"]):
+            log(f"  {name} step {t}: {json.dumps(st)}")
     if card:
         log(nvidia_smi("name,power.limit"))
     print(json.dumps(out))

@@ -27,7 +27,8 @@ RECON_BLOCK = 2048
 
 def _recon_kernel(resid_ptr, pred_ptr, cnt_ptr, out_ptr, n, maxv,
                   HAS_PRED: "tl.constexpr", BLOCK: "tl.constexpr"):
-    offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
+    # 64-bit offsets: a GOP batch's G planes may pass 2^31 samples
+    offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
     m = offs < n
     t = tl.load(resid_ptr + offs, mask=m, other=0).to(tl.int32)
     if HAS_PRED:

@@ -259,6 +259,13 @@ class _DeviceRun:
                                        pin_memory=self.cuda)
                            for s in (0, 1, 1)) for pb in steps]
 
+    def host_bytes(self) -> int:
+        """The bytes of its host buffers (pinned on a card): the staging
+        slots and the outputs."""
+        return (sum(s.payload.nbytes + s.coefs.nbytes
+                    for s in self.staging.slots)
+                + sum(p.nbytes for planes in self.host for p in planes))
+
     def _on(self):
         """This device and its stream as the current ones."""
         if not self.cuda:
@@ -338,8 +345,9 @@ def decode_gops_sharded(streams: list[bytes], mesh=None,
     iff the batched decode is bit-exact against the serial oracle.
     `stats`, if given, receives the checksum (device), the serial one,
     the step count, the DPB depth, the batch size of each step, the
-    frames, and `seconds`, the host clock from the first upload to the last
-    output on the host.  `on_stage(name)`, if given, marks each step of
+    frames, `seconds`, the host clock from the first upload to the last
+    output on the host, and `host_bytes`, the staging slots and output
+    buffers the devices' runs hold on the host (pinned on a card).  `on_stage(name)`, if given, marks each step of
     each device (`_DeviceRun.step`)."""
     if mesh is None:
         mesh = make_mesh(n_devices)
@@ -373,7 +381,8 @@ def decode_gops_sharded(streams: list[bytes], mesh=None,
                                     .sum()) for c in caps for fr in c),
             steps=max(len(r.steps) for r in runs), depth=D,
             batches=[[pb.G for pb in r.steps] for r in runs],
-            frames=sum(len(c) for c in caps), seconds=seconds)
+            frames=sum(len(c) for c in caps), seconds=seconds,
+            host_bytes=sum(r.host_bytes() for r in runs))
     if verbose:
         for g in range(G):
             for t in range(len(device_md5s[g])):
