@@ -46,9 +46,11 @@ by frame to the oracle's MD5s after its clock stops: a difference raises
 `OracleMismatch` before any number is printed.
 
 The host split (one more decode, checked, not part of `value`): entropy
-(`host/native.py` `decode_slice_native`, or `decode_slice_native_main`),
-derive (`host/derive.py` `job_from_native`, or `derive_frame_native_main`),
-the pack into a staging slot (ops/staging.py) and the issue of the two
+and derive by the decoder's own spans (xevd_tpu_torch/spans.py:
+`host.entropy`, the C engine's `decode_slice_native` or `_main` or the
+Python `EntropyDecoder`; `host.derive`, `job_from_native`,
+`derive_frame_native_main` or `derive_frame`), the pack into a staging
+slot (ops/staging.py) and the issue of the two
 H2D copies by the host clock between the backend's stage marks, the
 host's wait for a slot whose copies were still in flight apart (the
 ring's own clock, `HostStaging.wait_seconds`; 0 when the ring never
@@ -57,7 +59,8 @@ marks (`ops/pipeline.py` STAGES: events before and after the copies; an
 interval also holds the host's gaps between launches), the output's
 D2H copies after a synchronise (the wait for the card apart), and the
 inverse DRA that the host applies to a DRA stream's output planes at pull
-time (`host/ops/dra.py` `apply_dra_inverse`, 0 without DRA).  Entropy
+time (`host.dra`: `host/ops/dra.py` `apply_dra_inverse`, 0 without
+DRA).  Entropy
 runs on the decoder's worker thread beside pack and dispatch, so the
 shares overlap and do not add up to the wall.  The device's busy share
 comes from the traced decode, read by `profile.device_activity`.
@@ -81,7 +84,6 @@ from __future__ import annotations
 import argparse
 import collections
 import concurrent.futures
-import contextlib
 import hashlib
 import json
 import os
@@ -97,13 +99,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from . import spans as SP
 from .app import LOOKAHEAD_DEPTH
 from .device import resolve_device
 from .host import Decoder
-from .host import derive as host_derive
 from .host.decoder import _LazyPlane
 from .host import native as host_native
-from .host.ops import dra as host_dra
 from .ops.pipeline import GOP_STAGES, STAGES, TorchPixelBackend
 from .parallel import gop as TG
 from .profile import device_activity
@@ -240,45 +241,6 @@ class StageMarks:
                 if name != "start"]
 
 
-class _Timer:
-    """Wraps a module function, adding each call's host seconds to
-    `total`."""
-
-    def __init__(self, module, name):
-        self.module, self.name = module, name
-        self.orig = getattr(module, name)
-        self.total = 0.0
-
-    def __call__(self, *a, **k):
-        t0 = time.perf_counter()
-        try:
-            return self.orig(*a, **k)
-        finally:
-            self.total += time.perf_counter() - t0
-
-
-@contextlib.contextmanager
-def _timed_host_calls():
-    """Times the entropy and derive entry points the decoder imports at
-    call time (host/decoder.py:699-757), and the inverse DRA of its output
-    planes (host/decoder.py:848-856), while the block runs."""
-    timers = {
-        "entropy": [_Timer(host_native, "decode_slice_native"),
-                    _Timer(host_native, "decode_slice_native_main")],
-        "derive": [_Timer(host_derive, "job_from_native"),
-                   _Timer(host_native, "derive_frame_native_main")],
-        "dra": [_Timer(host_dra, "apply_dra_inverse")]}
-    for ts in timers.values():
-        for t in ts:
-            setattr(t.module, t.name, t)
-    try:
-        yield timers
-    finally:
-        for ts in timers.values():
-            for t in ts:
-                setattr(t.module, t.name, t.orig)
-
-
 def _release(dec):
     """Finish a decoder's deferred frame and end its entropy thread, so
     that nothing of one decode runs into the next one's clock."""
@@ -352,7 +314,9 @@ def split_decode(data: bytes, md5s, dev) -> dict:
         copy += time.perf_counter() - t1
         return planes
 
-    with _timed_host_calls() as timers:
+    # the decoder's own spans: host.entropy (on its pool thread where it
+    # runs there), host.derive and host.dra (the inverse DRA at pull time)
+    with SP.record() as rec:
         _sync(dev)
         t0 = time.perf_counter()
         frames, host, _ = decode(data, backend, read)
@@ -372,8 +336,8 @@ def split_decode(data: bytes, md5s, dev) -> dict:
     return {
         "wall_ms": wall * 1e3 / n,
         "decoder_host_ms": host * 1e3 / n,
-        "entropy_ms": sum(t.total for t in timers["entropy"]) * 1e3 / n,
-        "derive_ms": sum(t.total for t in timers["derive"]) * 1e3 / n,
+        "entropy_ms": SP.self_ms(rec.spans, "host.entropy") / n,
+        "derive_ms": SP.self_ms(rec.spans, "host.derive") / n,
         # the pack into the slot, the wait for the slot apart
         "pack_ms": (host_ms["pack"] - slot_wait) / n,
         "slot_wait_ms": slot_wait / n,
@@ -391,7 +355,7 @@ def split_decode(data: bytes, md5s, dev) -> dict:
         "d2h_wait_ms": wait * 1e3 / n if cuda else None,
         "d2h_ms": copy * 1e3 / n,
         # the inverse DRA of the output planes on the host, at pull time
-        "dra_ms": sum(t.total for t in timers["dra"]) * 1e3 / n,
+        "dra_ms": SP.self_ms(rec.spans, "host.dra") / n,
         "note": OVERLAP,
     }
 

@@ -5,6 +5,27 @@ API mirrors the reference `xevd_create/decode/pull` surface
 internal architecture: a host entropy pass emits per-frame tensor batches
 (frame.py), a host derive pass resolves motion/availability (derive.py), and
 a pixel backend (numpy oracle here; JAX/Pallas in ops/) reconstructs frames.
+
+Copy of xevd_tpu/decoder.py in xevd_tpu_torch.host (the port's own host
+half), with the port's spans (xevd_tpu_torch/spans.py): `host.parse`
+around each `decode`, `host.entropy` and `host.derive` around the entropy
+and derive calls of each slice (the entropy from the pool thread where it
+runs there), `host.dra` around the inverse DRA, and the numpy backend's
+deblock as `capture.numpy.deblock`; each call's first line edited, its
+argument lines as they were.  Edited lines:
+    from .. import spans as SP
+    SP.run("capture.numpy.deblock", deblock_frame_addb, (rec_y, rec_u, rec_v), job, sps)
+    SP.run("capture.numpy.deblock", RN.deblock_frame, (rec_y, rec_u, rec_v), job, sps)
+    @SP.span("host.parse")  # -- API ------------------------------------------
+    fut = self._entropy_pool.submit(SP.run, "host.entropy",
+    fs, native_job = SP.run("host.entropy", decode_slice_native,
+    job = SP.run("host.derive", job_from_native, fs, sps, sh, self.chroma_qp_tbl,
+    fs = SP.run("host.entropy", decode_slice_native_main,
+    job = SP.run("host.derive", derive_frame, fs, sps, pps, sh, refp,
+    job = SP.run("host.derive", derive_frame_native_main,
+    fs = SP.run("host.entropy", ent.decode_slice, bs, sh, num_refp)
+    job = SP.run("host.derive", derive_frame, fs, sps, pps, sh, refp, self.poc.poc_val,
+    SP.run("host.dra", apply_dra_inverse, y, u, v, luma_lut, chroma_lut)
 """
 from __future__ import annotations
 
@@ -12,7 +33,7 @@ import math
 from dataclasses import dataclass, field
 
 import numpy as np
-
+from .. import spans as SP
 from . import tables as T
 from .bitstream import BitReader
 from .derive import derive_frame
@@ -418,9 +439,9 @@ class NumpyPixelBackend:
         # 4) deblocking (ADDB when tool_addb, else the base filter)
         if job.addb_luma is not None:
             from .ops.ref_numpy_addb import deblock_frame_addb
-            deblock_frame_addb((rec_y, rec_u, rec_v), job, sps)
+            SP.run("capture.numpy.deblock", deblock_frame_addb, (rec_y, rec_u, rec_v), job, sps)
         else:
-            RN.deblock_frame((rec_y, rec_u, rec_v), job, sps)
+            SP.run("capture.numpy.deblock", RN.deblock_frame, (rec_y, rec_u, rec_v), job, sps)
 
         # 5) ALF (ref: src_main/xevdm.c:3209-3213, after deblock)
         if job.alf_param is not None:
@@ -476,7 +497,7 @@ class Decoder:
         self._scratch_flip = 0
         self._pull_retry = False
 
-    # -- API -----------------------------------------------------------
+    @SP.span("host.parse")  # -- API ------------------------------------------
     def decode(self, nalu: bytes) -> Stat:
         bs = BitReader(nalu)
         nal = parse_nalu_header(bs)
@@ -708,17 +729,17 @@ class Decoder:
                     from concurrent.futures import ThreadPoolExecutor
                     self._entropy_pool = ThreadPoolExecutor(max_workers=1)
                 self._scratch_flip ^= 1
-                fut = self._entropy_pool.submit(
+                fut = self._entropy_pool.submit(SP.run, "host.entropy",
                     decode_slice_native, payload, sps, pps, sh, num_refp,
                     self.chroma_qp_tbl, refp, self.poc.poc_val,
                     self._scratch_flip)
                 self._drain_pipeline()
                 fs, native_job = fut.result()
             else:
-                fs, native_job = decode_slice_native(
+                fs, native_job = SP.run("host.entropy", decode_slice_native,
                     payload, sps, pps, sh, num_refp, self.chroma_qp_tbl,
                     refp=refp, poc=self.poc.poc_val)
-            job = job_from_native(fs, sps, sh, self.chroma_qp_tbl,
+            job = SP.run("host.derive", job_from_native, fs, sps, sh, self.chroma_qp_tbl,
                                   native_job)
         elif self.use_native_entropy and sps.is_main:
             from .native import decode_slice_native_main
@@ -728,35 +749,35 @@ class Decoder:
                     from concurrent.futures import ThreadPoolExecutor
                     self._entropy_pool = ThreadPoolExecutor(max_workers=1)
                 self._scratch_flip ^= 1
-                fut = self._entropy_pool.submit(
+                fut = self._entropy_pool.submit(SP.run, "host.entropy",
                     decode_slice_native_main, payload, sps, pps, sh,
                     num_refp, self.chroma_qp_tbl, self.log2_ctu,
                     self._scratch_flip)
                 self._drain_pipeline()
                 fs = fut.result()
             else:
-                fs = decode_slice_native_main(
+                fs = SP.run("host.entropy", decode_slice_native_main,
                     payload, sps, pps, sh, num_refp, self.chroma_qp_tbl,
                     self.log2_ctu)
             if getattr(sps, "tool_dmvr", 0) and sh.slice_type == T.SLICE_B:
                 # DMVR refinement runs inside the derive loop (refined MVs
                 # feed HMVP / the stored map); the C derive has no DMVR,
                 # so B slices of DMVR streams use the Python derive.
-                job = derive_frame(fs, sps, pps, sh, refp,
+                job = SP.run("host.derive", derive_frame, fs, sps, pps, sh, refp,
                                    self.poc.poc_val, self.chroma_qp_tbl,
                                    num_refp=num_refp,
                                    log2_ctu=self.log2_ctu)
             else:
                 from .native import derive_frame_native_main
-                job = derive_frame_native_main(
+                job = SP.run("host.derive", derive_frame_native_main,
                     fs, sps, pps, sh, refp, self.poc.poc_val,
                     self.chroma_qp_tbl, num_refp, self.log2_ctu)
         else:
             self._drain_pipeline()
             ent = EntropyDecoder(sps, pps, self.chroma_qp_tbl,
                                  log2_ctu=self.log2_ctu)
-            fs = ent.decode_slice(bs, sh, num_refp)
-            job = derive_frame(fs, sps, pps, sh, refp, self.poc.poc_val,
+            fs = SP.run("host.entropy", ent.decode_slice, bs, sh, num_refp)
+            job = SP.run("host.derive", derive_frame, fs, sps, pps, sh, refp, self.poc.poc_val,
                                self.chroma_qp_tbl, num_refp=num_refp,
                                log2_ctu=self.log2_ctu)
         if getattr(sh, "alf_on", 0):
@@ -852,7 +873,7 @@ class Decoder:
         y = np.array(np.asarray(y))
         u = None if u is None else np.array(np.asarray(u))
         v = None if v is None else np.array(np.asarray(v))
-        apply_dra_inverse(y, u, v, luma_lut, chroma_lut)
+        SP.run("host.dra", apply_dra_inverse, y, u, v, luma_lut, chroma_lut)
         return y, u, v
 
     def _check_signature(self, sig) -> bool:

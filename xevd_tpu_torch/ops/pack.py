@@ -38,6 +38,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import spans as SP
 from ..host import tables as T
 from ..host.syntax import UnsupportedStream
 
@@ -1114,10 +1115,12 @@ def stage_batch(pb: PackedBatch, slot) -> PackedBatch:
     """`pb` with its payload and coefficients copied into a staging slot
     (ops/staging.py `HostSlot`, grown if need be; pinned on a card), from
     which `upload_batch` copies without blocking the host: the host's part
-    of a GOP step's upload."""
+    of a GOP step's upload.  Counts the bytes it copies (`stage.bytes`,
+    xevd_tpu_torch/spans.py)."""
     slot.reserve(pb.payload.size, pb.coefs.size)
     for name, src in (("payload", pb.payload), ("coefs", pb.coefs)):
         getattr(slot, name)[:src.size].copy_(torch.from_numpy(src).view(-1))
+        SP.add("stage.bytes", src.nbytes)
     return dataclasses.replace(
         pb, payload=slot.payload_np[:pb.payload.size],
         coefs=slot.coefs_np[:pb.coefs.size].reshape(pb.coefs.shape),

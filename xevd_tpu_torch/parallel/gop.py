@@ -75,6 +75,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .. import spans as SP
 from ..device import resolve_device
 from ..host import NAL_UNIT_LENGTH_BYTE, Decoder, info
 from ..host import tables as T
@@ -136,8 +137,10 @@ class _Capture(NumpyPixelBackend):
             raise UnsupportedStream("torch GOP batch: 4:2:0 only")
 
     def decode_frame(self, job, sps, refp):
-        pf = PK.pack_frame(job, sps, refp, plane=np.asarray)
-        rec = NumpyPixelBackend.decode_frame(self, job, sps, refp)
+        with SP.span("capture.pack"):
+            pf = PK.pack_frame(job, sps, refp, plane=np.asarray)
+        with SP.span("capture.numpy"):
+            rec = NumpyPixelBackend.decode_frame(self, job, sps, refp)
         self.frames.append({"pack": dataclasses.replace(pf, refs=()),
                             "rec": rec, "poc": self.dec.poc.poc_val})
         return rec
@@ -146,12 +149,18 @@ class _Capture(NumpyPixelBackend):
 def _capture_gop(data: bytes) -> list:
     """Serially decode one GOP with the numpy oracle; per frame a dict of
     its pack (`PackedFrame`, refs dropped), the oracle's planes `rec`
-    (y, u, v; CTU-padded, unbordered) and its `poc`."""
+    (y, u, v; CTU-padded, unbordered) and its `poc`.  The first frame's
+    dict also holds `spans`, the `spans.Record` of the capture: the span
+    `capture.gop` (all of it), the decoder's `host.*` spans and per picture
+    `capture.pack` and `capture.numpy`."""
     cap = _Capture()
-    dec = Decoder(backend=cap)
-    cap.dec = dec
-    for nalu in _nalu_walk(data):
-        dec.decode(nalu)
+    with SP.record() as rec, SP.span("capture.gop"):
+        dec = Decoder(backend=cap)
+        cap.dec = dec
+        for nalu in _nalu_walk(data):
+            dec.decode(nalu)
+    if cap.frames:
+        cap.frames[0]["spans"] = rec
     return cap.frames
 
 
@@ -334,6 +343,7 @@ class _DeviceRun:
         return out
 
 
+@SP.entry()
 def decode_gops_sharded(streams: list[bytes], mesh=None,
                         n_devices: int | None = None, verbose=False,
                         captures=None, stats: dict | None = None,
@@ -347,38 +357,58 @@ def decode_gops_sharded(streams: list[bytes], mesh=None,
     the step count, the DPB depth, the batch size of each step, the
     frames, `seconds`, the host clock from the first upload to the last
     output on the host, and `host_bytes`, the staging slots and output
-    buffers the devices' runs hold on the host (pinned on a card).  `on_stage(name)`, if given, marks each step of
-    each device (`_DeviceRun.step`)."""
+    buffers the devices' runs hold on the host (pinned on a card).
+    `on_stage(name)`, if given, marks each step of each device
+    (`_DeviceRun.step`).
+
+    Each call is an entry call of `spans` (numbered; the last KEEP kept):
+    the spans `entry.plan` (`_plan`), `entry.alloc` (the `_DeviceRun`s),
+    `entry.steps` (the steps to `finish`: `seconds`), `entry.outputs` (the
+    outputs and their MD5s) and `entry.serial` (the captured planes' MD5s,
+    and their luma sum where `stats` is given), the counter `stage.bytes`,
+    and the spans of each capture, taken in from its first frame's
+    `spans`."""
     if mesh is None:
         mesh = make_mesh(n_devices)
     caps = (list(captures) if captures is not None
             else [_capture_gop(s) for s in streams])
+    for c in caps:
+        if c and "spans" in c[0]:
+            SP.take(c[0]["spans"])
     G = len(caps)
     if G == 0 or G % len(mesh):
         raise ValueError(f"{G} GOPs do not tile a mesh of {len(mesh)}")
-    D, plan = _plan(caps, len(mesh))
+    with SP.span("entry.plan"):
+        D, plan = _plan(caps, len(mesh))
     h, w = caps[0][0]["pack"].geom[:2]
-    runs = [_DeviceRun(dev, gops, steps, D, h, w)
-            for dev, (gops, steps) in zip(mesh, plan)]
-    t0 = time.perf_counter()
-    for t in range(max(len(r.steps) for r in runs)):
-        for r in runs:             # the devices' streams run side by side
-            if t < len(r.steps):
-                r.step(t, on_stage)
-    for r in runs:
-        r.finish()
-    seconds = time.perf_counter() - t0
-    checksum = int(sum(r.checksum.to(mesh[0]) for r in runs))
-    device_md5s = [None] * G
-    for r in runs:
-        for g, frames in r.outputs().items():
-            device_md5s[g] = [_crop_md5(*p, h, w) for p in frames]
-    serial_md5s = [[_crop_md5(*fr["rec"], h, w) for fr in c] for c in caps]
+    with SP.span("entry.alloc"):
+        runs = [_DeviceRun(dev, gops, steps, D, h, w)
+                for dev, (gops, steps) in zip(mesh, plan)]
+    with SP.span("entry.steps"):
+        t0 = time.perf_counter()
+        for t in range(max(len(r.steps) for r in runs)):
+            for r in runs:  # the devices' streams run side by side
+                if t < len(r.steps):
+                    r.step(t, on_stage)
+        for r in runs:
+            r.finish()
+        seconds = time.perf_counter() - t0
+    with SP.span("entry.outputs"):
+        checksum = int(sum(r.checksum.to(mesh[0]) for r in runs))
+        device_md5s = [None] * G
+        for r in runs:
+            for g, frames in r.outputs().items():
+                device_md5s[g] = [_crop_md5(*p, h, w) for p in frames]
+    with SP.span("entry.serial"):
+        serial_md5s = [[_crop_md5(*fr["rec"], h, w) for fr in c]
+                       for c in caps]
+        if stats is not None:
+            stats["serial_checksum"] = sum(
+                int(fr["rec"][0][:h, :w].astype(np.int64).sum())
+                for c in caps for fr in c)
     if stats is not None:
         stats.update(
             checksum=checksum,
-            serial_checksum=sum(int(fr["rec"][0][:h, :w].astype(np.int64)
-                                    .sum()) for c in caps for fr in c),
             steps=max(len(r.steps) for r in runs), depth=D,
             batches=[[pb.G for pb in r.steps] for r in runs],
             frames=sum(len(c) for c in caps), seconds=seconds,
@@ -414,7 +444,9 @@ def main(argv=None) -> int:
         tmp.write_bytes(pickle.dumps(frames))
         tmp.replace(a.capture[1])
         print(json.dumps({"frames": len(frames),
-                          "seconds": time.perf_counter() - t0}))
+                          "seconds": time.perf_counter() - t0,
+                          "self_ms": SP.self_ms_by_name(
+                              frames[0]["spans"].spans)}))
         return 0
     if not a.streams:
         ap.error("no GOP streams")
@@ -424,10 +456,12 @@ def main(argv=None) -> int:
     dev, ser = decode_gops_sharded([p.read_bytes() for p in a.streams],
                                    mesh=mesh, verbose=True, stats=stats)
     ok = dev == ser and stats["checksum"] == stats["serial_checksum"]
+    (rec,) = SP.calls(1)
     print(f"{len(a.streams)} GOPs, {stats['frames']} frames in "
           f"{stats['steps']} steps on {len(mesh)} {mesh[0].type} device(s): "
           f"{'bit-exact (MD5-compared)' if ok else 'MISMATCH'}; device "
-          f"{stats['seconds'] * 1e3:.3f} ms")
+          f"{stats['seconds'] * 1e3:.3f} ms; self ms by span "
+          f"{json.dumps(SP.self_ms_by_name(rec.spans))}")
     return 0 if ok else 1
 
 
