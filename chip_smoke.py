@@ -1546,7 +1546,8 @@ def big_gop_phase(torch, dev, K, results, worker):
         raise AssertionError(f"big GOP stream worker failed (rc "
                              f"{worker.returncode}):\n{err[-4000:]}")
     t0 = time.perf_counter()
-    caps = [TG._capture_gop((WORK / "biggop" / f"{g}.evc").read_bytes())
+    caps = [TG._capture_gop((WORK / "biggop" / f"{g}.evc").read_bytes(),
+                            oracle=True)
             for g in range(len(BIG_GOP_SPECS))]
     log(f"phase gop past 32 ring pictures: {len(caps)} 64x64 two-frame "
         f"IPPP GOPs on one card; streams {json.loads(out)['gen_s']:.1f} s, "
@@ -1589,7 +1590,8 @@ def main_gop_phase(torch, dev, K, results, worker):
         raise AssertionError(f"Main GOP stream worker failed (rc "
                              f"{worker.returncode}):\n{err[-4000:]}")
     t0 = time.perf_counter()
-    caps = [TG._capture_gop((WORK / "maingop" / f"{g}.evc").read_bytes())
+    caps = [TG._capture_gop((WORK / "maingop" / f"{g}.evc").read_bytes(),
+                            oracle=True)
             for g in range(len(main_gop_specs()))]
     if not all(fr["pack"].main_taps and fr["pack"].iqt for c in caps
                for fr in c):

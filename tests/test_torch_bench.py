@@ -110,7 +110,7 @@ def test_bench_gop_batch_on_cpu_mesh(fixtures_dir):
     any of its stages)."""
     caps = [TG._capture_gop(_stream(fixtures_dir, f"bench_cpu_gop{g}", 64, 64,
                                     2 + g, 30, 1000 + 7 * g, "IPPP")
-                            .read_bytes()) for g in range(2)]
+                            .read_bytes(), oracle=True) for g in range(2)]
     r = B.run_gop(caps, TG.make_mesh(["cpu"]), runs=1)
     assert r["equal"] and r["device"] == "cpu" and r["gops"] == 2
     assert r["frames"] == 5 and r["steps"] == 3

@@ -354,14 +354,14 @@ def test_gop_intra_scan_repeated(dev, gop_captures, G, t):
 def main_gop_captures():
     """Three Main IPPP GOPs of 2, 3 and 4 frames at 192x128 with iqt, ATS,
     ADMVP (the Main MC taps) and cm_init, captured by the port's host
-    decoder."""
+    decoder with the serial oracle's planes."""
     from xevd_tpu_torch.parallel.gop import _capture_gop
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
     import evc_enc
     tools = evc_enc.Tools(iqt=1, ats=1, admvp=1, cm_init=1)
     return [_capture_gop(evc_enc.encode_stream(
         192, 128, 2 + g, 30, 1100 + 7 * g, "IPPP", 0.5, profile=1,
-        tools=tools)) for g in range(3)]
+        tools=tools), oracle=True) for g in range(3)]
 
 
 @pytest.mark.parametrize("G", [1, 3])
@@ -383,12 +383,14 @@ def test_gop_batched_kernels_match_plain_main_taps(dev, main_gop_captures,
 @pytest.fixture(scope="module")
 def forty_gop_captures():
     """Forty two-frame 64x64 IPPP GOPs (D x G_dev = 40 DPB pictures on one
-    card), captured by the port's host decoder."""
+    card), captured by the port's host decoder with the serial oracle's
+    planes."""
     from xevd_tpu_torch.parallel.gop import _capture_gop
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
     import evc_enc
     return [_capture_gop(evc_enc.encode_stream(
-        64, 64, 2, 30, 2000 + 7 * g, "IPPP", 0.5)) for g in range(40)]
+        64, 64, 2, 30, 2000 + 7 * g, "IPPP", 0.5), oracle=True)
+        for g in range(40)]
 
 
 def test_gop_batch_beyond_32_ring_slots(dev, forty_gop_captures):

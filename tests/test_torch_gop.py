@@ -102,7 +102,7 @@ def test_gop_batch_finds_references_by_decode_steps_not_poc():
     still equals the serial oracle's."""
     use_port_native_library()
     streams = JG.gen_gop_streams(3, w=64, h=64, frames=3, variable=True)
-    caps = [TG._capture_gop(s) for s in streams]
+    caps = [TG._capture_gop(s, oracle=True) for s in streams]
     mesh = TG.make_mesh(["cpu"])
     plain = {}
     want = TG.decode_gops_sharded(None, mesh=mesh, captures=caps,
@@ -126,14 +126,14 @@ def _pad(p, pad):
 @pytest.fixture(scope="module")
 def step_frames():
     """Four 3-frame IPPP GOPs captured by both packers: the port's
-    (`TG._capture_gop`) and JAX's (one sticky packer over all GOPs, as
+    (`TG._capture_gop`, with the oracle's planes) and JAX's (one sticky packer over all GOPs, as
     its decode_gops_sharded packs them)."""
     use_port_native_library()
     streams = JG.gen_gop_streams(4, w=64, h=64, frames=3)
     packer = PL.JaxPixelBackend()
     for s in streams:
         JG._capture_gop(s, packer, collect=False)
-    return ([TG._capture_gop(s) for s in streams],
+    return ([TG._capture_gop(s, oracle=True) for s in streams],
             [JG._capture_gop(s, packer, collect=True) for s in streams])
 
 

@@ -174,7 +174,7 @@ def test_gop4k_tools_at_full_width_equal_serial(fixtures_dir):
     caps = [TG._capture_gop(_stream(
         fixtures_dir, f"gop4k_wide{g}", 3840, 64, 2 + g, 32, 1600 + 7 * g,
         "IPPP", 10, profile=1, tools=B.MAIN_GOP_TOOLS,
-        density=0.3).read_bytes()) for g in range(2)]
+        density=0.3).read_bytes(), oracle=True) for g in range(2)]
     assert all(fr["pack"].main_taps and fr["pack"].iqt and fr["pack"].bd == 10
                for c in caps for fr in c)
     stats = {}

@@ -29,7 +29,7 @@ ENTRY_SPANS = ("entry.plan", "entry.alloc", "entry.steps", "entry.outputs",
 METRICS = ("capture_parse_ms", "capture_entropy_ms", "capture_derive_ms",
            "capture_pack_ms", "capture_numpy_ms", "capture_return_ms",
            "entry_alloc_ms", "entry_outputs_ms", "entry_serial_ms",
-           "stage_gbps", "idle_unnamed_ms")
+           "stage_gbps", "idle_unnamed_ms", "capture_oracle_pct")
 
 
 def S(name, a, b, parent=None):
@@ -152,7 +152,7 @@ def test_the_recorders_cost_is_measured():
 
 def test_capture_spans_nest_and_cover_the_capture(gops):
     native.get_lib()                  # as each capture worker does first
-    cap = TG._capture_gop(gops[0])
+    cap = TG._capture_gop(gops[0], oracle=True)
     again = pickle.loads(pickle.dumps(cap))
     assert len(again) == len(cap) == 3
     assert ["spans" in fr for fr in again] == [True, False, False]
@@ -172,11 +172,12 @@ def test_capture_spans_nest_and_cover_the_capture(gops):
     whole = spans[0].end_ns - spans[0].start_ns
     assert SP.self_ns(spans, "capture.gop") < 0.01 * whole
     assert sum(s.name == "capture.numpy" for s in spans) == 3
-    assert made.counts == {}
+    assert made.counts == {"capture.pictures": 3,
+                           "capture.oracle_pictures": 3}
 
 
 def test_entry_takes_the_captures_spans_and_covers_its_call(gops):
-    caps = [TG._capture_gop(g) for g in gops]
+    caps = [TG._capture_gop(g, oracle=True) for g in gops]
     stats = {}
     t0 = time.perf_counter_ns()
     dev, ser = TG.decode_gops_sharded(None, mesh=TG.make_mesh(["cpu"]),
@@ -222,8 +223,9 @@ def us(seconds):
 def synthetic_run(n=1):
     """n jobs, each 20 s after the one before, each of them: two GOPs'
     capture spans (1-9 s and 1.5-8.5 s), the entry's spans 9.5-10.2 s with
-    its marks at 10.000-10.003 s, 2 MB staged; the trace on a clock OFF us
-    ahead, the card busy 10.0005-10.0015 s."""
+    its marks at 10.000-10.003 s, 2 MB staged, 6 pictures captured, each
+    also by the numpy oracle; the trace on a clock OFF us ahead, the card
+    busy 10.0005-10.0015 s."""
     jobs, ranges, device = [], [(T.WINDOW, us(0.5), us(20 * n - 9.7))], []
     for q in range(n):
         d = 20.0 * q
@@ -245,6 +247,8 @@ def synthetic_run(n=1):
         with SP.entry() as rec:
             rec.spans.extend(spans)
             SP.add("stage.bytes", 2_000_000)
+            SP.add("capture.pictures", 6)
+            SP.add("capture.oracle_pictures", 6)
         marks = [(name, t + d) for name, t in MARKS]
         m = T.Marks(traced=False, cuda=False, steps=1)
         m.marks = [(name, None, t) for name, t in marks]
@@ -264,7 +268,7 @@ def synthetic_run(n=1):
 
 
 WANT = (7000.0, 2000.0, 500.0, 500.0, 5000.0, 500.0, 200.0, 96.0, 100.0,
-        2.0, 500.0)
+        2.0, 500.0, 100.0)
 
 
 @pytest.mark.parametrize("name,want", zip(METRICS, WANT))

@@ -7,11 +7,12 @@ step: the per-frame pixel pipeline `jax.vmap`'d over the GOP axis, that
 axis sharded over a mesh, the DPB carried on the device and a psum'd
 checksum.  Here:
 
-  host    each GOP is entropy-decoded and derived serially by the port's
-          host `Decoder` over the numpy oracle backend (`_capture_gop`),
-          which keeps each frame's pack (ops/pack.py; its reference planes
-          dropped -- the device DPB supplies them), the oracle's planes and
-          the POC;
+  host    each GOP is parsed, entropy-decoded and derived serially by the
+          port's host `Decoder` over a backend that packs each frame
+          (`_capture_gop`) and keeps its pack (ops/pack.py; no reference
+          plane read -- the device DPB supplies them) and its POC; it
+          decodes no pixel.  The checks also ask for the numpy oracle's
+          planes of each frame (`oracle=True`), held to the batch's;
   device  the GOPs are split over the mesh's devices in equal blocks, as
           JAX shards them; each device works on a CUDA stream of its own,
           and uploads on a second one.  Every step is stacked first
@@ -58,7 +59,8 @@ no batched kernel.  Baseline IPPP GOPs are the path.
         GOP.evc ...         decode the GOPs as one batch; every frame's MD5
                             must equal the serial oracle's
     python -m xevd_tpu_torch.parallel.gop --capture GOP.evc OUT.pkl
-                            capture one GOP into a file (a worker process)
+                            capture one GOP, with the oracle's planes, into
+                            a file (a worker process)
 """
 from __future__ import annotations
 
@@ -115,8 +117,34 @@ def _nalu_walk(data: bytes):
         pos += ln
 
 
-class _Capture(NumpyPixelBackend):
-    """The numpy oracle backend, keeping each frame's pack, planes and POC;
+class _NoPixels:
+    """A plane of a picture that the capture does not decode, of the shape
+    of the decoder's pad-expanded plane: the host `Decoder` keeps it in its
+    DPB, `pack_mc` checks each MC window against its shape, and reading a
+    sample raises, so a stream that would need host pixels fails instead
+    of decoding wrong."""
+    __slots__ = ("shape",)
+
+    def __init__(self, shape):
+        self.shape = shape
+
+    def _read(self, *_):
+        raise RuntimeError("torch GOP batch: the capture decodes no pixels "
+                           "on the host, and this stream read one")
+
+    __getitem__ = __array__ = __iter__ = _read
+
+
+def _dpb_plane(plane):
+    """`pack_frame`'s `plane`: a reference picture's plane as the DPB
+    holds it.  `pack_mc` reads only its shape, and the pack's refs are
+    dropped (the device DPB supplies them)."""
+    return plane
+
+
+class _Capture:
+    """The backend of a GOP's capture: packs each frame and keeps its pack
+    and POC, and hands the decoder placeholder planes (`_NoPixels`);
     refuses at the SPS what the GOP batch cannot decode."""
 
     def __init__(self):
@@ -138,22 +166,45 @@ class _Capture(NumpyPixelBackend):
 
     def decode_frame(self, job, sps, refp):
         with SP.span("capture.pack"):
-            pf = PK.pack_frame(job, sps, refp, plane=np.asarray)
+            pf = PK.pack_frame(job, sps, refp, plane=_dpb_plane)
+        SP.add("capture.pictures")
+        self.frames.append({"pack": dataclasses.replace(pf, refs=()),
+                            "poc": self.dec.poc.poc_val})
+        fs = job.fs
+        c = ((fs.h >> 1) + 2 * PAD_C, (fs.w >> 1) + 2 * PAD_C)
+        return (_NoPixels((fs.h + 2 * PAD_L, fs.w + 2 * PAD_L)),
+                _NoPixels(c), _NoPixels(c))
+
+    def make_picture_planes(self, rec_planes, fs, sps):
+        return rec_planes
+
+
+class _OracleCapture(_Capture):
+    """The capture that also decodes each picture with the numpy oracle
+    and keeps its planes as the frame's `rec`: the serial oracle that
+    `decode_gops_sharded` holds the batch to."""
+    make_picture_planes = NumpyPixelBackend.make_picture_planes
+
+    def decode_frame(self, job, sps, refp):
+        _Capture.decode_frame(self, job, sps, refp)
         with SP.span("capture.numpy"):
             rec = NumpyPixelBackend.decode_frame(self, job, sps, refp)
-        self.frames.append({"pack": dataclasses.replace(pf, refs=()),
-                            "rec": rec, "poc": self.dec.poc.poc_val})
+        SP.add("capture.oracle_pictures")
+        self.frames[-1]["rec"] = rec
         return rec
 
 
-def _capture_gop(data: bytes) -> list:
-    """Serially decode one GOP with the numpy oracle; per frame a dict of
-    its pack (`PackedFrame`, refs dropped), the oracle's planes `rec`
-    (y, u, v; CTU-padded, unbordered) and its `poc`.  The first frame's
-    dict also holds `spans`, the `spans.Record` of the capture: the span
-    `capture.gop` (all of it), the decoder's `host.*` spans and per picture
-    `capture.pack` and `capture.numpy`."""
-    cap = _Capture()
+def _capture_gop(data: bytes, oracle: bool = False) -> list:
+    """Serially parse, entropy-decode, derive and pack one GOP; per frame a
+    dict of its pack (`PackedFrame`, refs dropped) and its `poc`.  No pixel
+    is decoded on the host.  With `oracle`, each frame also holds `rec`,
+    the numpy oracle's planes (y, u, v; CTU-padded, unbordered).  The
+    first frame's dict also holds `spans`, the `spans.Record` of the
+    capture: the span `capture.gop` (all of it), the decoder's `host.*`
+    spans, per picture `capture.pack` (and with `oracle` `capture.numpy`),
+    and the counters `capture.pictures` and `capture.oracle_pictures` (the
+    pictures the numpy oracle decoded)."""
+    cap = _OracleCapture() if oracle else _Capture()
     with SP.record() as rec, SP.span("capture.gop"):
         dec = Decoder(backend=cap)
         cap.dec = dec
@@ -350,28 +401,31 @@ def decode_gops_sharded(streams: list[bytes], mesh=None,
                         on_stage=None):
     """Decode `streams` (one independent IDR-led GOP each), or `captures`
     made elsewhere by `_capture_gop`, as one batch per time step on each
-    device of `mesh` (`make_mesh(n_devices)` by default).  Returns
-    (device_md5s, serial_md5s): per GOP, per frame plane digests, equal
-    iff the batched decode is bit-exact against the serial oracle.
-    `stats`, if given, receives the checksum (device), the serial one,
-    the step count, the DPB depth, the batch size of each step, the
-    frames, `seconds`, the host clock from the first upload to the last
-    output on the host, and `host_bytes`, the staging slots and output
-    buffers the devices' runs hold on the host (pinned on a card).
+    device of `mesh` (`make_mesh(n_devices)` by default).  `streams` are
+    captured with the serial oracle.  Returns (device_md5s, serial_md5s):
+    per GOP, per frame plane digests, equal iff the batched decode is
+    bit-exact against the serial oracle; serial_md5s is None unless every
+    captured frame holds the oracle's planes (`rec`), and then no serial
+    work is done.  `stats`, if given, receives the checksum (device), the
+    serial one (where serial_md5s is not None), the step count, the DPB
+    depth, the batch size of each step, the frames, `seconds`, the host
+    clock from the first upload to the last output on the host, and
+    `host_bytes`, the staging slots and output buffers the devices' runs
+    hold on the host (pinned on a card).
     `on_stage(name)`, if given, marks each step of each device
     (`_DeviceRun.step`).
 
     Each call is an entry call of `spans` (numbered; the last KEEP kept):
     the spans `entry.plan` (`_plan`), `entry.alloc` (the `_DeviceRun`s),
     `entry.steps` (the steps to `finish`: `seconds`), `entry.outputs` (the
-    outputs and their MD5s) and `entry.serial` (the captured planes' MD5s,
-    and their luma sum where `stats` is given), the counter `stage.bytes`,
-    and the spans of each capture, taken in from its first frame's
-    `spans`."""
+    outputs and their MD5s) and, with the oracle's planes, `entry.serial`
+    (their MD5s, and their luma sum where `stats` is given), the counter
+    `stage.bytes`, and the spans and counters of each capture, taken in
+    from its first frame's `spans`."""
     if mesh is None:
         mesh = make_mesh(n_devices)
     caps = (list(captures) if captures is not None
-            else [_capture_gop(s) for s in streams])
+            else [_capture_gop(s, oracle=True) for s in streams])
     for c in caps:
         if c and "spans" in c[0]:
             SP.take(c[0]["spans"])
@@ -399,13 +453,15 @@ def decode_gops_sharded(streams: list[bytes], mesh=None,
         for r in runs:
             for g, frames in r.outputs().items():
                 device_md5s[g] = [_crop_md5(*p, h, w) for p in frames]
-    with SP.span("entry.serial"):
-        serial_md5s = [[_crop_md5(*fr["rec"], h, w) for fr in c]
-                       for c in caps]
-        if stats is not None:
-            stats["serial_checksum"] = sum(
-                int(fr["rec"][0][:h, :w].astype(np.int64).sum())
-                for c in caps for fr in c)
+    serial_md5s = None
+    if all("rec" in fr for c in caps for fr in c):
+        with SP.span("entry.serial"):
+            serial_md5s = [[_crop_md5(*fr["rec"], h, w) for fr in c]
+                           for c in caps]
+            if stats is not None:
+                stats["serial_checksum"] = sum(
+                    int(fr["rec"][0][:h, :w].astype(np.int64).sum())
+                    for c in caps for fr in c)
     if stats is not None:
         stats.update(
             checksum=checksum,
@@ -416,6 +472,10 @@ def decode_gops_sharded(streams: list[bytes], mesh=None,
     if verbose:
         for g in range(G):
             for t in range(len(device_md5s[g])):
+                if serial_md5s is None:
+                    print(f"gop {g} frame {t}: device "
+                          f"{device_md5s[g][t][:12]}")
+                    continue
                 ok = device_md5s[g][t] == serial_md5s[g][t]
                 print(f"gop {g} frame {t}: device {device_md5s[g][t][:12]} "
                       f"serial {serial_md5s[g][t][:12]} "
@@ -439,14 +499,15 @@ def main(argv=None) -> int:
     a = ap.parse_args(argv)
     if a.capture:
         t0 = time.perf_counter()
-        frames = _capture_gop(a.capture[0].read_bytes())
+        frames = _capture_gop(a.capture[0].read_bytes(), oracle=True)
         tmp = a.capture[1].with_suffix(".tmp")
         tmp.write_bytes(pickle.dumps(frames))
         tmp.replace(a.capture[1])
+        made = frames[0]["spans"]
         print(json.dumps({"frames": len(frames),
                           "seconds": time.perf_counter() - t0,
-                          "self_ms": SP.self_ms_by_name(
-                              frames[0]["spans"].spans)}))
+                          "counts": made.counts,
+                          "self_ms": SP.self_ms_by_name(made.spans)}))
         return 0
     if not a.streams:
         ap.error("no GOP streams")
