@@ -2,8 +2,9 @@
 on the CPU: the capture packs each picture and decodes no pixel, its packs
 equal the oracle capture's (`oracle=True`, which also decodes each picture
 with the numpy oracle) field by field, and `decode_gops_sharded` does its
-serial check only where the captures hold the oracle's planes; the
-counters `capture.pictures` and `capture.oracle_pictures` and the
+serial check only where the captures hold the oracle's planes, and hashes
+the outputs without a copy (`entry.md5.*`); the counters
+`capture.pictures` and `capture.oracle_pictures` and the
 benchmark's reader of them (evcbench/metrics/capture_oracle_pct.py)."""
 import dataclasses
 import json
@@ -20,6 +21,8 @@ from xevd_tpu_torch.bench import MAIN_GOP_TOOLS
 from xevd_tpu_torch.host import Decoder, native
 from xevd_tpu_torch.ops.pack import PackedFrame
 from xevd_tpu_torch.parallel import gop as TG
+
+from .test_torch_gop_md5 import _kept_md5
 
 REPO = Path(__file__).resolve().parent.parent
 MESH = TG.make_mesh(["cpu"])
@@ -125,6 +128,13 @@ def test_entry_over_pixel_free_captures_does_no_serial_work(gops, kind):
     assert "entry.outputs" in names and "entry.serial" not in names
     assert rec.counts["capture.pictures"] == 5
     assert "capture.oracle_pictures" not in rec.counts
+    # the outputs hashed as they are, on the pool: every cropped byte once,
+    # none copied; the digests are the kept formula's of the oracle's planes
+    assert rec.counts["entry.md5.bytes"] == 5 * 2 * (64 * 64 + 2 * 32 * 32)
+    assert rec.counts["entry.md5.copied_bytes"] == 0
+    assert rec.counts["entry.md5.threads"] == TG.MD5_THREADS
+    assert dev == [[_kept_md5(*fr["rec"], 64, 64) for fr in c]
+                   for c in oracle]
 
 
 def test_stream_path_still_holds_the_batch_to_the_oracle(gops):
@@ -137,6 +147,9 @@ def test_stream_path_still_holds_the_batch_to_the_oracle(gops):
     assert sum(s.name == "entry.serial" for s in rec.spans) == 1
     assert rec.counts["capture.pictures"] == \
         rec.counts["capture.oracle_pictures"] == 5
+    # the outputs' and the oracle's pictures hashed, each byte once
+    assert rec.counts["entry.md5.bytes"] == 2 * 5 * 2 * (64 * 64
+                                                         + 2 * 32 * 32)
 
 
 def test_cli_captures_with_the_oracle_and_prints_its_counters(

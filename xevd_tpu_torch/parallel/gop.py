@@ -75,11 +75,14 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import hashlib
 import json
+import os
 import pickle
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -222,14 +225,60 @@ def _capture_gop(data: bytes, oracle: bool = False) -> list:
     return cap.frames
 
 
+_AS_U2 = (np.dtype("<i2"), np.dtype("<u2"))
+
+
+def _u2_samples(p, ph, pw):
+    """(samples, copied): plane `p` cropped to ph x pw as uint16 LE
+    samples.  A C-contiguous little-endian int16 or uint16 crop (the
+    entry's host buffers) is viewed as it is: int16's two's complement
+    bytes are the bytes `astype("<u2")` makes of every value.  Any other
+    crop (the oracle's CTU-padded planes, other dtypes) is converted into
+    a copy, and `copied` is True."""
+    c = np.asarray(p)[:ph, :pw]
+    if c.dtype in _AS_U2 and c.flags.c_contiguous:
+        return c.view("<u2"), False
+    return np.ascontiguousarray(c).astype("<u2"), True
+
+
 def _crop_md5(y, u, v, h, w):
-    """MD5 over the cropped 4:2:0 planes (uint16 LE, like the picture
-    signature in src_base/xevd_util.c:985-1002)."""
+    """(MD5 over the cropped 4:2:0 planes, uint16 LE like the picture
+    signature in src_base/xevd_util.c:985-1002; the bytes hashed; the
+    bytes that had to be copied to hash them)."""
     m = hashlib.md5()
+    n = copied = 0
     for p, ph, pw in ((y, h, w), (u, h >> 1, w >> 1), (v, h >> 1, w >> 1)):
-        m.update(np.ascontiguousarray(
-            np.asarray(p[:ph, :pw]).astype("<u2")).tobytes())
-    return m.hexdigest()
+        b, was_copied = _u2_samples(p, ph, pw)
+        m.update(memoryview(b))     # hashlib drops the GIL over large buffers
+        n += b.nbytes
+        copied += b.nbytes if was_copied else 0
+    return m.hexdigest(), n, copied
+
+
+# the digests' threads: hashing is CPU-bound, one thread a core (32 at
+# most: a job hashes 24-32 pictures); the capture workers are idle while
+# the entry runs
+MD5_THREADS = min(os.cpu_count() or 1, 32)
+
+
+@functools.cache
+def _md5_pool() -> ThreadPoolExecutor:
+    """The process's digest pool, made at its first use and kept, as
+    `_streams` keeps its streams."""
+    return ThreadPoolExecutor(MD5_THREADS, thread_name_prefix="gop-md5")
+
+
+def _md5s(gops: list, h: int, w: int) -> list:
+    """Per GOP, `_crop_md5` of each (y, u, v) of its pictures, in their
+    order, all hashed side by side on the digest pool; adds the bytes
+    hashed to the counter `entry.md5.bytes` and those copied to
+    `entry.md5.copied_bytes`."""
+    done = list(_md5_pool().map(lambda p: _crop_md5(*p, h, w),
+                                [p for pictures in gops for p in pictures]))
+    SP.add("entry.md5.bytes", sum(n for _, n, _ in done))
+    SP.add("entry.md5.copied_bytes", sum(c for _, _, c in done))
+    digests = iter(d for d, _, _ in done)
+    return [[next(digests) for _ in pictures] for pictures in gops]
 
 
 def _plan(caps, n_dev):
@@ -425,10 +474,13 @@ def decode_gops_sharded(streams: list[bytes], mesh=None,
     Each call is an entry call of `spans` (numbered; the last KEEP kept):
     the spans `entry.plan` (`_plan`), `entry.alloc` (the `_DeviceRun`s),
     `entry.steps` (the steps to `finish`: `seconds`), `entry.outputs` (the
-    outputs and their MD5s) and, with the oracle's planes, `entry.serial`
-    (their MD5s, and their luma sum where `stats` is given), the counter
-    `stage.bytes`, and the spans and counters of each capture, taken in
-    from its first frame's `spans`."""
+    outputs and their MD5s, hashed on the digest pool while the caller
+    waits) and, with the oracle's planes, `entry.serial` (their MD5s, and
+    their luma sum where `stats` is given), the counters `stage.bytes`,
+    `entry.md5.bytes` and `entry.md5.copied_bytes` (`_md5s`: 0 copied for
+    the outputs; the oracle's padded planes are copied) and
+    `entry.md5.threads` (the pool's size), and the spans and counters of
+    each capture, taken in from its first frame's `spans`."""
     if mesh is None:
         mesh = make_mesh(n_devices)
     caps = (list(captures) if captures is not None
@@ -456,15 +508,15 @@ def decode_gops_sharded(streams: list[bytes], mesh=None,
         seconds = time.perf_counter() - t0
     with SP.span("entry.outputs"):
         checksum = int(sum(r.checksum.to(mesh[0]) for r in runs))
-        device_md5s = [None] * G
-        for r in runs:
-            for g, frames in r.outputs().items():
-                device_md5s[g] = [_crop_md5(*p, h, w) for p in frames]
+        outs = {g: frames for r in runs
+                for g, frames in r.outputs().items()}
+        device_md5s = _md5s([outs[g] for g in range(G)], h, w)
+        SP.add("entry.md5.threads", MD5_THREADS)
     serial_md5s = None
     if all("rec" in fr for c in caps for fr in c):
         with SP.span("entry.serial"):
-            serial_md5s = [[_crop_md5(*fr["rec"], h, w) for fr in c]
-                           for c in caps]
+            serial_md5s = _md5s([[fr["rec"] for fr in c] for c in caps],
+                                h, w)
             if stats is not None:
                 stats["serial_checksum"] = sum(
                     int(fr["rec"][0][:h, :w].astype(np.int64).sum())
@@ -529,7 +581,8 @@ def main(argv=None) -> int:
           f"{stats['steps']} steps on {len(mesh)} {mesh[0].type} device(s): "
           f"{'bit-exact (MD5-compared)' if ok else 'MISMATCH'}; device "
           f"{stats['seconds'] * 1e3:.3f} ms; self ms by span "
-          f"{json.dumps(SP.self_ms_by_name(rec.spans))}")
+          f"{json.dumps(SP.self_ms_by_name(rec.spans))}; counters "
+          f"{json.dumps(rec.counts)}")
     return 0 if ok else 1
 
 
