@@ -17,7 +17,9 @@ from xevd_tpu_torch import bench as B
 from xevd_tpu_torch.ops.pipeline import STAGES
 from xevd_tpu_torch.parallel import gop as TG
 
-from .test_torch_slice import _decode, _stream
+from .test_torch_slice import _stream
+from .torch_helpers import one_torch_thread
+from .torch_jax_reference import jax_md5s
 
 # name, w, h, frames, qp, seed, gop, profile, tools
 STREAMS = {
@@ -37,29 +39,23 @@ STEP_KEYS = ("G", "stage_ms", "copy_issue_ms", "upload_host_ms",
              "deblock_device_ms", "alf_device_ms", "pad_device_ms")
 
 
-def _stream_and_md5s(fixtures_dir, tmp_path, key):
+def _stream_and_md5s(fixtures_dir, key):
     """A generated stream's bytes and the JAX backend's per-frame 10-bit
-    MD5s (its decode cached beside the stream, as the slice tests do)."""
+    MD5s (stored, tests/torch_jax_reference.py)."""
     name, w, h, n, qp, seed, gop, profile, tools = STREAMS[key]
-    stream = _stream(fixtures_dir, name, w, h, n, qp, seed, gop,
-                     profile=profile, tools=tools)
-    jax_out = stream.with_suffix(".jax.yuv")
-    if not jax_out.exists():
-        rc, out = _decode(stream, tmp_path / "jax.yuv", "jax")
-        assert rc == 0
-        tmp = jax_out.with_suffix(f".{id(out)}.tmp")
-        tmp.write_bytes(out)
-        tmp.replace(jax_out)
-    return stream.read_bytes(), B.yuv_md5s(jax_out.read_bytes(), w, h)
+    data = _stream(fixtures_dir, name, w, h, n, qp, seed, gop,
+                   profile=profile, tools=tools).read_bytes()
+    return data, jax_md5s(data, w, h, name)
 
 
 @pytest.mark.parametrize("key", list(STREAMS))
-def test_bench_config_on_cpu_equals_jax(fixtures_dir, tmp_path, key, capsys):
+def test_bench_config_on_cpu_equals_jax(fixtures_dir, key, capsys):
     """run_config on the CPU: every decode equal to JAX's frame by frame,
     one timed run, the host split with its keys and no device number, and
     bench.py's keys in the report."""
-    data, md5s = _stream_and_md5s(fixtures_dir, tmp_path, key)
-    r = B.run_config(data, md5s, device="cpu", runs=1)
+    data, md5s = _stream_and_md5s(fixtures_dir, key)
+    with one_torch_thread():
+        r = B.run_config(data, md5s, device="cpu", runs=1)
     assert capsys.readouterr().out == ""
     assert r["device"] == "cpu" and r["frames"] == len(md5s)
     assert len(r["fps_runs"]) == 1 and r["fps_median"] > 0
@@ -89,10 +85,10 @@ def test_bench_config_on_cpu_equals_jax(fixtures_dir, tmp_path, key, capsys):
     json.dumps(out)
 
 
-def test_bench_refuses_an_altered_md5(fixtures_dir, tmp_path, capsys):
+def test_bench_refuses_an_altered_md5(fixtures_dir, capsys):
     """One oracle MD5 altered: run_config raises OracleMismatch, naming the
     frame, and prints nothing (no timing)."""
-    data, md5s = _stream_and_md5s(fixtures_dir, tmp_path, "baseline_ippp")
+    data, md5s = _stream_and_md5s(fixtures_dir, "baseline_ippp")
     bad = list(md5s)
     bad[2] = "0" * 32
     with pytest.raises(B.OracleMismatch, match=r"frames \[2\]"):

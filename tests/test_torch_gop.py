@@ -27,6 +27,7 @@ from xevd_tpu_torch.ops.tables import BORDER, PAD_C, PAD_L, device_tables
 from xevd_tpu_torch.parallel import gop as TG
 
 from .torch_helpers import use_port_native_library
+from .torch_jax_reference import jax_gop_md5s
 
 TAB = device_tables(torch.device("cpu"))
 
@@ -41,26 +42,17 @@ def streams():
             for k, (_, g, f, v) in CASES.items()}
 
 
-@pytest.fixture(scope="module")
-def jax_md5s(streams):
-    """JAX's decode_gops_sharded of every case, once per module, on the
-    conftest's 8-device CPU mesh."""
-    use_port_native_library()
-    assert len(jax.devices()) >= 8
-    return {k: JG.decode_gops_sharded(streams[k], mesh=JG.make_mesh(n))
-            for k, (n, _, _, _) in CASES.items()}
-
-
 @pytest.mark.parametrize("case", list(CASES))
-def test_gop_batch_equals_serial_and_jax(case, streams, jax_md5s):
+def test_gop_batch_equals_serial_and_jax(case, streams):
     """Every frame's MD5 equals the port's serial oracle and JAX's sharded
-    decode; the checksum equals the serial planes' sum."""
+    decode (stored, tests/torch_jax_reference.py, made on the conftest's
+    8-device CPU mesh); the checksum equals the serial planes' sum."""
     n = CASES[case][0]
     stats = {}
     dev, ser = TG.decode_gops_sharded(streams[case],
                                       mesh=TG.make_mesh(["cpu"] * n),
                                       stats=stats)
-    jdev, jser = jax_md5s[case]
+    jdev, jser = jax_gop_md5s(streams[case], n, f"gop_{case}")
     assert dev == ser
     assert dev == jdev == jser
     assert stats["checksum"] == stats["serial_checksum"] > 0
@@ -80,15 +72,14 @@ def test_gop_batch_beyond_32_ring_slots():
     more than a frame's 32-entry MC pointer table; batched MC addresses
     the DPB ring by its strides, so the batch takes them, as JAX's step
     does.  Every frame's MD5 equals the serial oracle and JAX's
-    decode_gops_sharded on one device."""
-    use_port_native_library()
+    decode_gops_sharded on one device (stored)."""
     streams = JG.gen_gop_streams(33, w=64, h=64, frames=2)
     stats = {}
     dev, ser = TG.decode_gops_sharded(streams, mesh=TG.make_mesh(["cpu"]),
                                       stats=stats)
     assert stats["depth"] * 33 > PK.MAX_REF_SLOTS
     assert stats["batches"] == [[33, 33]]
-    jdev, jser = JG.decode_gops_sharded(streams, mesh=JG.make_mesh(1))
+    jdev, jser = jax_gop_md5s(streams, 1, "gop_beyond_32_ring_slots")
     assert dev == ser
     assert dev == jdev == jser
     assert stats["checksum"] == stats["serial_checksum"] > 0
@@ -351,13 +342,13 @@ def test_main_gop_pair_equals_serial_and_jax(evc_tools, tools, bd):
     with the taps at 10 bits (config 5's 4K GOPs' tools; the batched
     recon's clip, deblock's tc and the taps' shifts at 10 bits): every
     frame's MD5 equals the port's serial oracle and JAX's
-    decode_gops_sharded on a 2-device mesh."""
-    use_port_native_library()
+    decode_gops_sharded on a 2-device mesh (stored)."""
     streams = [_gen(64, 64, 3, s, bd=bd, profile=1, tools=tools)
                for s in (1001, 1008)]
     stats = {}
     dev, ser = TG.decode_gops_sharded(streams, mesh=MESH, stats=stats)
-    jdev, jser = JG.decode_gops_sharded(streams, mesh=JG.make_mesh(2))
+    jdev, jser = jax_gop_md5s(
+        streams, 2, f"main_gop_pair_{bd}bit{'_taps' if tools else ''}")
     assert dev == ser
     assert dev == jdev == jser
     assert stats["checksum"] == stats["serial_checksum"] > 0

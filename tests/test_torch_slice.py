@@ -1,12 +1,14 @@
 """The PyTorch port's Baseline all-intra slice end to end, on the CPU.
 
 Each stream is decoded by the torch backend (plain PyTorch versions) under
-the port's own `Decoder` (`xevd_tpu_torch.host`), and by the JAX backend
-and the numpy oracle backend under `xevd_tpu`'s; the written YUV must be
-equal byte for byte (`assert_backends_agree`, which the inter-slice files
-test_torch_inter_p.py and test_torch_inter_ra.py and the Main files
-test_torch_main_*.py share), so every case also holds the host copy equal
-to its original.  Streams the port does not cover are refused."""
+the port's own `Decoder` (`xevd_tpu_torch.host`), and by the numpy oracle
+backend under `xevd_tpu`'s; the written YUV must be equal byte for byte,
+and equal frame by frame to the JAX backend's decode, whose MD5s
+tests/torch_jax_reference.py stores (`assert_backends_agree`, which the
+inter-slice files test_torch_inter_p.py and test_torch_inter_ra.py and
+the Main files test_torch_main_*.py share), so every case also holds the
+host copy equal to its original.  Streams the port does not cover are
+refused."""
 import subprocess
 import sys
 
@@ -16,7 +18,8 @@ import pytest
 from xevd_tpu_torch import UnsupportedStream
 
 from .conftest import REPO, make_stream
-from .torch_helpers import use_port_native_library
+from .torch_helpers import one_torch_thread, use_port_native_library
+from .torch_jax_reference import assert_equals_jax
 
 CASES = [
     # name, w, h, frames, qp, seed, gop, bd (tests/test_golden.py:20-24)
@@ -53,31 +56,23 @@ def _decode(stream, out, backend, out_bd=10):
 def assert_backends_agree(fixtures_dir, tmp_path, name, w, h, n, qp, seed,
                           gop, bd, profile=0, tools=(), frames=None):
     """Decode one generated stream with the torch backend (the port's
-    `Decoder`) and the JAX and numpy backends (`xevd_tpu`'s `Decoder`); all
+    `Decoder`) and the numpy backend (`xevd_tpu`'s `Decoder`); all
     `frames` frames written (default n; an RA stream rounds n up to whole
-    GOPs), the three outputs equal.  `profile` 1 with `tools`
-    (tools/evc_enc.py Tools flags) makes a Main stream."""
+    GOPs), the two outputs equal, and every frame equal to the JAX
+    backend's (its stored decode, tests/torch_jax_reference.py).
+    `profile` 1 with `tools` (tools/evc_enc.py Tools flags) makes a Main
+    stream."""
     stream = _stream(fixtures_dir, name, w, h, n, qp, seed, gop, bd,
                      profile=profile, tools=tools)
     outs = {}
-    # the JAX package is frozen: its decode of a stream is cached next to
-    # the stream (streams are cached by name), which saves its compiles
-    jax_out = stream.with_suffix(".jax.yuv")
-    if jax_out.exists():
-        outs["jax"] = jax_out.read_bytes()
-    for backend in ("torch", "jax", "numpy"):
-        if backend in outs:
-            continue
-        rc, outs[backend] = _decode(stream, tmp_path / f"{backend}.yuv",
-                                    backend)
-        assert rc == 0, backend
-        if backend == "jax":
-            tmp = jax_out.with_suffix(f".{id(outs)}.tmp")
-            tmp.write_bytes(outs["jax"])
-            tmp.replace(jax_out)
+    with one_torch_thread():
+        for backend in ("torch", "numpy"):
+            rc, outs[backend] = _decode(stream, tmp_path / f"{backend}.yuv",
+                                        backend)
+            assert rc == 0, backend
     # 4:2:0, 2 bytes a sample
     assert len(outs["torch"]) == (frames or n) * w * h * 3
-    assert outs["torch"] == outs["jax"], f"{name}: torch != jax"
+    assert_equals_jax(outs["torch"], stream.read_bytes(), w, h, name)
     assert outs["torch"] == outs["numpy"], f"{name}: torch != numpy"
 
 

@@ -23,15 +23,16 @@ from xevd_tpu_torch.ops.tables import PAD_C, PAD_L, device_tables
 from xevd_tpu_torch.parallel import gop as TG
 
 from .test_torch_gop import CASES as GOP_CASES
-from .test_torch_slice import _decode, _stream
-from .torch_helpers import captured_frames, use_port_native_library
+from .test_torch_slice import _stream
+from .torch_helpers import captured_frames, one_torch_thread
+from .torch_jax_reference import jax_gop_md5s, jax_md5s
 
 CPU = torch.device("cpu")
 MAIN_ALL = ("iqt", "ats", "admvp", "hmvp", "mmvd", "amvr", "btt", "suco",
             "adcc", "cm_init", "eipd")
 # the gate streams of test_torch_slice.py, test_torch_inter_p.py,
 # test_torch_inter_ra.py, test_torch_main_suco_ra.py and
-# test_torch_main_full.py (their JAX decodes are cached beside them):
+# test_torch_main_full.py (JAX's answers: tests/torch_jax_reference.json):
 # name, w, h, frames, qp, seed, gop, bd, profile, tools
 STREAMS = {
     "intra": ("i96x48", 96, 48, 2, 27, 4, "I", 8, 0, ()),
@@ -44,21 +45,13 @@ STREAMS = {
 }
 
 
-def _gate(fixtures_dir, tmp_path, key):
-    """(stream bytes, the JAX backend's per-frame 10-bit MD5s) of a gate
-    stream; JAX's decode is cached beside the stream, as the slice tests
-    cache it."""
+def _gate(fixtures_dir, key):
+    """(stream, the JAX backend's per-frame 10-bit MD5s) of a gate stream
+    (stored, tests/torch_jax_reference.py)."""
     name, w, h, n, qp, seed, gop, bd, profile, tools = STREAMS[key]
     stream = _stream(fixtures_dir, name, w, h, n, qp, seed, gop, bd,
                      profile=profile, tools=tools)
-    jax_out = stream.with_suffix(".jax.yuv")
-    if not jax_out.exists():
-        rc, out = _decode(stream, tmp_path / "jax.yuv", "jax")
-        assert rc == 0
-        tmp = jax_out.with_suffix(f".{id(out)}.tmp")
-        tmp.write_bytes(out)
-        tmp.replace(jax_out)
-    return stream, B.yuv_md5s(jax_out.read_bytes(), w, h)
+    return stream, jax_md5s(stream.read_bytes(), w, h, name)
 
 
 def _tables(rng, sizes):
@@ -101,12 +94,12 @@ def test_packer_with_buffer_equals_packer(case):
 
 
 @pytest.mark.parametrize("key", ["ippp", "main_ra", "main_suco_addb_alf"])
-def test_pack_into_slot_equals_fresh_pack(fixtures_dir, tmp_path, key):
+def test_pack_into_slot_equals_fresh_pack(fixtures_dir, key):
     """Every frame packed into the ring's slot equals the fresh pack of
     the same frame byte for byte (payload, layout, coefficients; ADDB's
     maps, SUCO's edge and run tables, ALF's parameters included), and the
     decode equals JAX's."""
-    stream, md5s = _gate(fixtures_dir, tmp_path, key)
+    stream, md5s = _gate(fixtures_dir, key)
     seen = set()
 
     class TwoPacks(TorchPixelBackend):
@@ -130,11 +123,11 @@ def test_pack_into_slot_equals_fresh_pack(fixtures_dir, tmp_path, key):
     assert want <= seen
 
 
-def test_cpu_upload_does_not_alias_its_slot(fixtures_dir, tmp_path):
+def test_cpu_upload_does_not_alias_its_slot(fixtures_dir):
     """On the CPU the upload clones: a slot overwritten right after its
     upload leaves the DeviceFrame's tensors unchanged, and the decode
     still equals JAX's."""
-    stream, md5s = _gate(fixtures_dir, tmp_path, "ippp")
+    stream, md5s = _gate(fixtures_dir, "ippp")
     checked = []
 
     class Scribbler(TorchPixelBackend):
@@ -190,15 +183,16 @@ def test_acquire_waits_on_the_slot_event():
 
 @pytest.mark.parametrize("depth", [1, 2, 3])
 @pytest.mark.parametrize("key", list(STREAMS))
-def test_staged_decode_equals_jax(fixtures_dir, tmp_path, key, depth):
+def test_staged_decode_equals_jax(fixtures_dir, key, depth):
     """A whole decode through `Decoder(backend=TorchPixelBackend("cpu"))`
     with a staging ring of `depth` slots, read behind the CLI's lookahead,
     equals the JAX backend frame by frame (exact), whatever the ring's
     depth."""
-    stream, md5s = _gate(fixtures_dir, tmp_path, key)
+    stream, md5s = _gate(fixtures_dir, key)
     backend = TorchPixelBackend("cpu")
     backend.staging = HostStaging(CPU, depth)
-    frames, _, _ = B.decode(stream.read_bytes(), backend)
+    with one_torch_thread():
+        frames, _, _ = B.decode(stream.read_bytes(), backend)
     B.check_frames(frames, md5s, f"{key} at depth {depth}")
     assert backend.staging.waits == 0       # no event on the CPU
 
@@ -206,14 +200,13 @@ def test_staged_decode_equals_jax(fixtures_dir, tmp_path, key, depth):
 @pytest.fixture(scope="module")
 def gop_streams():
     """Two of test_torch_gop.py's CASES (tests/test_multichip.py's):
-    their streams and JAX's decode_gops_sharded MD5s."""
-    use_port_native_library()
+    their streams and JAX's decode_gops_sharded MD5s (stored,
+    tests/torch_jax_reference.py)."""
     out = {}
     for case in ("2dev_2gop", "4dev_var"):
         n, g, f, v = GOP_CASES[case]
         streams = JG.gen_gop_streams(g, w=64, h=64, frames=f, variable=v)
-        out[case] = (n, streams, JG.decode_gops_sharded(
-            streams, mesh=JG.make_mesh(n)))
+        out[case] = (n, streams, jax_gop_md5s(streams, n, f"gop_{case}"))
     return out
 
 
@@ -243,13 +236,12 @@ def test_gop_batch_stages_every_step(gop_streams, case, monkeypatch):
                       for b in stats["batches"] for G in b[t:t + 1]]
 
 
-def test_kept_frame_replays_after_its_slot_is_rewritten(fixtures_dir,
-                                                        tmp_path):
+def test_kept_frame_replays_after_its_slot_is_rewritten(fixtures_dir):
     """A frame `captured_frames` keeps (a copy, detached from its slot)
     replays through the device half to its own decoded planes after the
     whole stream has been decoded through a ring of 2 slots; the kept
     payload no longer shares the slot, which holds a later frame."""
-    stream, _ = _gate(fixtures_dir, tmp_path, "ippp")
+    stream, _ = _gate(fixtures_dir, "ippp")
     kept = captured_frames(stream)
     frames, _, _ = B.decode(stream.read_bytes(), TorchPixelBackend("cpu"))
     tables = device_tables(CPU)

@@ -4,6 +4,7 @@ version cases that both tests/test_torch_cuda.py and chip_smoke.py run on
 the card.  Imports neither JAX nor `xevd_tpu` (host code comes from the
 port's own copy, `xevd_tpu_torch.host`), so it also serves on a machine
 without JAX."""
+import contextlib
 from dataclasses import dataclass
 from types import SimpleNamespace
 from typing import Callable
@@ -29,6 +30,21 @@ from xevd_tpu_torch.plane import DevicePlane
 # the oracle's process (torch_reference.py) loads no torch: its helper
 # lives there, and the tests take it from here
 from tests.torch_reference import use_port_native_library  # noqa: F401
+
+
+@contextlib.contextmanager
+def one_torch_thread():
+    """Run the body with one intra-op torch thread, then restore the count.
+    The suite runs in several processes at once (pytest-xdist); with
+    torch's default of a thread a core in each, the plain versions' many
+    small operations wait on cores the other processes hold: a gate
+    decode of ~2 s alone took 20-30 s in a parallel run."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 def quadtree(rng, H, W, log2_max, log2_min):
